@@ -1,0 +1,536 @@
+"""The neural mapper: first-frame mapping, global bundle adjustment (BA) and
+the dense SDF/uncertainty volumes (counterpart of
+naruto_tpu/mapping/mapper.py, with tracking off).
+
+  * first-frame mapping: ``first_iters`` iterations of (sample pixels ->
+    render -> loss -> Adam) on frame 0; the uncertainty grid's gradients
+    accumulate over all of them and are applied once at the end.
+  * global BA: ``iters`` iterations of {sample keyframe-DB rays plus
+    current-frame rays, keep ``sample`` + cur_cap/4 of them by active-ray
+    uncertainty selection, render, losses, backward, Adam on the hash table
+    (eps 1e-15) and the decoders (coupled weight decay 1e-6), and every
+    ``uncert_accum_iters`` iterations on the uncertainty grid with the
+    accumulated gradients}.
+  * volumes: the field's SDF and uncertainty on the planner's voxel grid,
+    uncertainty zeroed off-surface.
+
+The JAX ``lax.scan`` is a Python loop and its ``lax.cond``s are Python
+``if``s on the host-side iteration number. Every random draw is an
+argument: ``BADraws`` / ``FirstFrameDraws`` per iteration and one U[0, 1)
+score per pixel for a keyframe insertion; in a run they come from one
+``torch.Generator`` per draw site (utils/seeding.py), in the tests from
+replayed JAX key splits. The current-frame ray block is padded to one of
+``CUR_BUCKETS`` and masked, as in the JAX package.
+
+Not ported yet: tracking and pose optimisation, the sharded BA, mesh
+saving and full-state resume.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from naruto_tpu.geometry.rays import get_camera_rays
+from naruto_tpu.geometry.voxel import volume_shape, world_grid
+from naruto_tpu.utils.printer import InfoPrinter
+from naruto_tpu_torch.config import MainConfig
+from naruto_tpu_torch.mapping.field import (FieldSpec, init_field_params,
+                                            query_sdf)
+from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
+                                                sample_global_rays)
+from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
+                                             total_loss)
+from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
+from naruto_tpu_torch.ops.encoding import table_leaves
+from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
+from naruto_tpu_torch.utils.seeding import make_generators
+from naruto_tpu_torch.utils.weights import load_jax_params
+
+# padded current-ray block sizes, as in the JAX package
+CUR_BUCKETS = (512, 2048, 8192)
+
+EMBED_B1, EMBED_B2, EMBED_EPS = 0.9, 0.99, 1e-15
+
+
+class FirstFrameDraws(NamedTuple):
+    idx: torch.Tensor           # [sample] pixel indices in [0, H*W)
+    z_noise: torch.Tensor       # [sample, S] U[0, 1)
+
+
+class BADraws(NamedTuple):
+    g_idx: torch.Tensor         # [n_os] keyframe-DB ray indices
+    cur_j: torch.Tensor         # [cur_cap] picks among valid current pixels
+    z_noise: torch.Tensor       # [n_rays, S] U[0, 1)
+    smooth_offset: torch.Tensor  # [3] U[0, 1) lattice offset
+    smooth_jitter: torch.Tensor  # [3] U[0, 1) lattice jitter
+
+
+class BASetup(NamedTuple):
+    """Per-mapping-step invariants of the BA iterations."""
+    cur_cap: int
+    frame_rays: torch.Tensor
+    c2w: torch.Tensor
+    valid_order: torch.Tensor   # valid current pixels first (stable)
+    n_valid: int
+    num_cur: int
+
+
+class EmbedAdam:
+    """Adam for the hash table: betas (0.9, 0.99), eps 1e-15, fp32 master,
+    updated in place."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float):
+        self.lr = lr
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor]) -> None:
+        self.count += 1
+        bc1 = 1.0 / (1.0 - EMBED_B1 ** self.count)
+        bc2 = 1.0 / (1.0 - EMBED_B2 ** self.count)
+        for p, m, v, g in zip(params, self.mu, self.nu, grads):
+            m.mul_(EMBED_B1).add_(g, alpha=1.0 - EMBED_B1)
+            v.mul_(EMBED_B2).addcmul_(g, g, value=1.0 - EMBED_B2)
+            p.sub_((m * bc1) / (torch.sqrt(v * bc2) + EMBED_EPS),
+                   alpha=self.lr)
+
+
+def field_spec_from_config(cfg: MainConfig) -> FieldSpec:
+    m = cfg.mapper
+    return FieldSpec(
+        bound=tuple(tuple(b) for b in m.bound),
+        n_levels=cfg.grid.n_levels,
+        n_features=cfg.grid.n_features_per_level,
+        log2_hashmap_size=cfg.grid.hash_size,
+        base_resolution=cfg.grid.base_resolution,
+        table_dtype=cfg.grid.table_dtype,
+        table_layout=cfg.grid.layout,
+        sort_carry=cfg.grid.sort_carry,
+        voxel_sdf=cfg.grid.voxel_sdf,
+        pos_n_bins=cfg.grid.pos_n_bins,
+        geo_feat_dim=cfg.decoder.geo_feat_dim,
+        hidden_dim=cfg.decoder.hidden_dim,
+        num_layers=cfg.decoder.num_layers,
+        hidden_dim_color=cfg.decoder.hidden_dim_color,
+        num_layers_color=cfg.decoder.num_layers_color,
+        uncert_grid=cfg.decoder.uncert_grid,
+        pred_uncert=cfg.decoder.pred_uncert,
+        uncert_voxel_size=m.voxel_size,
+    )
+
+
+def _param_groups(params) -> Dict[str, List[torch.Tensor]]:
+    """The optimiser groups: hash table, decoders, uncertainty grid."""
+    return {"table": table_leaves(params["table"]),
+            "decoder": [*params["sdf_mlp"], *params["color_mlp"]],
+            "uncert": ([params["uncert_grid"]] if "uncert_grid" in params
+                       else [])}
+
+
+def _transform_rays(rays: torch.Tensor, poses: torch.Tensor):
+    """rays [N, 7] camera frame, poses [N, 4, 4] -> world
+    (rays_o, rays_d, rgb, depth)."""
+    rays_d = torch.einsum("nij,nj->ni", poses[:, :3, :3], rays[:, :3])
+    return poses[:, :3, 3], rays_d, rays[:, 3:6], rays[:, 6:7]
+
+
+class Mapper:
+    """Host-facing mapper with the reference's online API
+    (online_recon_step / predict_sdf) on one torch device."""
+
+    def __init__(self, cfg: MainConfig, device="cuda",
+                 printer: Optional[InfoPrinter] = None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Mapper(device='cuda') needs a CUDA device "
+                               "and none is available")
+        use_full_fp32_matmul()
+        self.cfg = cfg
+        self.printer = printer or InfoPrinter(quiet=True)
+        m, t, c = cfg.mapper, cfg.training, cfg.cam
+        if m.tracking_enable:
+            raise NotImplementedError("tracking is not ported yet")
+        dev = self.device
+
+        self.spec = field_spec_from_config(cfg)
+        self.rc = RenderConfig(
+            near=c.near, far=c.far, n_range_d=t.n_range_d, range_d=t.range_d,
+            n_samples_d=t.n_samples_d, n_importance=t.n_importance,
+            perturb=t.perturb, trunc=t.trunc, sc_factor=t.sc_factor)
+        self.lw = LossWeights(
+            rgb=t.rgb_weight, depth=t.depth_weight, sdf=t.sdf_weight,
+            fs=t.fs_weight, uncert=t.uncert_weight, smooth=t.smooth_weight,
+            rgb_missing=t.rgb_missing, trunc=t.trunc, sc_factor=t.sc_factor,
+            depth_trunc=c.depth_trunc, smooth_pts=t.smooth_pts,
+            smooth_vox=t.smooth_vox, smooth_margin=t.smooth_margin,
+            smooth_sample=t.smooth_sample)
+
+        self.H, self.W = c.H // c.downsample, c.W // c.downsample
+        self.fx, self.fy = c.fx // c.downsample, c.fy // c.downsample
+        self.cx, self.cy = c.cx // c.downsample, c.cy // c.downsample
+        self.rays_d_cam = torch.from_numpy(get_camera_rays(
+            self.H, self.W, self.fx, self.fy, self.cx, self.cy
+        ).reshape(-1, 3)).to(dev)
+
+        num_frames = -(-cfg.general.num_iter // 1000) * 1000
+        self.num_kf = -(-(num_frames // m.keyframe_every + 1) // 256) * 256
+        self.rays_per_kf = max(int(self.H * self.W * m.n_pixels), 1)
+
+        self.vol_shape = volume_shape(m.bound_np, m.voxel_size)
+        grid = world_grid(m.bound_np, m.voxel_size).reshape(-1, 3)
+        self.grid01 = torch.from_numpy(
+            (grid - m.bound_np[:, 0]) / (m.bound_np[:, 1] - m.bound_np[:, 0])
+        ).to(dev)
+        self._bound_lo = torch.from_numpy(m.bound_np[:, 0]).to(dev)
+        self._vol_max = torch.tensor([s - 1 for s in self.vol_shape],
+                                     device=dev)
+
+        self.gens = make_generators(cfg.general.seed, dev)
+        self.params = init_field_params(self.spec, self.gens["init"], dev)
+        self._groups = _param_groups(self.params)
+        for p in self._all_params():
+            p.requires_grad_(True)
+        self.embed_opt = EmbedAdam(self._groups["table"], m.lr_embed)
+        self.decoder_opt = torch.optim.Adam(
+            self._groups["decoder"], lr=m.lr_decoder, betas=(0.9, 0.99),
+            eps=1e-8, weight_decay=1e-6)
+        self.uncert_opt = (torch.optim.Adam(
+            self._groups["uncert"], lr=m.lr_uncert, betas=(0.9, 0.99),
+            eps=1e-8) if self.spec.uncert_grid else None)
+        self.uncert_accum = (torch.zeros_like(self.params["uncert_grid"])
+                             if self.spec.uncert_grid else None)
+
+        self.kf = KeyframeDB(self.num_kf, self.rays_per_kf, dev)
+        self.poses = torch.eye(4, device=dev).repeat(num_frames + 1, 1, 1)
+        self.uncert_vol = torch.zeros(self.vol_shape, device=dev)
+        self.step = 0
+        # per-iteration losses (device scalars) of the last mapping call
+        self.last_aux: List[Dict] = []
+
+    def _all_params(self) -> List[torch.Tensor]:
+        return [p for g in self._groups.values() for p in g]
+
+    def update_step(self, step: int) -> None:
+        self.step = step
+
+    # ------------------------------------------------------------- weights
+    @torch.no_grad()
+    def load_weights(self, src) -> None:
+        """Copy field params from a JAX checkpoint path or an in-memory
+        pytree of numpy arrays (utils/weights.py) into this mapper."""
+        new_groups = _param_groups(load_jax_params(src, self.device))
+        for k, cur in self._groups.items():
+            got = new_groups[k]
+            shapes = ([tuple(t.shape) for t in got],
+                      [tuple(t.shape) for t in cur])
+            if shapes[0] != shapes[1]:
+                raise ValueError(f"checkpoint {k} shapes {shapes[0]} differ "
+                                 f"from the configured {shapes[1]} (another "
+                                 f"grid.layout or grid size?)")
+            for p, q in zip(cur, got):
+                p.copy_(q)
+
+    # ------------------------------------------------------ frame handling
+    def frame_to_rays(self, color, depth) -> torch.Tensor:
+        """[H, W, 3] colour in [0, 1] (or uint8), [H, W] depth -> [H*W, 7]
+        rays on the device. Host float colour is quantized to uint8 as in
+        the JAX package; device tensors pass through."""
+        if isinstance(color, np.ndarray) and color.dtype != np.uint8:
+            color = (np.clip(color, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        color = torch.as_tensor(color, device=self.device)
+        if color.dtype == torch.uint8:
+            color = color.reshape(-1, 3).to(torch.float32) * (1.0 / 255.0)
+        else:
+            color = color.to(torch.float32).reshape(-1, 3)
+        depth = torch.as_tensor(depth, dtype=torch.float32,
+                                device=self.device).reshape(-1, 1)
+        return torch.cat([self.rays_d_cam, color, depth], dim=-1)
+
+    # ------------------------------------------------------- loss + update
+    def _loss_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
+                 z_noise, smooth=None, smooth_scale: float = 1.0):
+        """smooth: (offset_u, jitter) lattice draws, or None for no
+        smoothness term this iteration."""
+        lw = (self.lw._replace(smooth=self.lw.smooth * smooth_scale)
+              if smooth_scale != 1.0 else self.lw)
+        with_smooth = smooth is not None
+        extra = None
+        if with_smooth and lw.smooth > 0:
+            extra, _ = smoothness_points(self.spec, lw, *smooth)
+        rend = render_rays(self.params, self.spec, self.rc, rays_o, rays_d,
+                           target_d, z_noise, extra_pts01=extra)
+        return total_loss(rend, target_rgb, target_d, ray_mask, lw,
+                          with_smooth=with_smooth)
+
+    def _grad_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
+                 z_noise, smooth=None, smooth_scale: float = 1.0):
+        """-> (aux, grads by group {"table", "decoder", "uncert"})."""
+        loss, aux = self._loss_fn(rays_o, rays_d, target_rgb, target_d,
+                                  ray_mask, z_noise, smooth, smooth_scale)
+        flat = torch.autograd.grad(loss, self._all_params())
+        grads, i = {}, 0
+        for k, g in self._groups.items():
+            grads[k] = list(flat[i:i + len(g)])
+            i += len(g)
+        return {k: v.detach() for k, v in aux.items()}, grads
+
+    @torch.no_grad()
+    def _apply_map_update(self, grads: Dict) -> None:
+        for p, g in zip(self._groups["decoder"], grads["decoder"]):
+            p.grad = g
+        self.decoder_opt.step()
+        for p in self._groups["decoder"]:
+            p.grad = None
+        self.embed_opt.step(self._groups["table"], grads["table"])
+
+    @torch.no_grad()
+    def _accum_uncert(self, grads: Dict) -> None:
+        if self.spec.uncert_grid:
+            self.uncert_accum += grads["uncert"][0]
+
+    @torch.no_grad()
+    def _apply_uncert_update(self) -> None:
+        if not self.spec.uncert_grid:
+            return
+        grid = self.params["uncert_grid"]
+        grid.grad = self.uncert_accum
+        self.uncert_opt.step()
+        grid.grad = None
+        self.uncert_accum = torch.zeros_like(grid)
+
+    # -------------------------------------------------- first-frame mapping
+    def _draw_first_frame(self) -> FirstFrameDraws:
+        n, dev = self.cfg.mapper.sample, self.device
+        return FirstFrameDraws(
+            idx=torch.randint(0, self.H * self.W, (n,), device=dev,
+                              generator=self.gens["first_frame_rays"]),
+            z_noise=torch.rand((n, self.rc.n_samples), device=dev,
+                               generator=self.gens["z_noise"]))
+
+    def _first_frame_impl(self, frame_rays, c2w,
+                          draws: Iterable[FirstFrameDraws]) -> List[Dict]:
+        n = self.cfg.mapper.sample
+        self.poses[0] = c2w
+        pose = c2w.expand(n, 4, 4)
+        mask = torch.ones((n,), device=self.device)
+        auxes = []
+        for d in draws:
+            rays_o, rays_d, rgb, dep = _transform_rays(frame_rays[d.idx],
+                                                       pose)
+            aux, grads = self._grad_fn(rays_o, rays_d, rgb, dep, mask,
+                                       d.z_noise)
+            self._apply_map_update(grads)
+            self._accum_uncert(grads)
+            auxes.append(aux)
+        self._apply_uncert_update()
+        return auxes
+
+    # ------------------------------------------------------------ global BA
+    def _n_os(self) -> int:
+        m = self.cfg.mapper
+        return m.sample * (m.act_ray_oversample_mul if m.active_ray else 1)
+
+    def _min_cur(self) -> int:
+        m = self.cfg.mapper
+        return m.min_pixels_cur * (m.act_ray_oversample_mul if m.active_ray
+                                   else 1)
+
+    def _ba_setup(self, cur_cap: int, frame_rays, c2w,
+                  frame_id: int) -> BASetup:
+        self.poses[frame_id] = c2w
+        depth = frame_rays[:, 6]
+        valid = (depth > 0.0) & (depth <= self.lw.depth_trunc)
+        n_valid = max(int(valid.sum()), 1)
+        valid_order = torch.argsort((~valid).to(torch.uint8), stable=True)
+        num_cur = min(max(self._n_os() // max(self.kf.count, 1),
+                          self._min_cur()), cur_cap)
+        return BASetup(cur_cap, frame_rays, c2w, valid_order, n_valid,
+                       min(max(num_cur, 0), n_valid))
+
+    def _ba_n_rays(self, cur_cap: int) -> int:
+        m = self.cfg.mapper
+        if m.active_ray:
+            return m.sample + cur_cap // 4
+        return self._n_os() + cur_cap
+
+    def _draw_ba(self, setup: BASetup) -> BADraws:
+        dev, g = self.device, self.gens
+        total = max(self.kf.count * self.kf.rays_per_slot, 1)
+        return BADraws(
+            g_idx=torch.randint(0, total, (self._n_os(),), device=dev,
+                                generator=g["global_rays"]),
+            cur_j=torch.randint(0, setup.n_valid, (setup.cur_cap,),
+                                device=dev, generator=g["current_rays"]),
+            z_noise=torch.rand((self._ba_n_rays(setup.cur_cap),
+                                self.rc.n_samples), device=dev,
+                               generator=g["z_noise"]),
+            smooth_offset=torch.rand((3,), device=dev,
+                                     generator=g["smoothness"]),
+            smooth_jitter=torch.rand((3,), device=dev,
+                                     generator=g["smoothness"]))
+
+    @torch.no_grad()
+    def _ba_batch(self, setup: BASetup, draws: BADraws):
+        """The iteration's rays (rays_o, rays_d, rgb, depth, mask): keyframe
+        rays plus current rays, then the active-ray selection."""
+        m = self.cfg.mapper
+        cur_cap, num_cur = setup.cur_cap, setup.num_cur
+        dev = self.device
+        g_rays, g_slots = sample_global_rays(self.kf, draws.g_idx)
+        c_rays = setup.frame_rays[setup.valid_order[draws.cur_j]]
+        g = _transform_rays(g_rays, self.poses[g_slots * m.keyframe_every])
+        c = _transform_rays(c_rays, setup.c2w.expand(cur_cap, 4, 4))
+        if not m.active_ray:
+            mask = torch.cat([torch.ones((self._n_os(),), device=dev),
+                              (torch.arange(cur_cap, device=dev)
+                               < num_cur).to(torch.float32)])
+            return (*(torch.cat([a, b]) for a, b in zip(g, c)), mask)
+
+        base, k_sel = m.sample, m.act_ray_num_uncert_sample
+        keep_cap = cur_cap // 4
+        cand_cap = cur_cap - keep_cap
+        num_keep = num_cur // 4
+        (g_o, g_d, _, g_dep), (c_o, c_d, _, c_dep) = g, c
+        cand_o = torch.cat([g_o[base:], c_o[:cand_cap]])
+        cand_d = torch.cat([g_d[base:], c_d[:cand_cap]])
+        cand_dep = torch.cat([g_dep[base:], c_dep[:cand_cap]])
+        cand_valid = torch.cat([
+            torch.ones((self._n_os() - base,), dtype=torch.bool, device=dev),
+            torch.arange(cand_cap, device=dev) < num_cur - num_keep])
+        pts = cand_o + cand_d * cand_dep
+        vi = torch.round((pts - self._bound_lo) * (1.0 / m.voxel_size)).long()
+        vi = torch.minimum(torch.clamp(vi, min=0), self._vol_max)
+        u = self.uncert_vol[vi[:, 0], vi[:, 1], vi[:, 2]]
+        score = -u if m.active_select_highest else u
+        score = torch.where(cand_valid, score, torch.inf)
+        # k smallest scores, ties to the lower index (as jax.lax.top_k)
+        sel = torch.sort(score, stable=True).indices[:k_sel]
+
+        def cat(ga, ca):
+            return torch.cat([torch.cat([ga[base:], ca[:cand_cap]])[sel],
+                              ga[:base - k_sel], ca[cand_cap:]])
+
+        mask = torch.cat([torch.ones((base,), device=dev),
+                          (torch.arange(keep_cap, device=dev)
+                           < num_keep).to(torch.float32)])
+        return (*(cat(a, b) for a, b in zip(g, c)), mask)
+
+    def _ba_iteration(self, setup: BASetup, draws: BADraws, it: int):
+        """One BA iteration: batch, loss, gradients, Adam steps.
+        Returns (aux, grads)."""
+        m = self.cfg.mapper
+        batch = self._ba_batch(setup, draws)
+        smooth = (draws.smooth_offset, draws.smooth_jitter)
+        smooth_every = max(int(self.cfg.training.smooth_every), 1)
+        if smooth_every == 1:
+            aux, grads = self._grad_fn(*batch, draws.z_noise, smooth)
+        elif it % smooth_every == 0:
+            # the fired iterations carry the whole call's smoothness weight
+            n_fired = -(-m.iters // smooth_every)
+            aux, grads = self._grad_fn(*batch, draws.z_noise, smooth,
+                                       m.iters / n_fired)
+        else:
+            aux, grads = self._grad_fn(*batch, draws.z_noise)
+        self._apply_map_update(grads)
+        self._accum_uncert(grads)
+        if self.spec.uncert_grid and (it + 1) % m.uncert_accum_iters == 0:
+            self._apply_uncert_update()
+        return aux, grads
+
+    def _ba_impl(self, cur_cap: int, frame_rays, c2w, frame_id: int,
+                 draws: Optional[Sequence[BADraws]] = None) -> List[Dict]:
+        """One global-BA mapping step; returns each iteration's losses."""
+        setup = self._ba_setup(cur_cap, frame_rays, c2w, frame_id)
+        auxes = []
+        for it in range(self.cfg.mapper.iters):
+            d = draws[it] if draws is not None else self._draw_ba(setup)
+            auxes.append(self._ba_iteration(setup, d, it)[0])
+        return auxes
+
+    def _pick_bucket(self, kf_count: int) -> int:
+        need = max(self._n_os() // max(kf_count, 1), self._min_cur())
+        for b in CUR_BUCKETS:
+            if b >= need:
+                return b
+        return CUR_BUCKETS[-1]
+
+    # ---------------------------------------------------------- keyframes
+    def add_keyframe(self, frame_rays, frame_id: int,
+                     score_u: Optional[torch.Tensor] = None) -> None:
+        if score_u is None:
+            score_u = torch.rand((frame_rays.shape[0],), device=self.device,
+                                 generator=self.gens["keyframe_scores"])
+        add_keyframe(self.kf, frame_rays, frame_id, score_u,
+                     depth_trunc=self.lw.depth_trunc,
+                     filter_depth=self.cfg.mapper.filter_depth)
+
+    # --------------------------------------------------------- map volumes
+    @torch.no_grad()
+    def _volumes_impl(self):
+        sdf, uncert = query_sdf(self.params, self.grid01, self.spec,
+                                with_uncert=True)
+        uncert_map = torch.nn.functional.softplus(uncert) + 0.01
+        on_surface = (sdf >= 0.0) & (sdf < 0.5)
+        uncert_map = torch.where(on_surface, uncert_map, 0.0)
+        return (uncert_map.reshape(self.vol_shape),
+                sdf.reshape(self.vol_shape))
+
+    def map_volumes(self):
+        """(uncert_vol, sdf_vol) device tensors; refreshes the cached
+        uncertainty volume the active-ray selection reads."""
+        u, s = self._volumes_impl()
+        self.uncert_vol = u
+        return u, s
+
+    def get_map_volumes(self):
+        return tuple(v.cpu().numpy() for v in self.map_volumes())
+
+    # ------------------------------------------------------------ online API
+    def needs_frame(self, i: int) -> bool:
+        m = self.cfg.mapper
+        return i == 0 or i % m.map_every == 0 or i % m.keyframe_every == 0
+
+    def online_recon_step(self, i: int, color, depth, c2w):
+        """One mapping step. Returns (uncert_vol, sdf_vol) device tensors on
+        mapping steps (step 0 and every map_every), else None. color/depth
+        may be None when needs_frame(i) is False."""
+        m = self.cfg.mapper
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.device)
+        frame_rays = (self.frame_to_rays(color, depth)
+                      if self.needs_frame(i) else None)
+        vols = None
+        if i == 0:
+            self.printer("First frame mapping...", i, "Mapper")
+            self.last_aux = self._first_frame_impl(
+                frame_rays, c2w,
+                (self._draw_first_frame() for _ in range(m.first_iters)))
+            self.add_keyframe(frame_rays, 0)
+            return self.map_volumes()
+        self.poses[i] = c2w
+        if i % m.map_every == 0:
+            bucket = self._pick_bucket(self.kf.count)
+            self.printer(f"Global BA (bucket={bucket})", i, "Mapper")
+            self.last_aux = self._ba_impl(bucket, frame_rays, c2w, i)
+            vols = self.map_volumes()
+        if i % m.keyframe_every == 0:
+            self.add_keyframe(frame_rays, i)
+        return vols
+
+    # ----------------------------------------------------------- query API
+    @torch.no_grad()
+    def predict_sdf(self, pts_world: np.ndarray,
+                    chunk: int = 1 << 17) -> np.ndarray:
+        """SDF at world points [N, 3] (host numpy in and out)."""
+        bound = self.spec.bound_np
+        x01 = torch.from_numpy(
+            (np.asarray(pts_world, dtype=np.float32) - bound[:, 0])
+            / (bound[:, 1] - bound[:, 0])).to(self.device)
+        outs = [query_sdf(self.params, x01[s:s + chunk], self.spec)
+                for s in range(0, x01.shape[0], chunk)]
+        return (torch.cat(outs).cpu().numpy() if outs
+                else np.zeros((0,), np.float32))
