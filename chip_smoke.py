@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero, and nothing is printed as a result):
   1. device and build: torch/CUDA versions, the card's name and power
-     limit, the hash-grid backward kernels compiled from csrc/ with nvcc;
+     limit, every kernel of the port compiled from csrc/ (one nvcc per
+     source, all started together);
   2. kernels: K2 chunk_totals and K1 outer_cumsum against their plain
      PyTorch versions on the same card tensors, at the mapping step's shape
      (M = 493,568 rows, 8 x 8) and at small shapes, with both timed;
@@ -16,7 +17,14 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      defaults (680x1200 frames rendered by the analytic simulator, L4F8
      hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
      the keyframe store filled to 22 keyframes; a warm window of BA steps
-     timed as bench.py times the JAX package (mapping iterations / s).
+     timed as bench.py times the JAX package (mapping iterations / s);
+  5. the hash-grid microbenchmarks: the kernels gather_rows,
+     sorted_segment_sum (bf16-rounded and exact f32) and row_cumsum against
+     their plain versions on the same card tensors at the scripts' sizes
+     (M = 3,000,000 updates, 201,088 slots, a 65,536-row level table) and at
+     ragged small M, both timed (CUDA events, and at the scripts' sizes
+     also the profiler's device time); then both ported microbenchmark scripts run
+     in this process, and their launch counts show every kernel ran.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON.
@@ -36,10 +44,29 @@ SEGMENT_TOL = 2e-6         # max |card - host| / max |cumsum of slot sums|
 SLICE_M, SLICE_K = 493_568, 8
 SMALL_SHAPES = ((512, 8, 4), (4608, 8, 4), (512, 2, 2), (4608, 2, 2))
 WINDOW_STEPS = 20          # timed BA steps in the warm window
-KERNEL_SOURCE = "naruto_tpu_torch/csrc/outer_cumsum.cu"
+PRIM_M, PRIM_T, PRIM_TS, PRIM_F = 3_000_000, 201_000, 65_536, 8
+RAGGED_M = (1, 2049, 5000)  # no multiple of any TPU block
+RAGGED_SLOTS = 4000
+PRIM_REPS = 50
+SLICE_KERNELS = ("chunk_totals", "outer_cumsum")
+PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
+SOURCE = {
+    "chunk_totals": "naruto_tpu_torch/csrc/outer_cumsum.cu",
+    "outer_cumsum": "naruto_tpu_torch/csrc/outer_cumsum.cu",
+    "gather_rows": "naruto_tpu_torch/csrc/gather_rows.cu",
+    "sorted_segment_sum": "naruto_tpu_torch/csrc/sorted_segment_sum.cu",
+    "row_cumsum": "naruto_tpu_torch/csrc/row_cumsum.cu",
+}
 REPLACES = {
-    "chunk_totals": "naruto_tpu/ops/pallas_kernels.py:78",
-    "outer_cumsum": "naruto_tpu/ops/pallas_kernels.py:57",
+    "chunk_totals": ["naruto_tpu/ops/pallas_kernels.py:78"],
+    "outer_cumsum": ["naruto_tpu/ops/pallas_kernels.py:57"],
+    "gather_rows": ["scripts/microbench_primitives.py:202",
+                    "scripts/microbench_primitives.py:234",
+                    "scripts/microbench_round2.py:112",
+                    "scripts/microbench_round2.py:131"],
+    "sorted_segment_sum": ["scripts/microbench_primitives.py:150",
+                           "scripts/microbench_round2.py:165"],
+    "row_cumsum": ["scripts/microbench_primitives.py:262"],
 }
 
 
@@ -220,9 +247,10 @@ def run_slice(torch, kernels, profile_dir) -> dict:
             losses += [a["total"] for a in mapper.last_aux]
             counts = kernels.launch_counts()
             log(f"[slice] step {i}: {n_it} iterations in {dt:.2f} s, "
-                f"launches so far {counts}, last loss "
+                f"launches so far "
+                f"{ {k: counts[k] for k in SLICE_KERNELS} }, last loss "
                 f"{float(mapper.last_aux[-1]['total']):.5f}")
-            if any(v != iters_run for v in counts.values()):
+            if any(counts[k] != iters_run for k in SLICE_KERNELS):
                 fail(f"kernel launches {counts} != iterations {iters_run}: "
                      f"a mapping iteration did not run both kernels once")
     log(f"[slice] steps 0..10 in {time.perf_counter() - t_all:.2f} s")
@@ -273,7 +301,7 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     elapsed = time.perf_counter() - t0
     iters_run += WINDOW_STEPS * m.iters
     counts = kernels.launch_counts()
-    if any(v != iters_run for v in counts.values()):
+    if any(counts[k] != iters_run for k in SLICE_KERNELS):
         fail(f"kernel launches {counts} != iterations {iters_run}")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
@@ -344,6 +372,124 @@ def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
     log(table)
 
 
+# ------------------------------------------------------------------ phase 5
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of one fn() in milliseconds: the kernels and copies that
+    torch.profiler traces over `reps` calls, summed, over reps. Unlike the
+    CUDA-event time it leaves out the device's wait on the host's enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation)
+    return busy_us / 1e3 / reps
+
+
+def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
+              profiled: bool = False) -> dict:
+    """One kernel against its plain version on the same card tensors, then
+    both timed: the median of PRIM_REPS CUDA-event launches, and where
+    `profiled`, the device time from the profiler."""
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"{name} {shape}: kernel gives {got.dtype} {tuple(got.shape)}, "
+             f"plain {ref.dtype} {tuple(ref.shape)}")
+    abs_err = float((got.float() - ref.float()).abs().max()) \
+        if got.numel() else 0.0
+    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
+    rel = abs_err / scale if scale else abs_err
+    if not math.isfinite(rel) or rel > tol:
+        fail(f"{name} {shape}: error {rel:.3e} of max|plain| > {tol}")
+    res = {"shape": shape, "max_abs_err": abs_err, "rel_err": rel,
+           "ms": cuda_ms(kernel, PRIM_REPS),
+           "plain_ms": cuda_ms(plain, PRIM_REPS)}
+    line = (f"[prims] {name} {shape}: max|kernel-plain| {abs_err:.3e} = "
+            f"{rel:.3e} of max|plain| (tol {tol}); kernel {res['ms']:.4f} "
+            f"ms, plain {res['plain_ms']:.4f} ms (median of {PRIM_REPS})")
+    if profiled:
+        res["device_ms"] = device_ms(torch, kernel)
+        res["plain_device_ms"] = device_ms(torch, plain)
+        line += (f"; device time kernel {res['device_ms']:.4f} ms, plain "
+                 f"{res['plain_device_ms']:.4f} ms (profiler)")
+    log(line)
+    return res
+
+
+def check_primitives(torch, prims, dev) -> dict:
+    """gather_rows, sorted_segment_sum and row_cumsum against their plain
+    versions at the scripts' sizes and at ragged M; returns, per kernel,
+    every case (the first is the scripts' main shape)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    res = {k: [] for k in PRIM_KERNELS}
+    table = torch.randn((PRIM_TS, PRIM_F), generator=gen, device=dev)
+    tables = (("[65536,8] bf16", table.bfloat16()),
+              ("[65536,1] bf16", table[:, :1].bfloat16().contiguous()),
+              ("[65536,8] f32", table))
+    for m in (PRIM_M,) + RAGGED_M:
+        idx = torch.randint(0, PRIM_TS, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for label, tbl in tables:
+            res["gather_rows"].append(prim_case(
+                torch, "gather_rows", f"{label} x {m}",
+                lambda: prims.gather_rows(tbl, idx),
+                lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
+                profiled=m == PRIM_M))
+    for m in (PRIM_M,) + RAGGED_M:
+        size = ((PRIM_T + 127) // 128) * 128 if m == PRIM_M else RAGGED_SLOTS
+        keys = torch.randint(0, size, (m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        keys[-1] = size - 1                 # the last slot is never missed
+        si = torch.sort(keys).values
+        vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
+        for rb in (True, False):
+            res["sorted_segment_sum"].append(prim_case(
+                torch, "sorted_segment_sum",
+                f"{'bf16' if rb else 'f32'} {m} -> [{size},{PRIM_F}]",
+                lambda: prims.sorted_segment_sum(si, vals, size,
+                                                 round_bf16=rb),
+                lambda: prims.sorted_segment_sum_plain(si, vals, size,
+                                                       round_bf16=rb),
+                prims.SEGMENT_TOL, profiled=m == PRIM_M))
+        res["row_cumsum"].append(prim_case(
+            torch, "row_cumsum", f"[{m},{PRIM_F}] f32",
+            lambda: prims.row_cumsum(vals),
+            lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
+            profiled=m == PRIM_M))
+    return res
+
+
+def run_microbenchmarks(torch, kernels) -> dict:
+    """Both ported microbenchmark scripts, in this process; fails unless
+    each of the three kernels was launched."""
+    from naruto_tpu_torch.scripts import microbench_primitives, microbench_round2
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    log("[bench] python -m naruto_tpu_torch.scripts.microbench_primitives "
+        "--quick")
+    microbench_primitives.main(["--quick"])
+    log("[bench] python -m naruto_tpu_torch.scripts.microbench_round2")
+    microbench_round2.main([])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[bench] both scripts in {time.perf_counter() - t0:.2f} s, launches "
+        f"{counts}")
+    missing = [k for k in PRIM_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"the microbenchmarks never launched {missing}")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -357,7 +503,7 @@ def main() -> None:
         fail("no CUDA device: the port runs on the card only")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from naruto_tpu_torch.ops import kernels, segment
+    from naruto_tpu_torch.ops import kernels, primitives, segment
 
     dev = torch.device("cuda")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -365,12 +511,17 @@ def main() -> None:
         f"x{torch.cuda.device_count()}")
     card = card_line()
     log(f"[device] {card}")
+    t0 = time.perf_counter()
     build = kernels.build()
-    log(f"[build] {KERNEL_SOURCE} built and loaded in {build['seconds']:.2f} "
-        f"s")
-    for line in build["ptxas"].splitlines():
-        if "ptxas info" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] {len(build)} sources built in parallel and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for src, rec in build.items():
+        took = "already built" if rec["seconds"] is None else \
+            f"nvcc {rec['seconds']:.2f} s"
+        log(f"[build] csrc/{src}.cu: {took}")
+        for line in rec["ptxas"].splitlines():
+            if "ptxas info" in line:
+                log(f"[build] {line.strip()}")
 
     kres = check_kernels(torch, kernels, dev)
     from naruto_tpu_torch.config import make_config
@@ -379,13 +530,25 @@ def main() -> None:
     spec = field_spec_from_config(make_config("Replica", "office0")).hash_spec
     check_segment_sum(torch, segment, spec, dev)
     sres = run_slice(torch, kernels, args.profile)
+    pres = check_primitives(torch, primitives, dev)
+    bench_launches = run_microbenchmarks(torch, kernels)
 
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": sres["launches"][name],
-         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"]}
-        for name in ("chunk_totals", "outer_cumsum")]}))
+    entries = []
+    for name in SLICE_KERNELS + PRIM_KERNELS:
+        if name in SLICE_KERNELS:
+            main_case, cases = kres[name], None
+            launches = sres["launches"][name]
+        else:
+            main_case, cases = pres[name][0], pres[name]
+            launches = bench_launches[name]
+        entry = {"name": name, "route": "cuda", "source": SOURCE[name],
+                 "replaces": REPLACES[name], "launches": launches,
+                 "max_abs_err": main_case["max_abs_err"],
+                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}
+        if cases:
+            entry["cases"] = cases
+        entries.append(entry)
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,7 +67,8 @@ class _Trilerp(torch.autograd.Function):
         d_vol = d_coords = None
         if ctx.needs_input_grad[0]:
             n_cells = (X - 1) * (Y - 1) * (Z - 1)
-            d_cell = dense_segment_sum(cell, g[:, None] * w, n_cells)
+            d_cell = dense_segment_sum(cell, g[:, None] * w, n_cells,
+                                       pack_bf16=False)
             d_cell = d_cell.reshape(X - 1, Y - 1, Z - 1, 8)
             # exact transpose of _cell_pack: each corner block adds into the
             # vertex grid at its corner offset

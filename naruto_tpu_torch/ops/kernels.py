@@ -1,5 +1,6 @@
 """Hopper kernels of the hash-grid backward scan, their plain PyTorch
-versions, launch counters and the nvcc/ctypes loader.
+versions, launch counters and the nvcc/ctypes loader of every kernel of
+the port.
 
 Counterpart of naruto_tpu/ops/pallas_kernels.py. The two CUDA kernels live
 in ``naruto_tpu_torch/csrc/outer_cumsum.cu`` (its header says what bounds
@@ -12,12 +13,15 @@ them on the card and how the design answers it):
     offset.
 
 ``outer_cumsum_scan`` chains them as ``pallas_kernels.outer_cumsum`` does:
-K2, an exclusive cumsum of the small totals array, then K1.
+K2, an exclusive cumsum of the small totals array, then K1. The kernels of
+the hash-grid microbenchmarks are wrapped in ``ops/primitives.py``.
 
 Every wrapper takes its plain version for a tensor on the CPU (the tests
 run there) and launches its kernel for a CUDA tensor; it never falls back.
-The library is compiled from the checkout with nvcc at first use into
-``naruto_tpu_torch/_build/`` and bound with ctypes.
+Each ``csrc/<source>.cu`` is compiled from the checkout with nvcc at first
+use (``build()`` compiles all of them at once, one nvcc each) into
+``naruto_tpu_torch/_build/``, keyed by a hash of the source and the flags,
+and bound with ctypes.
 """
 from __future__ import annotations
 
@@ -36,14 +40,34 @@ from naruto_tpu_torch.ops import cumsum_rows
 SUB = 512    # rows per chunk, as in pallas_kernels.SUB
 
 _PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "outer_cumsum.cu"
+_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the C entry points of each csrc/<source>.cu: name -> (argtypes, restype)
+ENTRY_POINTS = {
+    "outer_cumsum": {
+        "naruto_chunk_totals": ([_P, _P, _P, _I64, _I32, _I32, _P], _I32),
+        "naruto_outer_cumsum": ([_P, _P, _P, _P, _I64, _I32, _I32, _P],
+                                _I32)},
+    "gather_rows": {
+        "naruto_gather_rows": ([_P, _P, _P, _I64, _I32, _I32, _P], _I32)},
+    "sorted_segment_sum": {
+        "naruto_sorted_segment_sum": (
+            [_P, _P, _P, _I64, _I32, _I32, _I32, _P], _I32)},
+    "row_cumsum": {
+        "naruto_row_cumsum_chunks": ([_I64, _I32], _I64),
+        "naruto_row_cumsum": ([_P, _P, _P, _P, _I64, _I32, _P], _I32)},
+}
+
 # launches of each kernel since the last reset (plain versions do not count)
-LAUNCHES = {"chunk_totals": 0, "outer_cumsum": 0}
-BUILD_LOG = {"seconds": None, "ptxas": ""}
+LAUNCHES = {"chunk_totals": 0, "outer_cumsum": 0, "gather_rows": 0,
+            "sorted_segment_sum": 0, "row_cumsum": 0}
+# per source: nvcc's wall seconds (None: the library was already built) and
+# its -Xptxas=-v report
+BUILD_LOG = {src: {"seconds": None, "ptxas": ""} for src in ENTRY_POINTS}
 
 
 def reset_launch_counts() -> None:
@@ -55,42 +79,63 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
+def _library_path(src: str) -> Path:
+    code = (_CSRC / f"{src}.cu").read_bytes()
+    tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD / f"lib{src}_{tag[:16]}.so"
+
+
+def _compile(sources) -> None:
+    """Start one nvcc for each source whose library is missing, all at
+    once, and wait for every one of them before reporting a failure."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); the hash-grid "
-                           "backward kernels need nvcc to build")
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD / f"libouter_cumsum_{tag}.so"
-    t0 = time.perf_counter()
-    if not so.exists():
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); the port's "
+                           "kernels need nvcc to build")
+    jobs = []
+    for src in sources:
+        so = _library_path(src)
+        if so.exists():
+            continue
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-             "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True)
+             "-o", str(tmp), str(_CSRC / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, proc, tmp, so, time.perf_counter()))
+    failed = []
+    for src, proc, tmp, so, t0 in jobs:
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        BUILD_LOG["ptxas"] = proc.stderr
+            failed.append(f"nvcc failed on csrc/{src}.cu:\n{err}")
+            continue
+        BUILD_LOG[src] = {"seconds": time.perf_counter() - t0, "ptxas": err}
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.naruto_chunk_totals.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.naruto_chunk_totals.restype = i32
-    lib.naruto_outer_cumsum.argtypes = [p, p, p, p, i64, i32, i32, p]
-    lib.naruto_outer_cumsum.restype = i32
-    BUILD_LOG["seconds"] = time.perf_counter() - t0
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def lib(src: str) -> ctypes.CDLL:
+    """The library of csrc/<src>.cu, compiled once per content, with the
+    argument and result types of its entry points set."""
+    _compile((src,))
+    cdll = ctypes.CDLL(str(_library_path(src)))
+    for fn, (argtypes, restype) in ENTRY_POINTS[src].items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = restype
+    return cdll
 
 
 def build() -> dict:
-    """Build and load the kernels now; returns BUILD_LOG (seconds, ptxas)."""
-    _lib()
-    return dict(BUILD_LOG)
+    """Build (in parallel) and load every kernel library now; returns
+    BUILD_LOG."""
+    _compile(tuple(ENTRY_POINTS))
+    for src in ENTRY_POINTS:
+        lib(src)
+    return {src: dict(v) for src, v in BUILD_LOG.items()}
 
 
 def _check(sa: torch.Tensor, sb: torch.Tensor) -> tuple:
@@ -148,7 +193,7 @@ def chunk_totals(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
     tot = torch.empty((m // SUB, ka * kb), dtype=torch.float32,
                       device=sa.device)
     with torch.cuda.device(sa.device):
-        rc = _lib().naruto_chunk_totals(
+        rc = lib("outer_cumsum").naruto_chunk_totals(
             sa.data_ptr(), sb.data_ptr(), tot.data_ptr(), m, ka, kb,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -170,7 +215,7 @@ def outer_cumsum(sa: torch.Tensor, sb: torch.Tensor,
     _check_cuda(m, ka, kb, sa, sb, offs)
     out = torch.empty((m, ka * kb), dtype=torch.float32, device=sa.device)
     with torch.cuda.device(sa.device):
-        rc = _lib().naruto_outer_cumsum(
+        rc = lib("outer_cumsum").naruto_outer_cumsum(
             sa.data_ptr(), sb.data_ptr(), offs.data_ptr(), out.data_ptr(),
             m, ka, kb, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

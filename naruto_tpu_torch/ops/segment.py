@@ -6,7 +6,9 @@ rank-1 updates outer(corner weights, level cotangent) are sorted by table
 slot (the weights travel as one packed-frac column and are rebuilt after the
 sort), prefix-summed by the hand-written kernels in ``ops/kernels.py``, and
 turned into per-slot sums by one boundary gather and an adjacent difference.
-``dense_segment_sum`` is the exact f32 form used by the trilinear VJP.
+``dense_segment_sum`` has the JAX function's signature and default: the
+values are rounded to bf16 before the f32 prefix sum unless
+``pack_bf16=False`` (the exact form the trilinear VJP uses).
 """
 from __future__ import annotations
 
@@ -101,10 +103,15 @@ def _outer_from_sorted(si: torch.Tensor, sa16: torch.Tensor,
 
 
 def dense_segment_sum(indices: torch.Tensor, values: torch.Tensor,
-                      size: int) -> torch.Tensor:
+                      size: int, pack_bf16: bool = True) -> torch.Tensor:
     """indices [M] in [0, size), values [M, F] -> [size, F] with
-    out[s] = sum of values where indices == s, in exact f32 (the
-    pack_bf16=False form of the JAX function)."""
+    out[s] = sum of values where indices == s.
+
+    pack_bf16 (and an even F): each value is rounded to bf16 before the f32
+    prefix sum, as the JAX function's bf16-pair sort payload rounds it;
+    pack_bf16=False sums the values exactly in f32."""
+    if pack_bf16 and values.shape[1] % 2 == 0:
+        values = values.to(torch.bfloat16).to(values.dtype)
     si, perm = torch.sort(indices.to(torch.int32), stable=True)
     sv = values[perm]
     cs = torch.cat([sv.new_zeros((1, sv.shape[1])), cumsum_rows(sv)])

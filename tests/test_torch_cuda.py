@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from naruto_tpu_torch.ops import kernels, segment
+from naruto_tpu_torch.ops import kernels, primitives, segment
 
 
 @pytest.fixture
@@ -72,3 +72,111 @@ def test_segment_sum_on_card_matches_host(gen, cuda_device):
         *(a.to(cuda_device) for a in args), L * per).cpu()
     scale = float(torch.cumsum(ref, 0).abs().max())
     assert float((got - ref).abs().max()) < 2e-6 * scale
+
+
+def _rel(got, ref):
+    scale = float(ref.float().abs().max())
+    diff = float((got.float() - ref.float()).abs().max())
+    return diff / scale if scale else diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2049, 5000, 3_000_000])
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 8),
+                                         (torch.bfloat16, 1),
+                                         (torch.float32, 8),
+                                         (torch.float32, 3),
+                                         (torch.bfloat16, 64)])
+def test_gather_rows_matches_plain_on_card(gen, cuda_device, m, dtype,
+                                           width):
+    """gather_rows is a copy: bit-exact against index_select, at ragged M
+    and at the scripts' 3M x [65,536, W] shape."""
+    tbl = torch.tensor(gen.normal(size=(65_536, width)), dtype=dtype,
+                       device=cuda_device)
+    idx = torch.tensor(gen.integers(0, 65_536, m), dtype=torch.int32,
+                       device=cuda_device)
+    n0 = kernels.launch_counts()["gather_rows"]
+    got = primitives.gather_rows(tbl, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rows"] == n0 + 1
+    assert torch.equal(got, primitives.gather_rows_plain(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("m,size,nf", [(1, 4000, 8), (2049, 4000, 8),
+                                       (5000, 4000, 8), (5000, 300, 3),
+                                       (3_000_000, 201_088, 8)])
+def test_sorted_segment_sum_matches_plain_on_card(gen, cuda_device,
+                                                  round_bf16, m, size, nf):
+    """Sorted keys with empty slots and the key size-1; the plain
+    index_add_ sums through atomics in a varying order, so SEGMENT_TOL."""
+    keys = gen.integers(0, size, m)
+    keys[-1] = size - 1
+    si = torch.tensor(np.sort(keys), dtype=torch.int32, device=cuda_device)
+    vals = torch.tensor(gen.normal(size=(m, nf)), dtype=torch.float32,
+                        device=cuda_device)
+    n0 = kernels.launch_counts()["sorted_segment_sum"]
+    got = primitives.sorted_segment_sum(si, vals, size,
+                                        round_bf16=round_bf16)
+    ref = primitives.sorted_segment_sum_plain(si, vals, size,
+                                              round_bf16=round_bf16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sorted_segment_sum"] == n0 + 1
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nf", [(1, 8), (2049, 8), (5000, 8), (5000, 1),
+                                  (5000, 3), (70_000, 64), (3000, 256),
+                                  (3_000_000, 8)])
+def test_row_cumsum_matches_plain_on_card(gen, cuda_device, m, nf):
+    x = torch.tensor(gen.normal(size=(m, nf)), dtype=torch.float32,
+                     device=cuda_device)
+    n0 = kernels.launch_counts()["row_cumsum"]
+    got = primitives.row_cumsum(x)
+    ref = primitives.row_cumsum_plain(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["row_cumsum"] == n0 + 1
+    assert _rel(got, ref) <= primitives.CUMSUM_TOL
+
+
+@pytest.mark.cuda
+def test_primitive_wrappers_refuse_on_card(cuda_device):
+    tbl = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda_device)
+    ix = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    vals = torch.zeros((16, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        primitives.gather_rows(tbl.half(), ix)
+    with pytest.raises(ValueError, match="contiguous"):
+        primitives.gather_rows(tbl[:, ::2], ix)
+    with pytest.raises(ValueError):
+        primitives.gather_rows(tbl, ix.cpu())
+    with pytest.raises(TypeError):
+        primitives.sorted_segment_sum(ix, vals.bfloat16(), 4,
+                                      round_bf16=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        primitives.sorted_segment_sum(ix[::2], vals[::2], 4,
+                                      round_bf16=False)
+    with pytest.raises(TypeError):
+        primitives.row_cumsum(vals.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        primitives.row_cumsum(vals.t())
+
+
+@pytest.mark.cuda
+def test_primitives_launch_nothing_for_empty_outputs(cuda_device):
+    """An empty output launches nothing; no updates into 5 slots is a
+    launch that writes zeros (the kernel needs no memset)."""
+    before = kernels.launch_counts()
+    tbl = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda_device)
+    ix = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    none = torch.zeros((0, 8), device=cuda_device)
+    assert primitives.gather_rows(tbl, ix).shape == (0, 8)
+    assert primitives.sorted_segment_sum(ix, none, 0,
+                                         round_bf16=True).shape == (0, 8)
+    assert primitives.row_cumsum(none).shape == (0, 8)
+    assert kernels.launch_counts() == before
+    out = primitives.sorted_segment_sum(ix, none, 5, round_bf16=True)
+    torch.cuda.synchronize()
+    assert out.shape == (5, 8) and not bool(out.any())

@@ -117,6 +117,6 @@ def test_dense_segment_sum_f32_matches_jax(rng):
     ref = np.asarray(jseg.dense_segment_sum(
         jnp.asarray(idx), jnp.asarray(vals), 50, pack_bf16=False))
     got = segment.dense_segment_sum(torch.tensor(idx), torch.tensor(vals),
-                                    50).numpy()
+                                    50, pack_bf16=False).numpy()
     scale = np.abs(np.cumsum(ref, axis=0)).max()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
