@@ -17,14 +17,19 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      defaults (680x1200 frames rendered by the analytic simulator, L4F8
      hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
      the keyframe store filled to 22 keyframes; a warm window of BA steps
-     timed as bench.py times the JAX package (mapping iterations / s);
-  5. the hash-grid microbenchmarks: the kernels gather_rows,
-     sorted_segment_sum (bf16-rounded and exact f32) and row_cumsum against
-     their plain versions on the same card tensors at the scripts' sizes
-     (M = 3,000,000 updates, 201,088 slots, a 65,536-row level table) and at
-     ragged small M, both timed (CUDA events, and at the scripts' sizes
-     also the profiler's device time); then both ported microbenchmark scripts run
-     in this process, and their launch counts show every kernel ran.
+     timed as bench.py times the JAX package (mapping iterations / s).
+     Every BA iteration must launch each kernel of the path its fixed
+     number of times (BA_LAUNCHES_PER_ITER);
+  5. the primitives: the kernels gather_rows, sorted_segment_sum
+     (bf16-rounded and exact f32) and row_cumsum against their plain
+     versions on the same card tensors at the microbenchmark scripts' sizes
+     (M = 3,000,000 updates, 201,088 slots, a 65,536-row level table), at
+     the BA path's shapes and at ragged small M, both timed (CUDA events,
+     and at the large shapes also the profiler's device time); two
+     row_cumsum calls must agree bit for bit; the host's cost per call of
+     every wrapper and plain version; then both ported microbenchmark
+     scripts run in this process, and their launch counts show every
+     kernel ran.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON.
@@ -48,8 +53,29 @@ PRIM_M, PRIM_T, PRIM_TS, PRIM_F = 3_000_000, 201_000, 65_536, 8
 RAGGED_M = (1, 2049, 5000)  # no multiple of any TPU block
 RAGGED_SLOTS = 4000
 PRIM_REPS = 50
-SLICE_KERNELS = ("chunk_totals", "outer_cumsum")
+HOST_CALLS = 200           # calls enqueued back to back per host-cost line
+# launches of each kernel in one BA iteration: K2 and K1 of the hash
+# backward; gather_rows for the hash forward, the backward's two payload
+# gathers and its boundary gather, the uncertainty grid's cell gather and
+# its segment sum's two gathers; row_cumsum for the scan of K2's totals and
+# the segment sum's scan
+BA_LAUNCHES_PER_ITER = {"chunk_totals": 1, "outer_cumsum": 1,
+                        "gather_rows": 7, "row_cumsum": 2}
+BACKWARD_KERNELS = ("chunk_totals", "outer_cumsum")   # only in the backward
+SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
 PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
+# the BA path's gathers at office0, with int64 indices: (site, table rows,
+# width, dtype, M, whether the indices come sorted, as ranks do)
+BA_GATHERS = (
+    ("hash forward", 204_089, 64, "bfloat16", 493_436, False),
+    ("sort payload", 493_568, 1, "int32", 493_568, False),
+    ("sort payload", 493_568, 8, "bfloat16", 493_568, False),
+    ("boundary", 493_568, 64, "float32", 204_089, True),
+    ("uncert cells", 89_760, 8, "float32", 93_568, False),
+    ("segment rows", 93_568, 8, "float32", 93_568, False),
+    ("segment bounds", 93_569, 8, "float32", 89_760, True),
+)
+BA_SCANS = ((93_568, 8), (964, 64))   # the segment sum's, K2's totals'
 SOURCE = {
     "chunk_totals": "naruto_tpu_torch/csrc/outer_cumsum.cu",
     "outer_cumsum": "naruto_tpu_torch/csrc/outer_cumsum.cu",
@@ -202,6 +228,31 @@ def path_pose(i: int):
     return c2w
 
 
+def count_ba_launches(kernels, mapper, per_iter: list) -> None:
+    """From now on, every BA iteration of `mapper` appends to per_iter the
+    launches of each kernel of the path that it made."""
+    iteration = mapper._ba_iteration
+
+    def counted(setup, draws, it):
+        before = kernels.launch_counts()
+        out = iteration(setup, draws, it)
+        after = kernels.launch_counts()
+        per_iter.append({k: after[k] - before[k]
+                         for k in BA_LAUNCHES_PER_ITER})
+        return out
+
+    mapper._ba_iteration = counted
+
+
+def check_ba_launches(per_iter: list) -> None:
+    wrong = [(i, n) for i, n in enumerate(per_iter)
+             if n != BA_LAUNCHES_PER_ITER]
+    if wrong:
+        fail(f"{len(wrong)} of {len(per_iter)} BA iterations launched other "
+             f"than {BA_LAUNCHES_PER_ITER}; first: iteration {wrong[0][0]}: "
+             f"{wrong[0][1]}")
+
+
 def run_slice(torch, kernels, profile_dir) -> dict:
     import numpy as np
 
@@ -213,6 +264,8 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     m = cfg.mapper
     sim = AnalyticSimulator(cfg, device="cuda")
     mapper = Mapper(cfg, device="cuda")
+    per_iter = []
+    count_ba_launches(kernels, mapper, per_iter)
     spec = mapper.spec.hash_spec
     log(f"[slice] office0: frames {mapper.H}x{mapper.W}, grid L"
         f"{spec.n_levels}F{spec.n_features} {spec.layout} 2^"
@@ -250,9 +303,10 @@ def run_slice(torch, kernels, profile_dir) -> dict:
                 f"launches so far "
                 f"{ {k: counts[k] for k in SLICE_KERNELS} }, last loss "
                 f"{float(mapper.last_aux[-1]['total']):.5f}")
-            if any(counts[k] != iters_run for k in SLICE_KERNELS):
+            if any(counts[k] != iters_run for k in BACKWARD_KERNELS):
                 fail(f"kernel launches {counts} != iterations {iters_run}: "
                      f"a mapping iteration did not run both kernels once")
+            check_ba_launches(per_iter)
     log(f"[slice] steps 0..10 in {time.perf_counter() - t_all:.2f} s")
 
     u, s = vols
@@ -301,8 +355,11 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     elapsed = time.perf_counter() - t0
     iters_run += WINDOW_STEPS * m.iters
     counts = kernels.launch_counts()
-    if any(counts[k] != iters_run for k in SLICE_KERNELS):
+    if any(counts[k] != iters_run for k in BACKWARD_KERNELS):
         fail(f"kernel launches {counts} != iterations {iters_run}")
+    check_ba_launches(per_iter)
+    log(f"[slice] every one of {len(per_iter)} BA iterations launched "
+        f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -392,17 +449,35 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     return busy_us / 1e3 / reps
 
 
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's microseconds per fn() over `calls` calls enqueued back to
+    back, with no synchronisation inside the loop (the device drains the
+    queue afterwards, untimed)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
 def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
-              profiled: bool = False) -> dict:
+              profiled: bool = False, deterministic: bool = False) -> dict:
     """One kernel against its plain version on the same card tensors, then
     both timed: the median of PRIM_REPS CUDA-event launches, and where
-    `profiled`, the device time from the profiler."""
+    `profiled`, the device time from the profiler. `deterministic`: a
+    second kernel call must give the same bits."""
     got = kernel()
     ref = plain()
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
         fail(f"{name} {shape}: kernel gives {got.dtype} {tuple(got.shape)}, "
              f"plain {ref.dtype} {tuple(ref.shape)}")
+    if deterministic and not torch.equal(got, kernel()):
+        fail(f"{name} {shape}: two calls on the same input differ")
     abs_err = float((got.float() - ref.float()).abs().max()) \
         if got.numel() else 0.0
     scale = float(ref.float().abs().max()) if ref.numel() else 0.0
@@ -426,8 +501,9 @@ def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
 
 def check_primitives(torch, prims, dev) -> dict:
     """gather_rows, sorted_segment_sum and row_cumsum against their plain
-    versions at the scripts' sizes and at ragged M; returns, per kernel,
-    every case (the first is the scripts' main shape)."""
+    versions at the scripts' sizes, at ragged M and at the BA path's
+    shapes; returns, per kernel, every case (the first is the scripts' main
+    shape)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     res = {k: [] for k in PRIM_KERNELS}
@@ -444,6 +520,19 @@ def check_primitives(torch, prims, dev) -> dict:
                 lambda: prims.gather_rows(tbl, idx),
                 lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
                 profiled=m == PRIM_M))
+    for label, rows, width, dtype, m, ranks in BA_GATHERS:
+        tbl = torch.randn((rows, width), generator=gen, device=dev)
+        tbl = (tbl * 2 ** 20).to(torch.int32) if dtype == "int32" else \
+            tbl.to(getattr(torch, dtype))
+        idx = torch.randint(0, rows, (m,), generator=gen, device=dev)
+        if ranks:
+            idx = torch.sort(idx).values
+        res["gather_rows"].append(prim_case(
+            torch, "gather_rows",
+            f"BA {label} [{rows},{width}] {dtype} x {m} int64",
+            lambda: prims.gather_rows(tbl, idx),
+            lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
+            profiled=True))
     for m in (PRIM_M,) + RAGGED_M:
         size = ((PRIM_T + 127) // 128) * 128 if m == PRIM_M else RAGGED_SLOTS
         keys = torch.randint(0, size, (m,), generator=gen, device=dev,
@@ -464,7 +553,62 @@ def check_primitives(torch, prims, dev) -> dict:
             torch, "row_cumsum", f"[{m},{PRIM_F}] f32",
             lambda: prims.row_cumsum(vals),
             lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
-            profiled=m == PRIM_M))
+            profiled=m == PRIM_M, deterministic=True))
+    for m, nf in BA_SCANS:
+        x = torch.randn((m, nf), generator=gen, device=dev)
+        res["row_cumsum"].append(prim_case(
+            torch, "row_cumsum", f"BA [{m},{nf}] f32",
+            lambda: prims.row_cumsum(x), lambda: prims.row_cumsum_plain(x),
+            prims.CUMSUM_TOL, profiled=True, deterministic=True))
+    return res
+
+
+def check_host_costs(torch, kernels, prims, dev) -> dict:
+    """Per kernel: the host's microseconds per call of its wrapper and of
+    its plain version at a small shape (HOST_CALLS calls enqueued back to
+    back), where the host, not the device, sets the pace."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    m = 5000
+    tbl = torch.randn((PRIM_TS, PRIM_F), generator=gen, device=dev).bfloat16()
+    idx = torch.randint(0, PRIM_TS, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    si = torch.sort(torch.randint(0, RAGGED_SLOTS, (m,), generator=gen,
+                                  device=dev, dtype=torch.int32)).values
+    vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
+    sa = torch.randn((4608, 8), generator=gen, device=dev).bfloat16()
+    sb = torch.randn((4608, 4), generator=gen, device=dev).bfloat16()
+    offs = torch.zeros((4608 // kernels.SUB, 32), device=dev)
+    calls = {
+        "gather_rows": (f"[{PRIM_TS},{PRIM_F}] bf16 x {m}",
+                        lambda: prims.gather_rows(tbl, idx),
+                        lambda: prims.gather_rows_plain(tbl, idx)),
+        "sorted_segment_sum": (
+            f"bf16 {m} -> [{RAGGED_SLOTS},{PRIM_F}]",
+            lambda: prims.sorted_segment_sum(si, vals, RAGGED_SLOTS,
+                                             round_bf16=True),
+            lambda: prims.sorted_segment_sum_plain(si, vals, RAGGED_SLOTS,
+                                                   round_bf16=True)),
+        "row_cumsum": (f"[{m},{PRIM_F}] f32",
+                       lambda: prims.row_cumsum(vals),
+                       lambda: prims.row_cumsum_plain(vals)),
+        "chunk_totals": ("M=4608 8x4",
+                         lambda: kernels.chunk_totals(sa, sb),
+                         lambda: kernels.chunk_totals_plain(sa, sb)),
+        "outer_cumsum": ("M=4608 8x4",
+                         lambda: kernels.outer_cumsum(sa, sb, offs),
+                         lambda: kernels.outer_cumsum_plain(sa, sb, offs)),
+    }
+    res = {}
+    for name, (shape, kernel, plain) in calls.items():
+        # in turns (wrapper, plain, plain, wrapper): the mean of each pair
+        k1, p1, p2, k2 = (host_us(torch, fn)
+                          for fn in (kernel, plain, plain, kernel))
+        k_us, p_us = (k1 + k2) / 2, (p1 + p2) / 2
+        res[name] = {"host_us": k_us, "plain_host_us": p_us}
+        log(f"[host] {name} {shape}: wrapper {k_us:.2f} us/call ({k1:.2f}, "
+            f"{k2:.2f}), plain {p_us:.2f} us/call ({p1:.2f}, {p2:.2f}); "
+            f"{HOST_CALLS} calls enqueued back to back, in turns")
     return res
 
 
@@ -495,6 +639,7 @@ def main() -> None:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one BA step; trace and table to DIR")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     sys.modules["jax"] = None             # the port never needs jax
 
     import torch
@@ -531,23 +676,31 @@ def main() -> None:
     check_segment_sum(torch, segment, spec, dev)
     sres = run_slice(torch, kernels, args.profile)
     pres = check_primitives(torch, primitives, dev)
+    hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
 
     entries = []
-    for name in SLICE_KERNELS + PRIM_KERNELS:
-        if name in SLICE_KERNELS:
+    for name in BACKWARD_KERNELS + PRIM_KERNELS:
+        if name in BACKWARD_KERNELS:
             main_case, cases = kres[name], None
-            launches = sres["launches"][name]
         else:
             main_case, cases = pres[name][0], pres[name]
-            launches = bench_launches[name]
+        # the count of the main path a kernel is on: the BA slice, else the
+        # microbenchmarks
+        launches = (sres["launches"] if name in SLICE_KERNELS
+                    else bench_launches)[name]
         entry = {"name": name, "route": "cuda", "source": SOURCE[name],
                  "replaces": REPLACES[name], "launches": launches,
+                 "launches_by_path": {
+                     "slice": sres["launches"][name],
+                     "microbenchmarks": bench_launches[name]},
                  "max_abs_err": main_case["max_abs_err"],
-                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}
+                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                 **hres[name]}
         if cases:
             entry["cases"] = cases
         entries.append(entry)
+    log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ a dict {"hash": [hashed rows, 8F], "dense": [per dense level, a z-major
 from the vertex grids on every evaluation.
 
 ``hash_encode`` is a ``torch.autograd.Function``: the forward gathers one
-wide row per (point, level) and blends its 8 corners; the backward is the
+wide row per (point, level) (the ``gather_rows`` kernel of
+``ops/primitives.py`` on the card) and blends its 8 corners; the backward is the
 sort + prefix-scan segment sum of ``ops/segment.py`` (the hand-written
 kernels of ``ops/kernels.py``), never a scatter. Position gradients
 (needed only when poses are optimised) and the vertex layout are not
@@ -23,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from naruto_tpu_torch.ops import device_const
+from naruto_tpu_torch.ops import device_const, primitives
 
 # instant-ngp hash primes (pi1 = 1 keeps a dense-ish x ordering)
 _PRIMES = (1, 2654435761, 805459861)
@@ -277,7 +278,8 @@ def _gather_table(table, spec: HashGridSpec) -> torch.Tensor:
 def _encode_impl(table, x: torch.Tensor, spec: HashGridSpec):
     n = x.shape[0]
     idx, w = _cell_indices(x, spec)
-    rows = _gather_table(table, spec)[idx.reshape(-1)]
+    rows = primitives.gather_rows(_gather_table(table, spec),
+                                  idx.reshape(-1))
     rows = rows.reshape(n, spec.n_levels, 8, spec.n_features)
     return _blend(rows, w), idx
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from naruto_tpu_torch.ops import device_const
+from naruto_tpu_torch.ops import device_const, primitives
 
 _CORNERS = tuple((dx, dy, dz) for dx in (0, 1) for dy in (0, 1)
                  for dz in (0, 1))
@@ -53,7 +53,7 @@ class _Trilerp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vol, coords):
         cell, w, frac = _corner_data(vol.shape, coords)
-        vals = _cell_pack(vol)[cell]                           # [N, 8]
+        vals = primitives.gather_rows(_cell_pack(vol), cell)   # [N, 8]
         ctx.save_for_backward(cell, w, frac, vals)
         ctx.vol_shape = tuple(vol.shape)
         return torch.sum(vals * w, dim=-1)

@@ -21,7 +21,9 @@ run there) and launches its kernel for a CUDA tensor; it never falls back.
 Each ``csrc/<source>.cu`` is compiled from the checkout with nvcc at first
 use (``build()`` compiles all of them at once, one nvcc each) into
 ``naruto_tpu_torch/_build/``, keyed by a hash of the source and the flags,
-and bound with ctypes.
+and bound with ctypes. ``launch`` is the one host path of every wrapper:
+one foreign call on the raw handle of the current stream, with a device
+guard only when the tensor's card is not the current one.
 """
 from __future__ import annotations
 
@@ -34,8 +36,6 @@ import time
 from pathlib import Path
 
 import torch
-
-from naruto_tpu_torch.ops import cumsum_rows
 
 SUB = 512    # rows per chunk, as in pallas_kernels.SUB
 
@@ -53,13 +53,14 @@ ENTRY_POINTS = {
         "naruto_outer_cumsum": ([_P, _P, _P, _P, _I64, _I32, _I32, _P],
                                 _I32)},
     "gather_rows": {
-        "naruto_gather_rows": ([_P, _P, _P, _I64, _I32, _I32, _P], _I32)},
+        "naruto_gather_rows": ([_P, _P, _P, _I64, _I64, _I32, _I32, _P],
+                               _I32)},
     "sorted_segment_sum": {
         "naruto_sorted_segment_sum": (
             [_P, _P, _P, _I64, _I32, _I32, _I32, _P], _I32)},
     "row_cumsum": {
-        "naruto_row_cumsum_chunks": ([_I64, _I32], _I64),
-        "naruto_row_cumsum": ([_P, _P, _P, _P, _I64, _I32, _P], _I32)},
+        "naruto_row_cumsum": ([_P, _P, _P, _I64, _I64, _I64, _I32, _P],
+                              _I32)},
 }
 
 # launches of each kernel since the last reset (plain versions do not count)
@@ -138,6 +139,21 @@ def build() -> dict:
     return {src: dict(v) for src, v in BUILD_LOG.items()}
 
 
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """fn(*args, stream): one call of a C entry point on the current stream
+    of `device` (a CUDA device), which must return 0; counts one launch of
+    kernel `name`."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
 def _check(sa: torch.Tensor, sb: torch.Tensor) -> tuple:
     if sa.dtype != torch.bfloat16 or sb.dtype != torch.bfloat16:
         raise TypeError(f"factors must be bfloat16, got {sa.dtype}/{sb.dtype}")
@@ -192,13 +208,8 @@ def chunk_totals(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
     _check_cuda(m, ka, kb, sa, sb)
     tot = torch.empty((m // SUB, ka * kb), dtype=torch.float32,
                       device=sa.device)
-    with torch.cuda.device(sa.device):
-        rc = lib("outer_cumsum").naruto_chunk_totals(
-            sa.data_ptr(), sb.data_ptr(), tot.data_ptr(), m, ka, kb,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"chunk_totals kernel launch failed: CUDA error {rc}")
-    LAUNCHES["chunk_totals"] += 1
+    launch("chunk_totals", lib("outer_cumsum").naruto_chunk_totals,
+           sa.device, sa.data_ptr(), sb.data_ptr(), tot.data_ptr(), m, ka, kb)
     return tot
 
 
@@ -214,20 +225,18 @@ def outer_cumsum(sa: torch.Tensor, sb: torch.Tensor,
         return outer_cumsum_plain(sa, sb, offs)
     _check_cuda(m, ka, kb, sa, sb, offs)
     out = torch.empty((m, ka * kb), dtype=torch.float32, device=sa.device)
-    with torch.cuda.device(sa.device):
-        rc = lib("outer_cumsum").naruto_outer_cumsum(
-            sa.data_ptr(), sb.data_ptr(), offs.data_ptr(), out.data_ptr(),
-            m, ka, kb, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"outer_cumsum kernel launch failed: CUDA error {rc}")
-    LAUNCHES["outer_cumsum"] += 1
+    launch("outer_cumsum", lib("outer_cumsum").naruto_outer_cumsum,
+           sa.device, sa.data_ptr(), sb.data_ptr(), offs.data_ptr(),
+           out.data_ptr(), m, ka, kb)
     return out
 
 
 def outer_cumsum_scan(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of outer(sa[i], sb[i]) flattened rows over all
     M rows (counterpart of pallas_kernels.outer_cumsum): K2, the exclusive
-    cumsum of its totals, then K1."""
+    cumsum of its totals (the row_cumsum kernel), then K1."""
+    from naruto_tpu_torch.ops import primitives
+
     totals = chunk_totals(sa, sb)
-    offs = cumsum_rows(totals) - totals
+    offs = primitives.row_cumsum(totals) - totals
     return outer_cumsum(sa, sb, offs)

@@ -11,18 +11,23 @@ and scripts/microbench_round2.py, which compute three functions:
     ``csrc/sorted_segment_sum.cu``.
   * ``row_cumsum``          (P4 ``cs_kernel``): ``csrc/row_cumsum.cu``.
 
+``gather_rows`` and ``row_cumsum`` also carry the mapper's BA path: the
+hash grid's forward gather, the backward's payload and boundary gathers,
+the uncertainty grid's cell gather and both segment sums' row scans.
+
 Each source's header says what bounds the kernel on the card and how its
-design answers it. As in ``ops/kernels.py``, every wrapper checks what it
-is given and raises on what its kernel does not take, runs the plain
-version for a tensor on the CPU, launches the kernel for a CUDA tensor
-(never falling back), and counts its launches in ``kernels.LAUNCHES``.
+design answers it. As in ``ops/kernels.py``, every wrapper checks the
+metadata of what it is given and raises on what its kernel does not take,
+runs the plain version for a tensor on the CPU, launches the kernel for a
+CUDA tensor with one foreign call (``kernels.launch``; never falling
+back), and counts its launches in ``kernels.LAUNCHES``.
 """
 from __future__ import annotations
 
 import torch
 
 from naruto_tpu_torch.ops import cumsum_rows
-from naruto_tpu_torch.ops.kernels import LAUNCHES, lib
+from naruto_tpu_torch.ops.kernels import launch, lib
 
 # Tolerances of each kernel against its plain version on the same card
 # tensors, as a share of max|plain|, and the reason for each:
@@ -34,10 +39,8 @@ CUMSUM_TOL = 1e-5      # f32 sums in another order over a random walk of up
                        # own scan tree)
 ROW_CUMSUM_MAX_F = 256
 _INT32_MAX = 2 ** 31 - 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+GATHER_TABLE_DTYPES = (torch.bfloat16, torch.float32, torch.int32)
+GATHER_INDEX_DTYPES = (torch.int32, torch.int64)
 
 
 def _contiguous(*tensors: torch.Tensor) -> None:
@@ -46,31 +49,29 @@ def _contiguous(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
-def _device(*tensors: torch.Tensor) -> str:
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"operands on {[str(t.device) for t in tensors]}")
-    if dev.type not in ("cpu", "cuda"):
+def _device(first: torch.Tensor, *rest: torch.Tensor) -> torch.device:
+    dev = first.device
+    for t in rest:
+        if t.device != dev:
+            raise ValueError(f"operands on "
+                             f"{[str(t.device) for t in (first, *rest)]}")
+    if not first.is_cuda and dev.type != "cpu":
         raise ValueError(f"no kernel for device {dev}")
-    return dev.type
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    return dev
 
 
 # ------------------------------------------------------------------ gather
-def _check_gather(tbl: torch.Tensor, idx: torch.Tensor) -> str:
-    if tbl.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"table must be bfloat16 or float32, got {tbl.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"indices must be int32, got {idx.dtype}")
+def _check_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.device:
+    if tbl.dtype not in GATHER_TABLE_DTYPES:
+        raise TypeError(f"table must be bfloat16, float32 or int32, got "
+                        f"{tbl.dtype}")
+    if idx.dtype not in GATHER_INDEX_DTYPES:
+        raise TypeError(f"indices must be int32 or int64, got {idx.dtype}")
     if tbl.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"table {tuple(tbl.shape)} / indices "
                          f"{tuple(idx.shape)} must be [TS, W] / [M]")
-    if not 0 < tbl.shape[0] <= _INT32_MAX or tbl.shape[1] < 1:
+    ts, w = tbl.shape
+    if not ts or not w:
         raise ValueError(f"table shape {tuple(tbl.shape)} out of range")
     _contiguous(tbl, idx)
     return _device(tbl, idx)
@@ -81,24 +82,24 @@ def gather_rows_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i, :] = tbl[idx[i], :]: [TS, W] bf16/f32 table, [M] int32
-    indices in [0, TS) -> [M, W] (any M, any W, bit-exact)."""
-    if _check_gather(tbl, idx) == "cpu":
+    """out[i, :] = tbl[idx[i], :]: [TS, W] bf16/f32/int32 table, [M] int32
+    or int64 indices in [0, TS) -> [M, W] (any M, any W, bit-exact)."""
+    dev = _check_gather(tbl, idx)
+    if not tbl.is_cuda:
         return gather_rows_plain(tbl, idx)
-    out = torch.empty((idx.shape[0], tbl.shape[1]), dtype=tbl.dtype,
-                      device=tbl.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(tbl.device):
-        rc = lib("gather_rows").naruto_gather_rows(
-            tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-            tbl.shape[0], tbl.shape[1] * tbl.element_size(), _stream(tbl))
-    _launched("gather_rows", rc)
+    m = idx.shape[0]
+    ts, w = tbl.shape
+    out = tbl.new_empty((m, w))
+    if m:
+        launch("gather_rows", lib("gather_rows").naruto_gather_rows, dev,
+               tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), m, ts,
+               w * tbl.element_size(), idx.dtype == torch.int64)
     return out
 
 
 # ------------------------------------------------------------- segment sum
-def _check_segment(si: torch.Tensor, vals: torch.Tensor, size: int) -> str:
+def _check_segment(si: torch.Tensor, vals: torch.Tensor,
+                   size: int) -> torch.device:
     if si.dtype != torch.int32:
         raise TypeError(f"keys must be int32, got {si.dtype}")
     if vals.dtype != torch.float32:
@@ -124,22 +125,28 @@ def sorted_segment_sum(si: torch.Tensor, vals: torch.Tensor, size: int, *,
     """out[s] = sum of r(vals[i]) over i with si[i] == s, in f32: si [M]
     int32 sorted ascending with keys in [0, size), vals [M, F] f32 ->
     [size, F] f32; r rounds to bf16 (round_bf16) or is the identity."""
-    if _check_segment(si, vals, size) == "cpu":
+    dev = _check_segment(si, vals, size)
+    if not vals.is_cuda:
         return sorted_segment_sum_plain(si, vals, size, round_bf16=round_bf16)
-    out = torch.empty((size, vals.shape[1]), dtype=torch.float32,
-                      device=vals.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(vals.device):
-        rc = lib("sorted_segment_sum").naruto_sorted_segment_sum(
-            si.data_ptr(), vals.data_ptr(), out.data_ptr(), si.shape[0],
-            size, vals.shape[1], int(round_bf16), _stream(vals))
-    _launched("sorted_segment_sum", rc)
+    out = vals.new_empty((size, vals.shape[1]))
+    if size:
+        launch("sorted_segment_sum",
+               lib("sorted_segment_sum").naruto_sorted_segment_sum, dev,
+               si.data_ptr(), vals.data_ptr(), out.data_ptr(), si.shape[0],
+               size, vals.shape[1], int(round_bf16))
     return out
 
 
 # ---------------------------------------------------------------- row scan
-def _check_cumsum(x: torch.Tensor) -> str:
+# As TILE and GROUP in csrc/row_cumsum.cu, which checks the state it is
+# given against them.
+_SCAN_TILE, _SCAN_GROUP = 8192, 32
+_SCAN_MIN_CAP, _SCAN_MIN_FLOATS = 16384, 1 << 18
+# (device index, raw stream) -> (zeroed int32 state buffer, tile capacity)
+_SCAN_STATES: dict = {}
+
+
+def _check_cumsum(x: torch.Tensor) -> torch.device:
     if x.dtype != torch.float32:
         raise TypeError(f"row_cumsum takes float32, got {x.dtype}")
     if x.dim() != 2 or not 1 <= x.shape[1] <= ROW_CUMSUM_MAX_F:
@@ -149,24 +156,41 @@ def _check_cumsum(x: torch.Tensor) -> str:
     return _device(x)
 
 
+def _scan_state(dev: torch.device, m: int, nf: int) -> tuple:
+    """The scan kernel's state for the current stream of `dev`: made zeroed
+    (one fill) at the stream's first call and when a call needs more room;
+    the kernel leaves it ready for the next call itself."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    rows = max(4, (_SCAN_TILE // nf) & ~3)
+    tiles = -(-m // rows)
+    floats = (tiles + tiles // _SCAN_GROUP) * nf
+    buf, cap = _SCAN_STATES.get(key, (None, 0))
+    if buf is None or tiles > cap or \
+            4 + cap + cap // _SCAN_GROUP + 1 + floats > buf.numel():
+        cap = max(2 * tiles, cap, _SCAN_MIN_CAP)
+        words = 4 + cap + cap // _SCAN_GROUP + 1 + max(2 * floats,
+                                                       _SCAN_MIN_FLOATS)
+        buf = torch.zeros(words, dtype=torch.int32, device=dev)
+        _SCAN_STATES[key] = (buf, cap)
+    return buf, cap
+
+
 def row_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
     return cumsum_rows(x)
 
 
 def row_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum over the rows of [M, F] f32 (any M, F <= 256)."""
-    if _check_cumsum(x) == "cpu":
+    """Inclusive cumsum over the rows of [M, F] f32 (any M, F <= 256), in
+    one launch; the sums run in a fixed order, so two calls on the same
+    input agree bit for bit."""
+    dev = _check_cumsum(x)
+    if not x.is_cuda:
         return row_cumsum_plain(x)
     m, nf = x.shape
     out = torch.empty_like(x)
-    if m == 0:
-        return out
-    with torch.cuda.device(x.device):
-        k = lib("row_cumsum")
-        scratch = torch.empty((2, k.naruto_row_cumsum_chunks(m, nf), nf),
-                              dtype=torch.float32, device=x.device)
-        rc = k.naruto_row_cumsum(x.data_ptr(), scratch[0].data_ptr(),
-                                 scratch[1].data_ptr(), out.data_ptr(), m, nf,
-                                 _stream(x))
-    _launched("row_cumsum", rc)
+    if m:
+        state, cap = _scan_state(dev, m, nf)
+        launch("row_cumsum", lib("row_cumsum").naruto_row_cumsum, dev,
+               x.data_ptr(), out.data_ptr(), state.data_ptr(), cap,
+               state.numel(), m, nf)
     return out

@@ -6,6 +6,11 @@ rank-1 updates outer(corner weights, level cotangent) are sorted by table
 slot (the weights travel as one packed-frac column and are rebuilt after the
 sort), prefix-summed by the hand-written kernels in ``ops/kernels.py``, and
 turned into per-slot sums by one boundary gather and an adjacent difference.
+Every row gather here is ``primitives.gather_rows`` and every row scan
+``primitives.row_cumsum``: kernels on the card, their plain versions on the
+CPU. Each index is in range by construction (a sort permutation, a rank
+into a table one row longer, a clamped rank), so the gather's device-side
+assert guards it without a host check.
 ``dense_segment_sum`` has the JAX function's signature and default: the
 values are rounded to bf16 before the f32 prefix sum unless
 ``pack_bf16=False`` (the exact form the trilinear VJP uses).
@@ -14,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from naruto_tpu_torch.ops import cumsum_rows, kernels
+from naruto_tpu_torch.ops import kernels, primitives
 
 INT32_MAX = 2 ** 31 - 1
 PACK_FRAC_BITS = 10   # 3 axes x 10-bit fixed point in one int32 sort column
@@ -84,8 +89,9 @@ def dense_segment_sum_outer_level_major_frac(
                      torch.zeros((pad, kb), dtype=torch.bfloat16,
                                  device=dev)])
     si, perm = torch.sort(key, stable=True)
-    sa16 = corner_weights_from_packed(qf[perm]).to(torch.bfloat16)
-    sb16 = b16[perm]
+    sqf = primitives.gather_rows(qf[:, None], perm).reshape(-1)
+    sa16 = corner_weights_from_packed(sqf).to(torch.bfloat16)
+    sb16 = primitives.gather_rows(b16, perm)
     return _outer_from_sorted(si, sa16, sb16, size)
 
 
@@ -97,7 +103,8 @@ def _outer_from_sorted(si: torch.Tensor, sa16: torch.Tensor,
     cs_inc = kernels.outer_cumsum_scan(sa16.contiguous(), sb16.contiguous())
     # hi[t] = total of all entries with key <= t; per-slot sums are adjacent
     # differences — one boundary gather (the lo gather is hi shifted by one)
-    hi = torch.where((ub > 0)[:, None], cs_inc[torch.clamp(ub - 1, min=0)],
+    hi = torch.where((ub > 0)[:, None],
+                     primitives.gather_rows(cs_inc, torch.clamp(ub - 1, min=0)),
                      0.0)
     return hi - torch.cat([hi.new_zeros((1, hi.shape[1])), hi[:-1]])
 
@@ -113,7 +120,8 @@ def dense_segment_sum(indices: torch.Tensor, values: torch.Tensor,
     if pack_bf16 and values.shape[1] % 2 == 0:
         values = values.to(torch.bfloat16).to(values.dtype)
     si, perm = torch.sort(indices.to(torch.int32), stable=True)
-    sv = values[perm]
-    cs = torch.cat([sv.new_zeros((1, sv.shape[1])), cumsum_rows(sv)])
-    hi = cs[_chunk_ranks(si, size)]
+    sv = primitives.gather_rows(values.contiguous(), perm)
+    cs = torch.cat([sv.new_zeros((1, sv.shape[1])),
+                    primitives.row_cumsum(sv)])
+    hi = primitives.gather_rows(cs, _chunk_ranks(si, size))
     return hi - torch.cat([hi.new_zeros((1, hi.shape[1])), hi[:-1]])

@@ -103,6 +103,100 @@ def test_gather_rows_matches_plain_on_card(gen, cuda_device, m, dtype,
 
 
 @pytest.mark.cuda
+# at 493,568 rows the 2- and 4-byte tables are gathered from shared memory
+@pytest.mark.parametrize("m", [1, 7, 2049, 5000, 493_568])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,width", [
+    (torch.bfloat16, 1),     # 2-byte rows: 8 rows per 16-byte store
+    (torch.bfloat16, 2),     # 4-byte rows
+    (torch.int32, 1),        # 4-byte rows (the sort payload column)
+    (torch.bfloat16, 8),     # 16-byte rows
+    (torch.float32, 8),      # 32-byte rows (the uncertainty grid's cells)
+    (torch.bfloat16, 64),    # 128-byte rows (the hash grid's table)
+    (torch.float32, 64),     # 256-byte rows (the scan's boundary rows)
+    (torch.int32, 3)])       # 12-byte rows: the generic instantiation
+def test_gather_rows_widths_and_index_types_on_card(gen, cuda_device, m,
+                                                    idx_dtype, dtype, width):
+    """Every row width the BA path gathers, int32 tables and int64 indices:
+    bit-exact against index_select at ragged M."""
+    ts = 4099
+    if dtype == torch.int32:
+        src = gen.integers(-2 ** 31, 2 ** 31, (ts, width))
+    else:
+        src = gen.normal(size=(ts, width))
+    tbl = torch.tensor(src, dtype=dtype, device=cuda_device)
+    idx = torch.tensor(gen.integers(0, ts, m), dtype=idx_dtype,
+                       device=cuda_device)
+    n0 = kernels.launch_counts()["gather_rows"]
+    got = primitives.gather_rows(tbl, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rows"] == n0 + 1
+    assert torch.equal(got, primitives.gather_rows_plain(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2049, 50_000])   # 50,000: the staged table
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 1),
+                                         (torch.bfloat16, 8),
+                                         (torch.float32, 8),
+                                         (torch.bfloat16, 64)])
+def test_gather_rows_misaligned_bases_on_card(gen, cuda_device, m, idx_dtype,
+                                              dtype, width):
+    """A table and indices that start one element into their storage (so
+    off the 16-byte boundary the vector paths need) still gather exactly,
+    read from device memory or from a copy in shared memory."""
+    ts = 3001
+    flat = torch.tensor(gen.normal(size=ts * width + 1), dtype=dtype,
+                        device=cuda_device)
+    tbl = flat[1:].view(ts, width)
+    idx = torch.tensor(gen.integers(0, ts, m + 1), dtype=idx_dtype,
+                       device=cuda_device)[1:]
+    assert tbl.data_ptr() % 16 and idx.data_ptr() % 16
+    got = primitives.gather_rows(tbl, idx)
+    assert torch.equal(got, primitives.gather_rows_plain(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,nf", [(1, 8), (964, 64), (5000, 3),
+                                  (93_568, 8), (3_000_000, 8)])
+def test_row_cumsum_is_deterministic_on_card(gen, cuda_device, m, nf):
+    """Two calls on the same input agree bit for bit, with a call of
+    another shape between them: every sum runs in an order fixed by the
+    shape, never by which block finished first."""
+    x = torch.tensor(gen.normal(size=(m, nf)), dtype=torch.float32,
+                     device=cuda_device)
+    other = torch.ones((4097, 5), device=cuda_device)
+    first = primitives.row_cumsum(x)
+    primitives.row_cumsum(other)
+    second = primitives.row_cumsum(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_row_cumsum_is_one_launch_on_card(cuda_device):
+    """One kernel, and nothing else on the device (no memset, no copy), per
+    call at every M, as the profiler records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [torch.ones((m, nf), device=cuda_device)
+          for m, nf in ((1, 8), (964, 64), (93_568, 8), (3_000_000, 8),
+                        (3000, 256))]
+    for x in xs:                       # the first calls size the state
+        primitives.row_cumsum(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            primitives.row_cumsum(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == len(xs), names
+    assert all("row_cumsum" in n for n in names), names
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("round_bf16", [True, False])
 @pytest.mark.parametrize("m,size,nf", [(1, 4000, 8), (2049, 4000, 8),
                                        (5000, 4000, 8), (5000, 300, 3),

@@ -18,6 +18,7 @@ from naruto_tpu_torch.mapping import field as tfield
 from naruto_tpu_torch.mapping import losses as tlosses
 from naruto_tpu_torch.mapping import render as trender
 from naruto_tpu_torch.mapping.mapper import BADraws, Mapper
+from naruto_tpu_torch.ops import primitives
 from naruto_tpu_torch.utils.weights import load_jax_params
 
 torch.set_num_threads(1)
@@ -155,6 +156,9 @@ class TestFieldRenderLosses:
 
 # ------------------------------------------------- one BA iteration vs JAX
 CUR_CAP = 512
+# calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
+# same launch counts on the card)
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": 7, "row_cumsum": 2}
 
 
 def _frame(rng, H=24, W=32):
@@ -246,12 +250,37 @@ def ba_pair():
     setup = mt._ba_setup(CUR_CAP, fr_t, _t(c2w), 15)
     draws = _replay_ba_draws(key, mj, 3, setup.n_valid, CUR_CAP)
     batch = mt._ba_batch(setup, draws)
-    aux, grads = mt._ba_iteration(setup, draws, 0)
+    # the iteration's calls of the kernel wrappers (which take their plain
+    # versions here, on CPU tensors)
+    calls = dict.fromkeys(WRAPPER_CALLS_PER_BA_ITER, 0)
+    wrapped = {name: getattr(primitives, name) for name in calls}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return wrapped[name](*args, **kwargs)
+        return call
+
+    try:
+        for name in calls:
+            setattr(primitives, name, counting(name))
+        aux, grads = mt._ba_iteration(setup, draws, 0)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(primitives, name, fn)
     return dict(seen=seen, state=state, batch=batch, aux=aux, grads=grads,
-                mt=mt, mj=mj, lr=cfg.mapper)
+                mt=mt, mj=mj, lr=cfg.mapper, calls=calls)
 
 
 class TestBAIteration:
+    def test_runs_through_the_kernel_wrappers(self, ba_pair):
+        """The iteration compared below gathers and scans rows through
+        primitives.gather_rows / row_cumsum (the kernels on the card): the
+        hash forward, the hash backward's two payload gathers, its boundary
+        gather and its chunk offsets' scan, the uncertainty grid's cell
+        gather and its segment sum's two gathers and scan."""
+        assert ba_pair["calls"] == WRAPPER_CALLS_PER_BA_ITER
+
     def test_batch_matches(self, ba_pair):
         """Keyframe sampling, current-ray picks and the active-ray
         selection (ties included) pick the same rays, bit for bit."""

@@ -77,6 +77,26 @@ def test_gather_plain_matches_jnp_take(rng, dtype, width):
     np.testing.assert_array_equal(got, np.asarray(ref.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype,width", [(np.int32, 1), (np.int32, 3),
+                                         (np.float32, 64)])
+def test_gather_widened_contract_matches_jnp_take(rng, idx_dtype, dtype,
+                                                  width):
+    """The BA path's gathers: int32 tables (the sort payload column) and
+    the int64 indices torch.sort and the index arithmetic give, bit for bit
+    against jnp.take on the same numpy inputs."""
+    if dtype == np.int32:
+        tbl = rng.integers(-2 ** 31, 2 ** 31, (700, width)).astype(dtype)
+    else:
+        tbl = rng.normal(size=(700, width)).astype(dtype)
+    ix = rng.integers(0, 700, 5000).astype(idx_dtype)
+    got = primitives.gather_rows(torch.tensor(tbl), torch.tensor(ix))
+    assert got.dtype == torch.tensor(tbl).dtype
+    ref = jnp.take(jnp.asarray(tbl), jnp.asarray(ix.astype(np.int32)),
+                   axis=0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("round_bf16", [True, False])
 def test_segment_sum_plain_matches_jax(rng, round_bf16):
     """sorted_segment_sum's plain version against jax.ops.segment_sum of the
@@ -328,7 +348,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         primitives.gather_rows(tbl.half(), ix)
     with pytest.raises(TypeError):
-        primitives.gather_rows(tbl, ix.long())
+        primitives.gather_rows(tbl, ix.short())
+    with pytest.raises(TypeError):
+        primitives.gather_rows(tbl.double(), ix.long())
     with pytest.raises(ValueError, match="contiguous"):
         primitives.gather_rows(tbl[:, ::2], ix)
     with pytest.raises(ValueError):
