@@ -7,9 +7,11 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
   1. device and build: torch/CUDA versions, the card's name and power
      limit, every kernel of the port compiled from csrc/ (one nvcc per
      source, all started together);
-  2. kernels: K2 chunk_totals and K1 outer_cumsum against their plain
-     PyTorch versions on the same card tensors, at the mapping step's shape
-     (M = 493,568 rows, 8 x 8) and at small shapes, with both timed;
+  2. the fused hash-backward scan, both epilogues (full rows, slot rows)
+     against their plain PyTorch versions on the same card tensors, at the
+     mapping step's shape (M = 493,568 rows, 8 x 8, 204,089 slots) and at
+     small shapes; two calls must agree bit for bit; both timed (CUDA
+     events, and the profiler's device time);
   3. segment sum: the hash-grid backward's segment sum through the kernels
      on the card against the same function through the plain versions on
      the host, at the mapping step's point count and table size;
@@ -18,8 +20,8 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
      the keyframe store filled to 22 keyframes; a warm window of BA steps
      timed as bench.py times the JAX package (mapping iterations / s).
-     Every BA iteration must launch each kernel of the path its fixed
-     number of times (BA_LAUNCHES_PER_ITER);
+     Every BA iteration must launch each kernel entry point of the path
+     its fixed number of times (BA_LAUNCHES_PER_ITER);
   5. the primitives: the kernels gather_rows, sorted_segment_sum
      (bf16-rounded and exact f32) and row_cumsum against their plain
      versions on the same card tensors at the microbenchmark scripts' sizes
@@ -30,6 +32,11 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      every wrapper and plain version; then both ported microbenchmark
      scripts run in this process, and their launch counts show every
      kernel ran.
+
+Every timed case also states its bound (the larger of the bytes it must
+move over the card's memory rate and its operations over the card's f32
+rate, from the published H100 SXM peaks) and, where one PyTorch call
+computes the same function, that call's time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON.
@@ -46,22 +53,29 @@ import time
 
 KERNEL_TOL = 1e-6          # max |kernel - plain| / max |plain|
 SEGMENT_TOL = 2e-6         # max |card - host| / max |cumsum of slot sums|
-SLICE_M, SLICE_K = 493_568, 8
+# the mapping step's hash backward at office0: 493,436 updates padded to
+# 493,568 rows, 8 x 8, 204,089 table rows
+SLICE_N, SLICE_M, SLICE_SLOTS, SLICE_K = 493_436, 493_568, 204_089, 8
 SMALL_SHAPES = ((512, 8, 4), (4608, 8, 4), (512, 2, 2), (4608, 2, 2))
+INT32_MAX = 2 ** 31 - 1
 WINDOW_STEPS = 20          # timed BA steps in the warm window
 PRIM_M, PRIM_T, PRIM_TS, PRIM_F = 3_000_000, 201_000, 65_536, 8
 RAGGED_M = (1, 2049, 5000)  # no multiple of any TPU block
 RAGGED_SLOTS = 4000
 PRIM_REPS = 50
+LIBRARY_REPS = 3           # torch.cumsum(x, 0) at [3M, 8] takes ~0.75 s
 HOST_CALLS = 200           # calls enqueued back to back per host-cost line
-# launches of each kernel in one BA iteration: K2 and K1 of the hash
-# backward; gather_rows for the hash forward, the backward's two payload
-# gathers and its boundary gather, the uncertainty grid's cell gather and
-# its segment sum's two gathers; row_cumsum for the scan of K2's totals and
-# the segment sum's scan
-BA_LAUNCHES_PER_ITER = {"chunk_totals": 1, "outer_cumsum": 1,
-                        "gather_rows": 7, "row_cumsum": 2}
-BACKWARD_KERNELS = ("chunk_totals", "outer_cumsum")   # only in the backward
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, f32 FLOP/s outside the
+# tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# launches of each kernel entry point in one BA iteration: the fused scan's
+# slot rows in the hash backward (never its full rows); gather_rows for the
+# hash forward, the backward's two payload gathers, the uncertainty grid's
+# cell gather and its segment sum's two gathers; row_cumsum for that
+# segment sum's scan
+BA_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
+                        "gather_rows": 6, "row_cumsum": 1}
+BACKWARD_KERNELS = ("outer_scan_slots",)   # only in the backward
 SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
 PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
 # the BA path's gathers at office0, with int64 indices: (site, table rows,
@@ -70,22 +84,20 @@ BA_GATHERS = (
     ("hash forward", 204_089, 64, "bfloat16", 493_436, False),
     ("sort payload", 493_568, 1, "int32", 493_568, False),
     ("sort payload", 493_568, 8, "bfloat16", 493_568, False),
-    ("boundary", 493_568, 64, "float32", 204_089, True),
     ("uncert cells", 89_760, 8, "float32", 93_568, False),
     ("segment rows", 93_568, 8, "float32", 93_568, False),
     ("segment bounds", 93_569, 8, "float32", 89_760, True),
 )
-BA_SCANS = ((93_568, 8), (964, 64))   # the segment sum's, K2's totals'
+BA_SCANS = ((93_568, 8),)   # the uncertainty grid's segment sum
 SOURCE = {
-    "chunk_totals": "naruto_tpu_torch/csrc/outer_cumsum.cu",
-    "outer_cumsum": "naruto_tpu_torch/csrc/outer_cumsum.cu",
+    "outer_scan": "naruto_tpu_torch/csrc/outer_cumsum.cu",
     "gather_rows": "naruto_tpu_torch/csrc/gather_rows.cu",
     "sorted_segment_sum": "naruto_tpu_torch/csrc/sorted_segment_sum.cu",
     "row_cumsum": "naruto_tpu_torch/csrc/row_cumsum.cu",
 }
 REPLACES = {
-    "chunk_totals": ["naruto_tpu/ops/pallas_kernels.py:78"],
-    "outer_cumsum": ["naruto_tpu/ops/pallas_kernels.py:57"],
+    "outer_scan": ["naruto_tpu/ops/pallas_kernels.py:57",
+                   "naruto_tpu/ops/pallas_kernels.py:78"],
     "gather_rows": ["scripts/microbench_primitives.py:202",
                     "scripts/microbench_primitives.py:234",
                     "scripts/microbench_round2.py:112",
@@ -129,53 +141,59 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def bound(nbytes: float, flops: float) -> tuple:
+    """The least milliseconds the card could take for work that moves
+    nbytes (each input read once, each output written once) and does flops
+    f32 operations, and which of the two bounds it."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 # ------------------------------------------------------------------ phase 2
+def scan_inputs(torch, gen, dev, n: int, m: int, size: int, ka: int,
+                kb: int) -> tuple:
+    """Sorted keys of n updates in [0, size), padded to m rows with
+    INT32_MAX keys and zero factors, as the hash backward pads them."""
+    keys = torch.randint(0, size, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    si = torch.cat([torch.sort(keys).values,
+                    torch.full((m - n,), INT32_MAX, dtype=torch.int32,
+                               device=dev)])
+    sa = torch.randn((m, ka), generator=gen, device=dev).bfloat16()
+    sb = torch.randn((m, kb), generator=gen, device=dev).bfloat16()
+    sa[n:] = 0
+    sb[n:] = 0
+    return si, sa, sb
+
+
 def check_kernels(torch, kernels, dev) -> dict:
-    """K2 and K1 against their plain versions; returns the slice-shape
-    errors and median times."""
+    """Both epilogues of the fused scan against their plain versions;
+    returns, per epilogue, every case (the first is the mapping step's
+    shape)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    result = {}
-    for m, ka, kb in ((SLICE_M, SLICE_K, SLICE_K),) + SMALL_SHAPES:
-        sa = torch.randn((m, ka), generator=gen, device=dev).bfloat16()
-        sb = torch.randn((m, kb), generator=gen, device=dev).bfloat16()
-        tot = kernels.chunk_totals(sa, sb)
-        tot_ref = kernels.chunk_totals_plain(sa, sb)
-        offs = torch.cumsum(tot_ref, 0) - tot_ref
-        out = kernels.outer_cumsum(sa, sb, offs)
-        out_ref = kernels.outer_cumsum_plain(sa, sb, offs)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, got, ref in (("chunk_totals", tot, tot_ref),
-                               ("outer_cumsum", out, out_ref)):
-            abs_err = float((got - ref).abs().max())
-            rel = abs_err / float(ref.abs().max())
-            errs[name] = (abs_err, rel)
-            if not math.isfinite(rel) or rel > KERNEL_TOL:
-                fail(f"{name} M={m} {ka}x{kb}: error {rel:.3e} of max|ref| "
-                     f"> {KERNEL_TOL}")
-        log(f"[kernels] M={m} {ka}x{kb}: chunk_totals err "
-            f"{errs['chunk_totals'][1]:.3e}, outer_cumsum err "
-            f"{errs['outer_cumsum'][1]:.3e} (of max|plain|, tol "
-            f"{KERNEL_TOL})")
-        if m == SLICE_M:
-            reps = 50
-            ms = {
-                "chunk_totals": (
-                    cuda_ms(lambda: kernels.chunk_totals(sa, sb), reps),
-                    cuda_ms(lambda: kernels.chunk_totals_plain(sa, sb), reps)),
-                "outer_cumsum": (
-                    cuda_ms(lambda: kernels.outer_cumsum(sa, sb, offs), reps),
-                    cuda_ms(lambda: kernels.outer_cumsum_plain(sa, sb, offs),
-                            reps)),
-            }
-            for name, (k_ms, p_ms) in ms.items():
-                result[name] = {"max_abs_err": errs[name][0],
-                                "rel_err": errs[name][1],
-                                "ms": k_ms, "plain_ms": p_ms}
-                log(f"[kernels] {name} at M={m}: kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms (median of {reps})")
-    return result
+    res = {"rows": [], "slots": []}
+    shapes = ((SLICE_N, SLICE_M, SLICE_SLOTS, SLICE_K, SLICE_K),) + tuple(
+        (m - 37, m, m // 3, ka, kb) for m, ka, kb in SMALL_SHAPES)
+    for n, m, size, ka, kb in shapes:
+        si, sa, sb = scan_inputs(torch, gen, dev, n, m, size, ka, kb)
+        factors = m * (ka + kb) * 2
+        flops = 2 * m * ka * kb         # a multiply and an add per output
+        big = m == SLICE_M
+        res["rows"].append(kernel_case(
+            torch, "outer_scan rows", f"M={m} {ka}x{kb}",
+            lambda: kernels.outer_cumsum_scan(sa, sb),
+            lambda: kernels.outer_cumsum_scan_plain(sa, sb), KERNEL_TOL,
+            nbytes=factors + m * ka * kb * 4, flops=flops, profiled=big,
+            deterministic=True))
+        res["slots"].append(kernel_case(
+            torch, "outer_scan slots", f"M={m} {ka}x{kb} -> {size} slots",
+            lambda: kernels.outer_cumsum_slots(si, sa, sb, size),
+            lambda: kernels.outer_cumsum_slots_plain(si, sa, sb, size),
+            KERNEL_TOL, nbytes=m * 4 + factors + size * ka * kb * 4,
+            flops=flops, profiled=big, deterministic=True))
+    return res
 
 
 # ------------------------------------------------------------------ phase 3
@@ -305,7 +323,8 @@ def run_slice(torch, kernels, profile_dir) -> dict:
                 f"{float(mapper.last_aux[-1]['total']):.5f}")
             if any(counts[k] != iters_run for k in BACKWARD_KERNELS):
                 fail(f"kernel launches {counts} != iterations {iters_run}: "
-                     f"a mapping iteration did not run both kernels once")
+                     f"a mapping iteration did not run the slot-row scan "
+                     f"once")
             check_ba_launches(per_iter)
     log(f"[slice] steps 0..10 in {time.perf_counter() - t_all:.2f} s")
 
@@ -464,12 +483,15 @@ def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
     return took / calls * 1e6
 
 
-def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
-              profiled: bool = False, deterministic: bool = False) -> dict:
+def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
+                nbytes: float, flops: float = 0.0, library=None,
+                profiled: bool = False, deterministic: bool = False) -> dict:
     """One kernel against its plain version on the same card tensors, then
     both timed: the median of PRIM_REPS CUDA-event launches, and where
     `profiled`, the device time from the profiler. `deterministic`: a
-    second kernel call must give the same bits."""
+    second kernel call must give the same bits. nbytes / flops: what the
+    function must move and compute, for its bound; `library`: one PyTorch
+    call that computes the same function, timed beside it."""
     got = kernel()
     ref = plain()
     torch.cuda.synchronize()
@@ -484,12 +506,18 @@ def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
     rel = abs_err / scale if scale else abs_err
     if not math.isfinite(rel) or rel > tol:
         fail(f"{name} {shape}: error {rel:.3e} of max|plain| > {tol}")
+    bound_ms, bound_by = bound(nbytes, flops)
     res = {"shape": shape, "max_abs_err": abs_err, "rel_err": rel,
            "ms": cuda_ms(kernel, PRIM_REPS),
-           "plain_ms": cuda_ms(plain, PRIM_REPS)}
-    line = (f"[prims] {name} {shape}: max|kernel-plain| {abs_err:.3e} = "
+           "plain_ms": cuda_ms(plain, PRIM_REPS),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": cuda_ms(library, LIBRARY_REPS) if library else None}
+    line = (f"[kernels] {name} {shape}: max|kernel-plain| {abs_err:.3e} = "
             f"{rel:.3e} of max|plain| (tol {tol}); kernel {res['ms']:.4f} "
             f"ms, plain {res['plain_ms']:.4f} ms (median of {PRIM_REPS})")
+    if library:
+        line += f", library {res['library_ms']:.4f} ms"
+    line += f"; bound {bound_ms:.4f} ms ({bound_by})"
     if profiled:
         res["device_ms"] = device_ms(torch, kernel)
         res["plain_device_ms"] = device_ms(torch, plain)
@@ -502,11 +530,19 @@ def prim_case(torch, name: str, shape: str, kernel, plain, tol: float,
 def check_primitives(torch, prims, dev) -> dict:
     """gather_rows, sorted_segment_sum and row_cumsum against their plain
     versions at the scripts' sizes, at ragged M and at the BA path's
-    shapes; returns, per kernel, every case (the first is the scripts' main
-    shape)."""
+    shapes; returns, per kernel, every case, each marked with the path
+    whose shape it has ("microbenchmarks", "slice" or "ragged")."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     res = {k: [] for k in PRIM_KERNELS}
+
+    def case(name, path, *args, **kw):
+        res[name].append({"path": path, **kernel_case(torch, name, *args,
+                                                      **kw)})
+
+    def nb(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     table = torch.randn((PRIM_TS, PRIM_F), generator=gen, device=dev)
     tables = (("[65536,8] bf16", table.bfloat16()),
               ("[65536,1] bf16", table[:, :1].bfloat16().contiguous()),
@@ -515,11 +551,13 @@ def check_primitives(torch, prims, dev) -> dict:
         idx = torch.randint(0, PRIM_TS, (m,), generator=gen, device=dev,
                             dtype=torch.int32)
         for label, tbl in tables:
-            res["gather_rows"].append(prim_case(
-                torch, "gather_rows", f"{label} x {m}",
-                lambda: prims.gather_rows(tbl, idx),
-                lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
-                profiled=m == PRIM_M))
+            big = m == PRIM_M
+            case("gather_rows", "microbenchmarks" if big else "ragged",
+                 f"{label} x {m}", lambda: prims.gather_rows(tbl, idx),
+                 lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
+                 nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
+                 library=(lambda: tbl.index_select(0, idx)) if big else None,
+                 profiled=big)
     for label, rows, width, dtype, m, ranks in BA_GATHERS:
         tbl = torch.randn((rows, width), generator=gen, device=dev)
         tbl = (tbl * 2 ** 20).to(torch.int32) if dtype == "int32" else \
@@ -527,39 +565,46 @@ def check_primitives(torch, prims, dev) -> dict:
         idx = torch.randint(0, rows, (m,), generator=gen, device=dev)
         if ranks:
             idx = torch.sort(idx).values
-        res["gather_rows"].append(prim_case(
-            torch, "gather_rows",
-            f"BA {label} [{rows},{width}] {dtype} x {m} int64",
-            lambda: prims.gather_rows(tbl, idx),
-            lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
-            profiled=True))
+        case("gather_rows", "slice",
+             f"BA {label} [{rows},{width}] {dtype} x {m} int64",
+             lambda: prims.gather_rows(tbl, idx),
+             lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
+             nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
+             library=lambda: tbl.index_select(0, idx), profiled=True)
     for m in (PRIM_M,) + RAGGED_M:
-        size = ((PRIM_T + 127) // 128) * 128 if m == PRIM_M else RAGGED_SLOTS
+        big = m == PRIM_M
+        size = ((PRIM_T + 127) // 128) * 128 if big else RAGGED_SLOTS
         keys = torch.randint(0, size, (m,), generator=gen, device=dev,
                              dtype=torch.int32)
         keys[-1] = size - 1                 # the last slot is never missed
         si = torch.sort(keys).values
         vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
         for rb in (True, False):
-            res["sorted_segment_sum"].append(prim_case(
-                torch, "sorted_segment_sum",
-                f"{'bf16' if rb else 'f32'} {m} -> [{size},{PRIM_F}]",
-                lambda: prims.sorted_segment_sum(si, vals, size,
-                                                 round_bf16=rb),
-                lambda: prims.sorted_segment_sum_plain(si, vals, size,
-                                                       round_bf16=rb),
-                prims.SEGMENT_TOL, profiled=m == PRIM_M))
-        res["row_cumsum"].append(prim_case(
-            torch, "row_cumsum", f"[{m},{PRIM_F}] f32",
-            lambda: prims.row_cumsum(vals),
-            lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
-            profiled=m == PRIM_M, deterministic=True))
+            v = vals.bfloat16().float() if rb else vals
+            case("sorted_segment_sum", "microbenchmarks" if big else "ragged",
+                 f"{'bf16' if rb else 'f32'} {m} -> [{size},{PRIM_F}]",
+                 lambda: prims.sorted_segment_sum(si, vals, size,
+                                                  round_bf16=rb),
+                 lambda: prims.sorted_segment_sum_plain(si, vals, size,
+                                                        round_bf16=rb),
+                 prims.SEGMENT_TOL, nbytes=nb(si, vals) + size * PRIM_F * 4,
+                 flops=m * PRIM_F,
+                 library=(lambda: vals.new_zeros((size, PRIM_F)).index_add_(
+                     0, si, v)) if big else None,
+                 profiled=big)
+        case("row_cumsum", "microbenchmarks" if big else "ragged",
+             f"[{m},{PRIM_F}] f32", lambda: prims.row_cumsum(vals),
+             lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
+             nbytes=2 * nb(vals), flops=m * PRIM_F,
+             library=(lambda: torch.cumsum(vals, 0)) if big else None,
+             profiled=big, deterministic=True)
     for m, nf in BA_SCANS:
         x = torch.randn((m, nf), generator=gen, device=dev)
-        res["row_cumsum"].append(prim_case(
-            torch, "row_cumsum", f"BA [{m},{nf}] f32",
-            lambda: prims.row_cumsum(x), lambda: prims.row_cumsum_plain(x),
-            prims.CUMSUM_TOL, profiled=True, deterministic=True))
+        case("row_cumsum", "slice", f"BA [{m},{nf}] f32",
+             lambda: prims.row_cumsum(x), lambda: prims.row_cumsum_plain(x),
+             prims.CUMSUM_TOL, nbytes=2 * nb(x), flops=m * nf,
+             library=lambda: torch.cumsum(x, 0), profiled=True,
+             deterministic=True)
     return res
 
 
@@ -576,9 +621,7 @@ def check_host_costs(torch, kernels, prims, dev) -> dict:
     si = torch.sort(torch.randint(0, RAGGED_SLOTS, (m,), generator=gen,
                                   device=dev, dtype=torch.int32)).values
     vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
-    sa = torch.randn((4608, 8), generator=gen, device=dev).bfloat16()
-    sb = torch.randn((4608, 4), generator=gen, device=dev).bfloat16()
-    offs = torch.zeros((4608 // kernels.SUB, 32), device=dev)
+    ssi, sa, sb = scan_inputs(torch, gen, dev, 4571, 4608, 1536, 8, 4)
     calls = {
         "gather_rows": (f"[{PRIM_TS},{PRIM_F}] bf16 x {m}",
                         lambda: prims.gather_rows(tbl, idx),
@@ -592,12 +635,13 @@ def check_host_costs(torch, kernels, prims, dev) -> dict:
         "row_cumsum": (f"[{m},{PRIM_F}] f32",
                        lambda: prims.row_cumsum(vals),
                        lambda: prims.row_cumsum_plain(vals)),
-        "chunk_totals": ("M=4608 8x4",
-                         lambda: kernels.chunk_totals(sa, sb),
-                         lambda: kernels.chunk_totals_plain(sa, sb)),
-        "outer_cumsum": ("M=4608 8x4",
-                         lambda: kernels.outer_cumsum(sa, sb, offs),
-                         lambda: kernels.outer_cumsum_plain(sa, sb, offs)),
+        "outer_scan_rows": ("M=4608 8x4",
+                            lambda: kernels.outer_cumsum_scan(sa, sb),
+                            lambda: kernels.outer_cumsum_scan_plain(sa, sb)),
+        "outer_scan_slots": (
+            "M=4608 8x4 -> 1536 slots",
+            lambda: kernels.outer_cumsum_slots(ssi, sa, sb, 1536),
+            lambda: kernels.outer_cumsum_slots_plain(ssi, sa, sb, 1536)),
     }
     res = {}
     for name, (shape, kernel, plain) in calls.items():
@@ -640,7 +684,8 @@ def main() -> None:
                     help="also profile one BA step; trace and table to DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    sys.modules["jax"] = None             # the port never needs jax
+    sys.modules["jax"] = None             # the port never needs jax,
+    sys.modules["naruto_tpu"] = None      # nor the JAX package
 
     import torch
 
@@ -679,27 +724,36 @@ def main() -> None:
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
 
-    entries = []
-    for name in BACKWARD_KERNELS + PRIM_KERNELS:
-        if name in BACKWARD_KERNELS:
-            main_case, cases = kres[name], None
-        else:
-            main_case, cases = pres[name][0], pres[name]
-        # the count of the main path a kernel is on: the BA slice, else the
-        # microbenchmarks
-        launches = (sres["launches"] if name in SLICE_KERNELS
-                    else bench_launches)[name]
-        entry = {"name": name, "route": "cuda", "source": SOURCE[name],
-                 "replaces": REPLACES[name], "launches": launches,
-                 "launches_by_path": {
-                     "slice": sres["launches"][name],
-                     "microbenchmarks": bench_launches[name]},
-                 "max_abs_err": main_case["max_abs_err"],
-                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                 **hres[name]}
-        if cases:
-            entry["cases"] = cases
-        entries.append(entry)
+    def summary(case: dict) -> dict:
+        return {k: case[k] for k in ("shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}
+
+    on_slice = sres["launches"]
+    # the fused scan: the BA runs its slot rows, and its full rows nowhere
+    entries = [{
+        "name": "outer_scan", "route": "cuda", "source": SOURCE["outer_scan"],
+        "replaces": REPLACES["outer_scan"],
+        "launches": on_slice["outer_scan_slots"] + on_slice["outer_scan_rows"],
+        "launches_by_epilogue": {"slots": on_slice["outer_scan_slots"],
+                                 "rows": on_slice["outer_scan_rows"]},
+        **summary(kres["slots"][0]), **hres["outer_scan_slots"],
+        "epilogues": kres,
+        "host_by_epilogue": {"slots": hres["outer_scan_slots"],
+                             "rows": hres["outer_scan_rows"]}}]
+    for name in PRIM_KERNELS:
+        # the main path a kernel is on: the BA slice, else the
+        # microbenchmarks; its numbers are those of that path's first shape
+        path = "slice" if name in SLICE_KERNELS else "microbenchmarks"
+        main_case = next(c for c in pres[name] if c["path"] == path)
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": (on_slice if path == "slice"
+                         else bench_launches)[name],
+            "launches_by_path": {"slice": on_slice[name],
+                                 "microbenchmarks": bench_launches[name]},
+            **summary(main_case), **hres[name], "cases": pres[name]})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

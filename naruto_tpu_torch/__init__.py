@@ -2,7 +2,7 @@
 
 Module paths mirror ``naruto_tpu`` (``ops/``, ``mapping/``, ``sim/``,
 ``utils/``); the JAX package is the reference each module is tested against.
-This package imports torch and never jax. It reuses the JAX package's
-jax-free modules as they are: ``naruto_tpu.config``,
-``naruto_tpu.geometry.rays``/``.voxel`` and ``naruto_tpu.utils.printer``.
+This package imports torch and nothing of jax or of ``naruto_tpu``, not
+even its jax-free modules: it keeps its own copies of those it needs
+(``config/``, ``geometry/rays.py``/``voxel.py``, ``utils/printer.py``).
 """

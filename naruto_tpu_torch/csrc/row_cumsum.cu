@@ -10,7 +10,7 @@
 // the script's own oracle is jnp.cumsum), the 1024-row blocking, and the
 // grid of M // 1024 blocks, which leaves the tail of a ragged M unscanned.
 // On the port's BA path it is the scan of the trilinear VJP's segment sum
-// ([93,568, 8]) and of the hash backward's chunk offsets ([964, 64]).
+// ([93,568, 8]).
 //
 // What bounded the first design (three launches: chunk totals, a scan of
 // them, an offset rescan; NVIDIA H100 80GB HBM3, 700 W): at [3,000,000, 8]
@@ -21,27 +21,19 @@
 // second host call for the scratch size.
 //
 // This design: one launch that reads x once. Each block takes a tile id
-// from an atomic ticket (so a tile waits only on tiles already resident),
-// copies its tile of R rows (R * F <= 8192 floats, 32 KB) into shared memory
-// with cp.async (no registers held), and scans it there: thread t owns
-// column t % F and a segment of consecutive rows; the segments' sums are
-// scanned across the block in a fixed (Hillis-Steele) order. The tile then
-//   1. publishes its column totals (its aggregate) with a release flag;
-//   2. if it closes a group of GROUP tiles, waits for the group's
-//      aggregates and publishes their sum, in a fixed order, the same way;
-//   3. waits for the sums of all complete groups before it and the
-//      aggregates of the earlier tiles of its own group (one warp polls the
-//      flags, backing off between reads, so that waiting blocks leave L2
-//      to the loads of the others), and adds them in a fixed order into
-//      its exclusive offset;
-//   4. writes offset + its local inclusive scan, so nothing rounds at the
-//      offset's scale (as K1 in outer_cumsum.cu does).
-// A classic decoupled look-back stops at the first inclusive prefix it
-// finds, which depends on timing; here every sum is a fixed function of the
-// input, so the result depends on the input alone, not on scheduling. A
-// tile reads at most M / (R * GROUP) + GROUP - 1 published rows of F
-// floats (123 at [3M, 8]). Shared memory (35,848 bytes a block; ptxas: 40
-// registers) bounds residency at six blocks per SM.
+// from the atomic ticket of lookback.cuh (so a tile waits only on tiles
+// already resident), copies its tile of R rows (R * F <= 8192 floats, 32 KB)
+// into shared memory with cp.async (no registers held), and scans it there:
+// thread t owns column t % F and a segment of consecutive rows; the
+// segments' sums are scanned across the block in a fixed (Hillis-Steele)
+// order. The tile's column totals then go through the deterministic
+// look-back of lookback.cuh (published aggregates, fixed-order group sums,
+// a per-call epoch), which gives its exclusive offset, and the tile writes
+// offset + its local inclusive scan, so nothing rounds at the offset's
+// scale (as outer_cumsum.cu does). A tile reads at most M / (R * GROUP) +
+// GROUP - 1 published rows of F floats (123 at [3M, 8]). Shared memory
+// (35,848 bytes a block; ptxas: 40 registers) bounds residency at six
+// blocks per SM.
 //
 // What bounds it now (same card): [3M, 8] takes ~0.101 ms on the device,
 // where a copy of x through the same tiles takes 0.068 ms and torch's own
@@ -58,11 +50,7 @@
 // instead of waiting for its closer (no faster at [3M, 8], 30% slower at
 // F = 256).
 //
-// State: the caller keeps one zeroed int32 buffer per stream and passes it
-// to every call: [ticket, done, epoch, -, tile flags (cap), group flags
-// (cap / GROUP + 1), then the published floats]. A flag is current when it
-// equals epoch + 1. The last block to finish resets the ticket and the done
-// count and advances the epoch, so the next call needs no reset launch.
+// State: the per-stream buffer of lookback.cuh, shared with outer_cumsum.cu.
 //
 // F must lie in [1, 256]; M is any size, the last tile is masked.
 //
@@ -73,12 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 8192;        // floats per tile at most
-constexpr int GROUP = 32;         // tiles per published group sum
-constexpr int HEADER = 4;         // state words before the tile flags
 
 __host__ __device__ __forceinline__ int tile_rows(int nf) {
   const int r = (TILE / nf) & ~3;   // a multiple of 4: tiles stay 16-byte aligned
@@ -89,74 +77,11 @@ __host__ __device__ __forceinline__ int tile_rows(int nf) {
 // banks, and 16-byte groups stay aligned for cp.async and vector stores
 __device__ __forceinline__ int px(int e) { return e + ((e >> 7) << 2); }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                                            int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-// part[g * nf + f] becomes the inclusive sum over g' <= g of the column-f
-// values of groups g', for g < ngr, in a fixed order. All threads call it.
-__device__ void scan_groups(float* part, int nf, int ngr, int g, bool active) {
-  const int tid = threadIdx.x;
-  for (int d = 1; d < ngr; d <<= 1) {
-    float v = 0.0f;
-    const bool take = active && g >= d;
-    if (take) v = part[tid - d * nf];
-    __syncthreads();
-    if (take) part[tid] += v;
-    __syncthreads();
-  }
-}
-
-// Wait until the flags of entries 0..n-1 (flag(e) points at entry e's)
-// read mark: warp 0 polls, lane l the entries l, l + 32, ..., backing off
-// between reads so that waiting blocks leave L2 to the others; then the
-// block's barrier hands the entries on to every thread. All threads call it.
-template <typename Flag>
-__device__ void wait_published(int64_t n, Flag flag, unsigned mark) {
-  if (threadIdx.x < 32) {
-    for (int64_t e = threadIdx.x; e < n; e += 32) {
-      unsigned ns = 32;
-      while (ld_acquire(flag(e)) != mark) {
-        __nanosleep(ns);
-        ns = ns < 128 ? 2 * ns : ns;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Column sums of n published rows of nf floats, read(e, f) returning the
-// value of row e in column f: lane g sums rows g, g + ngr, ... in order,
-// then the lanes are scanned. Valid in threads t < nf (column t). All
-// threads call it.
-template <typename Read>
-__device__ float sum_published(int64_t n, Read read, float* part, int nf,
-                               int ngr, int f, int g, bool active) {
-  const int tid = threadIdx.x;
-  float s = 0.0f;
-  if (active)
-    for (int64_t e = g; e < n; e += ngr) s += read(e, f);
-  part[tid] = active ? s : 0.0f;
-  __syncthreads();
-  scan_groups(part, nf, ngr, g, active);
-  const float total = tid < nf ? part[(ngr - 1) * nf + tid] : 0.0f;
-  __syncthreads();
-  return total;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -166,23 +91,12 @@ row_cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
   __shared__ __align__(16) float tile[TILE + TILE / 32];
   __shared__ float part[THREADS];
   __shared__ float offs[THREADS];
-  __shared__ unsigned ticket_mark[2];
 
   const int tid = threadIdx.x;
   const int rows = tile_rows(nf);
   const int64_t ntiles = (m + rows - 1) / rows;
-  unsigned* flags = state + HEADER;
-  unsigned* gflags = flags + cap;
-  float* aggs = reinterpret_cast<float*>(gflags + cap / GROUP + 1);
-  float* gsums = aggs + ntiles * nf;
-
-  if (tid == 0) {
-    ticket_mark[0] = atomicAdd(state, 1u);
-    ticket_mark[1] = *(volatile unsigned*)(state + 2) + 1u;
-  }
-  __syncthreads();
-  const int64_t t = ticket_mark[0];
-  const unsigned mark = ticket_mark[1];
+  const lookback::Ticket tk = lookback::take_ticket(state);
+  const int64_t t = tk.tile;
 
   // the tile, zero past row m
   const int64_t row0 = t * rows;
@@ -215,48 +129,13 @@ row_cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (int r = r0; r < r1; ++r) s += tile[px(r * nf + f)];
   part[tid] = active ? s : 0.0f;
   __syncthreads();
-  scan_groups(part, nf, ngr, g, active);
+  lookback::scan_groups(part, nf, ngr, g, active);
   const float excl = active && g > 0 ? part[tid - nf] : 0.0f;
+  const float agg = tid < nf ? part[(ngr - 1) * nf + tid] : 0.0f;
 
-  // 1. publish the aggregate
-  if (tid < nf) {
-    aggs[t * nf + tid] = part[(ngr - 1) * nf + tid];
-    __threadfence();
-  }
-  __syncthreads();
-  if (tid == 0) st_release(flags + t, mark);
-
-  // 2. close a group
-  if (t % GROUP == GROUP - 1) {
-    const int64_t first = t - (GROUP - 1);
-    wait_published(GROUP, [&](int64_t e) { return flags + first + e; }, mark);
-    const float gs = sum_published(
-        GROUP,
-        [&](int64_t e, int c) { return __ldcg(aggs + (first + e) * nf + c); },
-        part, nf, ngr, f, g, active);
-    if (tid < nf) {
-      gsums[(t / GROUP) * nf + tid] = gs;
-      __threadfence();
-    }
-    __syncthreads();
-    if (tid == 0) st_release(gflags + t / GROUP, mark);
-  }
-
-  // 3. the exclusive offset: complete groups, then this group's tiles
-  const int64_t gt = t / GROUP;
-  const int64_t base = gt * GROUP - gt;   // tile of entry e >= gt: base + e
-  const int64_t entries = gt + (t - gt * GROUP);
-  wait_published(
-      entries,
-      [&](int64_t e) { return e < gt ? gflags + e : flags + base + e; },
-      mark);
-  const float off = sum_published(
-      entries,
-      [&](int64_t e, int c) {
-        return e < gt ? __ldcg(gsums + e * nf + c)
-                      : __ldcg(aggs + (base + e) * nf + c);
-      },
-      part, nf, ngr, f, g, active);
+  // 1-3. publish the aggregate, close a group, sum the tiles before
+  const float off = lookback::exclusive_offset(state, cap, ntiles, t, tk.mark,
+                                               nf, agg, part);
   if (tid < nf) offs[tid] = off;
   __syncthreads();
 
@@ -288,14 +167,7 @@ row_cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 
   // the last block to finish readies the state for the next call
-  if (tid == 0) {
-    __threadfence();
-    if (atomicAdd(state + 1, 1u) == (unsigned)(ntiles - 1)) {
-      atomicExch(state, 0u);
-      atomicExch(state + 1, 0u);
-      atomicExch(state + 2, mark);
-    }
-  }
+  if (tid == 0) lookback::finish(state, ntiles, tk.mark);
 }
 
 }  // namespace
@@ -306,9 +178,8 @@ extern "C" int naruto_row_cumsum(const void* x, void* out, void* state,
                                  int64_t cap, int64_t words, int64_t m,
                                  int nf, void* stream) {
   const int64_t ntiles = (m + tile_rows(nf) - 1) / tile_rows(nf);
-  const int64_t need = HEADER + cap + cap / GROUP + 1 +
-                       (ntiles + ntiles / GROUP) * nf;
-  if (nf < 1 || nf > THREADS || m < 1 || ntiles > cap || need > words ||
+  if (nf < 1 || nf > THREADS || m < 1 || ntiles > cap ||
+      lookback::state_words(cap, ntiles, nf) > words ||
       ntiles > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const bool vec = ((uintptr_t)x | (uintptr_t)out) % 16 == 0;

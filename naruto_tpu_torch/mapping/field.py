@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from naruto_tpu.geometry.voxel import volume_shape
+from naruto_tpu_torch.geometry.voxel import volume_shape
 from naruto_tpu_torch.ops import device_const
 from naruto_tpu_torch.ops.encoding import (HashGridSpec, hash_encode,
                                            init_hash_table)

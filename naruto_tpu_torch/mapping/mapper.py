@@ -32,10 +32,9 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from naruto_tpu.geometry.rays import get_camera_rays
-from naruto_tpu.geometry.voxel import volume_shape, world_grid
-from naruto_tpu.utils.printer import InfoPrinter
 from naruto_tpu_torch.config import MainConfig
+from naruto_tpu_torch.geometry.rays import get_camera_rays
+from naruto_tpu_torch.geometry.voxel import volume_shape, world_grid
 from naruto_tpu_torch.mapping.field import (FieldSpec, init_field_params,
                                             query_sdf)
 from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
@@ -45,6 +44,7 @@ from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.ops.encoding import table_leaves
 from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
+from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.seeding import make_generators
 from naruto_tpu_torch.utils.weights import load_jax_params
 

@@ -12,8 +12,8 @@ and scripts/microbench_round2.py, which compute three functions:
   * ``row_cumsum``          (P4 ``cs_kernel``): ``csrc/row_cumsum.cu``.
 
 ``gather_rows`` and ``row_cumsum`` also carry the mapper's BA path: the
-hash grid's forward gather, the backward's payload and boundary gathers,
-the uncertainty grid's cell gather and both segment sums' row scans.
+hash grid's forward gather, the backward's payload gathers, the
+uncertainty grid's cell gather and its segment sum's gathers and row scan.
 
 Each source's header says what bounds the kernel on the card and how its
 design answers it. As in ``ops/kernels.py``, every wrapper checks the
@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from naruto_tpu_torch.ops import cumsum_rows
-from naruto_tpu_torch.ops.kernels import launch, lib
+from naruto_tpu_torch.ops.kernels import launch, lib, scan_state
 
 # Tolerances of each kernel against its plain version on the same card
 # tensors, as a share of max|plain|, and the reason for each:
@@ -138,12 +138,7 @@ def sorted_segment_sum(si: torch.Tensor, vals: torch.Tensor, size: int, *,
 
 
 # ---------------------------------------------------------------- row scan
-# As TILE and GROUP in csrc/row_cumsum.cu, which checks the state it is
-# given against them.
-_SCAN_TILE, _SCAN_GROUP = 8192, 32
-_SCAN_MIN_CAP, _SCAN_MIN_FLOATS = 16384, 1 << 18
-# (device index, raw stream) -> (zeroed int32 state buffer, tile capacity)
-_SCAN_STATES: dict = {}
+_SCAN_TILE = 8192    # as TILE in csrc/row_cumsum.cu
 
 
 def _check_cumsum(x: torch.Tensor) -> torch.device:
@@ -154,25 +149,6 @@ def _check_cumsum(x: torch.Tensor) -> torch.device:
                          f"{ROW_CUMSUM_MAX_F}, got {tuple(x.shape)}")
     _contiguous(x)
     return _device(x)
-
-
-def _scan_state(dev: torch.device, m: int, nf: int) -> tuple:
-    """The scan kernel's state for the current stream of `dev`: made zeroed
-    (one fill) at the stream's first call and when a call needs more room;
-    the kernel leaves it ready for the next call itself."""
-    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    rows = max(4, (_SCAN_TILE // nf) & ~3)
-    tiles = -(-m // rows)
-    floats = (tiles + tiles // _SCAN_GROUP) * nf
-    buf, cap = _SCAN_STATES.get(key, (None, 0))
-    if buf is None or tiles > cap or \
-            4 + cap + cap // _SCAN_GROUP + 1 + floats > buf.numel():
-        cap = max(2 * tiles, cap, _SCAN_MIN_CAP)
-        words = 4 + cap + cap // _SCAN_GROUP + 1 + max(2 * floats,
-                                                       _SCAN_MIN_FLOATS)
-        buf = torch.zeros(words, dtype=torch.int32, device=dev)
-        _SCAN_STATES[key] = (buf, cap)
-    return buf, cap
 
 
 def row_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
@@ -189,7 +165,8 @@ def row_cumsum(x: torch.Tensor) -> torch.Tensor:
     m, nf = x.shape
     out = torch.empty_like(x)
     if m:
-        state, cap = _scan_state(dev, m, nf)
+        rows = max(4, (_SCAN_TILE // nf) & ~3)
+        state, cap = scan_state(dev, -(-m // rows), nf)
         launch("row_cumsum", lib("row_cumsum").naruto_row_cumsum, dev,
                x.data_ptr(), out.data_ptr(), state.data_ptr(), cap,
                state.numel(), m, nf)

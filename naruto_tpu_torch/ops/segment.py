@@ -4,13 +4,13 @@ naruto_tpu/ops/segment.py, the parts the mapper's backward calls).
 ``dense_segment_sum_outer_level_major_frac`` is the hash-grid backward: the
 rank-1 updates outer(corner weights, level cotangent) are sorted by table
 slot (the weights travel as one packed-frac column and are rebuilt after the
-sort), prefix-summed by the hand-written kernels in ``ops/kernels.py``, and
-turned into per-slot sums by one boundary gather and an adjacent difference.
-Every row gather here is ``primitives.gather_rows`` and every row scan
-``primitives.row_cumsum``: kernels on the card, their plain versions on the
-CPU. Each index is in range by construction (a sort permutation, a rank
-into a table one row longer, a clamped rank), so the gather's device-side
-assert guards it without a host check.
+sort); the fused scan of ``ops/kernels.py`` writes, for every slot, the
+prefix sum through the slot's last update, and an adjacent difference turns
+those into per-slot sums. Every row gather here is
+``primitives.gather_rows`` and every row scan ``primitives.row_cumsum``:
+kernels on the card, their plain versions on the CPU. Each index is in range
+by construction (a sort permutation, a rank into a table one row longer), so
+the gather's device-side assert guards it without a host check.
 ``dense_segment_sum`` has the JAX function's signature and default: the
 values are rounded to bf16 before the f32 prefix sum unless
 ``pack_bf16=False`` (the exact form the trilinear VJP uses).
@@ -97,15 +97,11 @@ def dense_segment_sum_outer_level_major_frac(
 
 def _outer_from_sorted(si: torch.Tensor, sa16: torch.Tensor,
                        sb16: torch.Tensor, size: int) -> torch.Tensor:
-    """Post-sort tail: run boundaries, the K2/K1 prefix scan, boundary
-    differences. M must already be a multiple of 512."""
-    ub = _chunk_ranks(si, size)
-    cs_inc = kernels.outer_cumsum_scan(sa16.contiguous(), sb16.contiguous())
-    # hi[t] = total of all entries with key <= t; per-slot sums are adjacent
-    # differences — one boundary gather (the lo gather is hi shifted by one)
-    hi = torch.where((ub > 0)[:, None],
-                     primitives.gather_rows(cs_inc, torch.clamp(ub - 1, min=0)),
-                     0.0)
+    """Post-sort tail: hi[t] = total of all entries with key <= t (the
+    fused scan's slot rows); per-slot sums are adjacent differences. M must
+    already be a multiple of 512."""
+    hi = kernels.outer_cumsum_slots(si, sa16.contiguous(), sb16.contiguous(),
+                                    size)
     return hi - torch.cat([hi.new_zeros((1, hi.shape[1])), hi[:-1]])
 
 

@@ -13,10 +13,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from naruto_tpu.geometry.rays import get_camera_rays
-from naruto_tpu.utils.printer import InfoPrinter
 from naruto_tpu_torch.config import MainConfig
+from naruto_tpu_torch.geometry.rays import get_camera_rays
 from naruto_tpu_torch.sim.base import Simulator
+from naruto_tpu_torch.utils.printer import InfoPrinter
 
 WALL_MARGIN = 0.15      # meters between mapping AABB and the walls
 TRACE_ITERS = 64

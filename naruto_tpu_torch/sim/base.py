@@ -11,8 +11,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-from naruto_tpu.utils.printer import InfoPrinter
 from naruto_tpu_torch.config import MainConfig
+from naruto_tpu_torch.utils.printer import InfoPrinter
 
 
 class Simulator:

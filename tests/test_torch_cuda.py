@@ -23,37 +23,140 @@ def gen():
     return np.random.default_rng(0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,ka,kb", [(512, 8, 8), (4608, 8, 4), (4608, 2, 2),
-                                     (493_568, 8, 8)])
-def test_kernels_match_plain_on_card(gen, cuda_device, m, ka, kb):
-    """K2 and K1 against their plain versions on the same card tensors.
-    Both round each product to bf16 the same way; K2's f32 sums run in
-    another order than the plain reduction, hence 1e-6 of max|ref|."""
+INT32_MAX = 2 ** 31 - 1
+# (name, real rows, size, ka, kb): office0's shape (493,436 updates padded
+# to 493,568 rows, 204,089 slots) and key layouts that stress the slot
+# rows' scatter rule; real rows not a multiple of 512 get INT32_MAX pads
+SCAN_CASES = [
+    ("uniform", 493_436, 204_089, 8, 8),
+    ("uniform", 512, 300, 8, 8),
+    ("uniform", 4608, 3000, 8, 4),
+    ("uniform", 4608, 3000, 2, 2),
+    ("first_key_late", 4100, 9000, 8, 8),
+    ("last_key_early", 4608, 9000, 8, 8),
+    ("long_gaps", 5000, 200_000, 8, 8),
+    ("one_key_spans_chunks", 6144, 3000, 8, 8),
+]
+
+
+def _scan_inputs(gen, dev, name, n, size, ka, kb):
+    if name == "uniform":
+        keys = gen.integers(0, size, n)
+    elif name == "first_key_late":
+        keys = gen.integers(size // 2, size, n)
+    elif name == "last_key_early":
+        keys = gen.integers(0, size // 3, n)
+    elif name == "long_gaps":
+        keys = np.concatenate([gen.integers(0, 5, n // 3),
+                               gen.integers(90_000, 90_010, n // 3),
+                               gen.integers(size - 3, size, n - 2 * (n // 3))])
+    else:                                   # one key over >= 3 chunks
+        keys = np.concatenate([gen.integers(0, 1000, 1000),
+                               np.full(2000, 1500),
+                               gen.integers(1501, size, n - 3000)])
+    pad = (-n) % 512
+    si = torch.tensor(np.concatenate([np.sort(keys), np.full(pad, INT32_MAX)]),
+                      dtype=torch.int32, device=dev)
+    m = n + pad
     sa = torch.tensor(gen.normal(size=(m, ka)), dtype=torch.bfloat16,
-                      device=cuda_device)
+                      device=dev)
     sb = torch.tensor(gen.normal(size=(m, kb)), dtype=torch.bfloat16,
-                      device=cuda_device)
+                      device=dev)
+    sa[n:] = 0
+    sb[n:] = 0
+    return si, sa, sb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,size,ka,kb", SCAN_CASES)
+def test_kernels_match_plain_on_card(gen, cuda_device, name, n, size, ka,
+                                     kb):
+    """Both epilogues of the fused scan against their plain versions on the
+    same card tensors, one launch each. Both round each product to bf16 the
+    same way; the f32 sums run in another order than the plain cumsums,
+    hence 1e-6 of max|plain|. The slot rows are the full rows at each
+    slot's last update, bit for bit."""
+    si, sa, sb = _scan_inputs(gen, cuda_device, name, n, size, ka, kb)
     n0 = kernels.launch_counts()
-    tot = kernels.chunk_totals(sa, sb)
-    ref_tot = kernels.chunk_totals_plain(sa, sb)
-    offs = torch.cumsum(ref_tot, 0) - ref_tot
-    out = kernels.outer_cumsum(sa, sb, offs)
-    ref = kernels.outer_cumsum_plain(sa, sb, offs)
+    rows = kernels.outer_cumsum_scan(sa, sb)
+    hi = kernels.outer_cumsum_slots(si, sa, sb, size)
     torch.cuda.synchronize()
     n1 = kernels.launch_counts()
-    assert n1["chunk_totals"] == n0["chunk_totals"] + 1
-    assert n1["outer_cumsum"] == n0["outer_cumsum"] + 1
-    for got, want in ((tot, ref_tot), (out, ref)):
-        err = float((got - want).abs().max() / want.abs().max())
-        assert err < 1e-6, err
+    assert n1["outer_scan_rows"] == n0["outer_scan_rows"] + 1
+    assert n1["outer_scan_slots"] == n0["outer_scan_slots"] + 1
+    for got, want in ((rows, kernels.outer_cumsum_scan_plain(sa, sb)),
+                      (hi, kernels.outer_cumsum_slots_plain(si, sa, sb,
+                                                            size))):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= 1e-6
+    ub = torch.searchsorted(si, torch.arange(size, dtype=torch.int32,
+                                             device=cuda_device), right=True)
+    at_last = torch.where((ub > 0)[:, None],
+                          rows.index_select(0, (ub - 1).clamp(min=0)), 0.0)
+    assert torch.equal(hi, at_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,size,ka,kb", SCAN_CASES[:2] + SCAN_CASES[6:])
+def test_outer_scan_is_deterministic_on_card(gen, cuda_device, name, n, size,
+                                             ka, kb):
+    """Two calls of each epilogue on the same input agree bit for bit, with
+    a row_cumsum call (which shares the look-back state) between them."""
+    si, sa, sb = _scan_inputs(gen, cuda_device, name, n, size, ka, kb)
+    other = torch.ones((4097, 5), device=cuda_device)
+    first = (kernels.outer_cumsum_scan(sa, sb),
+             kernels.outer_cumsum_slots(si, sa, sb, size))
+    primitives.row_cumsum(other)
+    second = (kernels.outer_cumsum_scan(sa, sb),
+              kernels.outer_cumsum_slots(si, sa, sb, size))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_outer_scan_is_one_launch_on_card(gen, cuda_device):
+    """Each call of either epilogue is one kernel and nothing else on the
+    device (no memset, no copy), as the profiler records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = [_scan_inputs(gen, cuda_device, *case) for case in SCAN_CASES]
+    calls = [fn for (name, n, size, ka, kb), (si, sa, sb)
+             in zip(SCAN_CASES, inputs)
+             for fn in (lambda sa=sa, sb=sb: kernels.outer_cumsum_scan(sa, sb),
+                        lambda si=si, sa=sa, sb=sb, size=size:
+                        kernels.outer_cumsum_slots(si, sa, sb, size))]
+    for fn in calls:                   # the first calls size the state
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == len(calls), names
+    assert all("outer_scan" in n for n in names), names
 
 
 @pytest.mark.cuda
 def test_wrapper_refuses_noncontiguous_on_card(cuda_device):
+    """f32 factors, an M that is not a multiple of 512 and non-contiguous
+    operands are refused before any launch."""
     sa = torch.zeros((512, 16), dtype=torch.bfloat16, device=cuda_device)
+    si = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    before = kernels.launch_counts()
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.chunk_totals(sa[:, ::2], sa[:, :8].contiguous())
+        kernels.outer_cumsum_scan(sa[:, ::2], sa[:, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.outer_cumsum_slots(si[::2], sa[:, :8].contiguous(),
+                                   sa[:, 8:].contiguous(), 4)
+    with pytest.raises(TypeError):
+        kernels.outer_cumsum_slots(si[:512], sa[:, :8].float(),
+                                   sa[:, 8:].float(), 4)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        kernels.outer_cumsum_scan(sa[:500, :8].contiguous(),
+                                  sa[:500, 8:].contiguous())
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.cuda

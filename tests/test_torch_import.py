@@ -1,18 +1,17 @@
-"""The PyTorch port imports torch and never jax."""
+"""The PyTorch port imports torch and nothing of jax or of naruto_tpu."""
 import ast
 import pathlib
 import subprocess
 import sys
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "naruto_tpu_torch"
-
-JAX_FREE_REUSE = ("naruto_tpu.config", "naruto_tpu.geometry.rays",
-                  "naruto_tpu.geometry.voxel", "naruto_tpu.utils.printer")
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "naruto_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "naruto_tpu")
 
 
 def test_package_imports_with_jax_blocked():
-    """Every module of the port imports in a process where `import jax`
-    fails."""
+    """Every module of the port imports in a process where both `import
+    jax` and `import naruto_tpu` fail."""
     mods = []
     for p in PKG.rglob("*.py"):
         parts = p.relative_to(PKG).with_suffix("").parts
@@ -20,13 +19,16 @@ def test_package_imports_with_jax_blocked():
             parts = parts[:-1]
         mods.append(".".join(("naruto_tpu_torch",) + parts))
     code = ("import sys; sys.modules['jax'] = None\n"
+            "sys.modules['naruto_tpu'] = None\n"
             "import importlib\n"
             f"for m in {sorted(mods)!r}:\n"
             "    importlib.import_module(m)\n"
+            "assert not [m for m in sys.modules\n"
+            "            if m.startswith('naruto_tpu.')]\n"
             "assert 'jax.numpy' not in sys.modules\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=PKG.parent, timeout=120)
+                         text=True, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -40,14 +42,24 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_no_jax_import_in_source():
-    """AST scan: no module of the port names jax, jaxlib or optax, and the
-    JAX package is used only through its jax-free modules."""
+    """AST scan of the port and chip_smoke.py: no import names jax, jaxlib,
+    optax or any module of naruto_tpu."""
     bad = []
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for mod in _imported_modules(path):
-            root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "optax"):
-                bad.append((path.name, mod))
-            elif root == "naruto_tpu" and not mod.startswith(JAX_FREE_REUSE):
-                bad.append((path.name, mod))
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append((str(path.relative_to(ROOT)), mod))
+    assert not bad, bad
+
+
+def test_no_naruto_tpu_import_text_in_source():
+    """Line scan, which also sees imports inside strings run by exec or a
+    subprocess: no line of the port starts an import of naruto_tpu."""
+    bad = []
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            words = line.split()
+            if len(words) >= 2 and words[0] in ("import", "from") and \
+                    words[1].split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}:{i}: {line.strip()}")
     assert not bad, bad

@@ -18,7 +18,7 @@ from naruto_tpu_torch.mapping import field as tfield
 from naruto_tpu_torch.mapping import losses as tlosses
 from naruto_tpu_torch.mapping import render as trender
 from naruto_tpu_torch.mapping.mapper import BADraws, Mapper
-from naruto_tpu_torch.ops import primitives
+from naruto_tpu_torch.ops import kernels, primitives
 from naruto_tpu_torch.utils.weights import load_jax_params
 
 torch.set_num_threads(1)
@@ -157,8 +157,11 @@ class TestFieldRenderLosses:
 # ------------------------------------------------- one BA iteration vs JAX
 CUR_CAP = 512
 # calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
-# same launch counts on the card)
-WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": 7, "row_cumsum": 2}
+# same launch counts on the card): wrapper -> (module, calls)
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 6),
+                             "row_cumsum": (primitives, 1),
+                             "outer_cumsum_slots": (kernels, 1),
+                             "outer_cumsum_scan": (kernels, 0)}
 
 
 def _frame(rng, H=24, W=32):
@@ -253,7 +256,8 @@ def ba_pair():
     # the iteration's calls of the kernel wrappers (which take their plain
     # versions here, on CPU tensors)
     calls = dict.fromkeys(WRAPPER_CALLS_PER_BA_ITER, 0)
-    wrapped = {name: getattr(primitives, name) for name in calls}
+    wrapped = {name: getattr(mod, name)
+               for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items()}
 
     def counting(name):
         def call(*args, **kwargs):
@@ -262,12 +266,12 @@ def ba_pair():
         return call
 
     try:
-        for name in calls:
-            setattr(primitives, name, counting(name))
+        for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items():
+            setattr(mod, name, counting(name))
         aux, grads = mt._ba_iteration(setup, draws, 0)
     finally:
-        for name, fn in wrapped.items():
-            setattr(primitives, name, fn)
+        for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items():
+            setattr(mod, name, wrapped[name])
     return dict(seen=seen, state=state, batch=batch, aux=aux, grads=grads,
                 mt=mt, mj=mj, lr=cfg.mapper, calls=calls)
 
@@ -275,11 +279,13 @@ def ba_pair():
 class TestBAIteration:
     def test_runs_through_the_kernel_wrappers(self, ba_pair):
         """The iteration compared below gathers and scans rows through
-        primitives.gather_rows / row_cumsum (the kernels on the card): the
-        hash forward, the hash backward's two payload gathers, its boundary
-        gather and its chunk offsets' scan, the uncertainty grid's cell
-        gather and its segment sum's two gathers and scan."""
-        assert ba_pair["calls"] == WRAPPER_CALLS_PER_BA_ITER
+        primitives.gather_rows / row_cumsum and the hash backward's fused
+        scan (the kernels on the card): the hash forward, the hash
+        backward's two payload gathers and its slot-row scan, the
+        uncertainty grid's cell gather and its segment sum's two gathers
+        and scan; never the full-row scan."""
+        assert ba_pair["calls"] == {
+            name: n for name, (_, n) in WRAPPER_CALLS_PER_BA_ITER.items()}
 
     def test_batch_matches(self, ba_pair):
         """Keyframe sampling, current-ray picks and the active-ray
