@@ -12,9 +12,11 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      mapping step's shape (M = 493,568 rows, 8 x 8, 204,089 slots) and at
      small shapes; two calls must agree bit for bit; both timed (CUDA
      events, and the profiler's device time);
-  3. segment sum: the hash-grid backward's segment sum through the kernels
-     on the card against the same function through the plain versions on
-     the host, at the mapping step's point count and table size;
+  3. segment sums: the hash-grid backward's segment sum, and the
+     uncertainty grid's trilinear VJP (sort, gather_rows,
+     sorted_segment_sum), through the kernels on the card against the same
+     functions through the plain versions on the host, at the mapping
+     step's point counts, table size and (49, 56, 35) grid;
   4. the slice: the mapper's online entry point at the full Replica/office0
      defaults (680x1200 frames rendered by the analytic simulator, L4F8
      hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
@@ -27,8 +29,11 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      versions on the same card tensors at the microbenchmark scripts' sizes
      (M = 3,000,000 updates, 201,088 slots, a 65,536-row level table), at
      the BA path's shapes and at ragged small M, both timed (CUDA events,
-     and at the large shapes also the profiler's device time); two
-     row_cumsum calls must agree bit for bit; the host's cost per call of
+     and at the large shapes also the profiler's device time);
+     sorted_segment_sum also on key layouts that stress its tiling (one key
+     on most rows, empty leading and trailing slots, long gaps, M beside a
+     tile multiple); two row_cumsum or sorted_segment_sum calls must agree
+     bit for bit; the host's cost per call of
      every wrapper and plain version; then both ported microbenchmark
      scripts run in this process, and their launch counts show every
      kernel ran.
@@ -71,10 +76,11 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # launches of each kernel entry point in one BA iteration: the fused scan's
 # slot rows in the hash backward (never its full rows); gather_rows for the
 # hash forward, the backward's two payload gathers, the uncertainty grid's
-# cell gather and its segment sum's two gathers; row_cumsum for that
-# segment sum's scan
+# cell gather and its trilinear VJP's gather by the sort permutation;
+# sorted_segment_sum for that VJP's segment sum; row_cumsum nowhere
 BA_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                        "gather_rows": 6, "row_cumsum": 1}
+                        "gather_rows": 5, "row_cumsum": 0,
+                        "sorted_segment_sum": 1}
 BACKWARD_KERNELS = ("outer_scan_slots",)   # only in the backward
 SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
 PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
@@ -86,9 +92,23 @@ BA_GATHERS = (
     ("sort payload", 493_568, 8, "bfloat16", 493_568, False),
     ("uncert cells", 89_760, 8, "float32", 93_568, False),
     ("segment rows", 93_568, 8, "float32", 93_568, False),
-    ("segment bounds", 93_569, 8, "float32", 89_760, True),
 )
-BA_SCANS = ((93_568, 8),)   # the uncertainty grid's segment sum
+# the uncertainty grid at office0: the trilinear VJP sums BA_POINTS rows of
+# 8 corner weights into the cells of a (49, 56, 35) grid
+UNCERT_SHAPE, BA_RAYS, BA_SAMPLES = (49, 56, 35), 2176, 43
+BA_POINTS, BA_CELLS = BA_RAYS * BA_SAMPLES, 48 * 55 * 34
+# sorted_segment_sum on keys that stress its tiling: (layout, rows, slots).
+# At 8 columns a tile has 512 rows below ~1M rows and 2,048 at 3M.
+SEGMENT_LAYOUTS = (
+    ("one key on 60% of the rows", 3_000_000, 201_088),
+    ("one key on 60% of the rows", 300_000, 5000),
+    ("first key late", 20_000, 9000),
+    ("last key early", 20_000, 9000),
+    ("long gaps", 5000, 200_000),
+    ("uniform, a tile multiple - 1", 512 * 9 - 1, 3000),
+    ("uniform, a tile multiple + 1", 512 * 9 + 1, 3000),
+    ("uniform, a tile multiple + 1", 2048 * 1465 + 1, 201_088),
+)
 SOURCE = {
     "outer_scan": "naruto_tpu_torch/csrc/outer_cumsum.cu",
     "gather_rows": "naruto_tpu_torch/csrc/gather_rows.cu",
@@ -230,6 +250,41 @@ def check_segment_sum(torch, segment, spec, dev) -> None:
         f"{host_s * 1e3:.1f} ms")
     if not diff / scale <= SEGMENT_TOL:
         fail(f"segment sum differs: {diff / scale:.3e} of max|cumsum|")
+
+
+def ba_points(torch, gen):
+    """[BA_POINTS, 3] in [0, 1]^3: BA_SAMPLES points along each of BA_RAYS
+    rays through the unit cube, crowded on few cells as the BA's are."""
+    o = 0.3 + 0.4 * torch.rand((BA_RAYS, 1, 3), generator=gen)
+    d = torch.nn.functional.normalize(
+        torch.randn((BA_RAYS, 1, 3), generator=gen), dim=-1)
+    t = torch.linspace(0.0, 0.4, BA_SAMPLES)[None, :, None]
+    return (o + d * t).clamp(0.0, 1.0).reshape(-1, 3)
+
+
+def check_trilinear_vjp(torch, dev) -> None:
+    """The uncertainty grid's volume gradient through gather_rows and
+    sorted_segment_sum on the card against the plain versions on the
+    host."""
+    from naruto_tpu_torch.ops.grid_sample import trilinear_sample
+
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    vol = torch.randn(UNCERT_SHAPE, generator=gen)
+    pts = ba_points(torch, gen)
+    g = torch.randn((BA_POINTS,), generator=gen)
+    grads = []
+    for where in ("cpu", dev):
+        v = vol.to(where).requires_grad_(True)
+        out = trilinear_sample(v, pts.to(where))
+        grads.append(torch.autograd.grad(out, v, g.to(where))[0].cpu())
+    host, card = grads
+    rel = float((card - host).abs().max()) / float(host.abs().max())
+    log(f"[segment] trilinear VJP, {BA_POINTS} points into "
+        f"{tuple(UNCERT_SHAPE)}: max|card-host| = {rel:.3e} of max|host| "
+        f"(tol {KERNEL_TOL})")
+    if not rel <= KERNEL_TOL:
+        fail(f"trilinear VJP differs: {rel:.3e} of max|host|")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -420,8 +475,9 @@ def run_slice(torch, kernels, profile_dir) -> dict:
 
 def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
                  out_dir: str) -> None:
-    """One BA step under torch.profiler: kernel time by name and the
-    device's busy share; the trace and the table go to out_dir."""
+    """One BA step under torch.profiler: kernel time by name, the device's
+    busy share, and launches and kernel time per iteration; the trace and
+    the table go to out_dir."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -446,28 +502,16 @@ def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f}% "
         f"of wall)")
     log(table)
+    # launches and kernel time per iteration, kernels by launching operator
+    from naruto_tpu_torch.scripts import trace_summary
+
+    log("[profile] python -m naruto_tpu_torch.scripts.trace_summary "
+        + os.path.join(out_dir, "ba_step_trace.json"))
+    trace_summary.main([os.path.join(out_dir, "ba_step_trace.json"),
+                        "--iters", str(mapper.cfg.mapper.iters)])
 
 
 # ------------------------------------------------------------------ phase 5
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Device time of one fn() in milliseconds: the kernels and copies that
-    torch.profiler traces over `reps` calls, summed, over reps. Unlike the
-    CUDA-event time it leaves out the device's wait on the host's enqueue."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation)
-    return busy_us / 1e3 / reps
-
-
 def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
     """The host's microseconds per fn() over `calls` calls enqueued back to
     back, with no synchronisation inside the loop (the device drains the
@@ -519,10 +563,22 @@ def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
         line += f", library {res['library_ms']:.4f} ms"
     line += f"; bound {bound_ms:.4f} ms ({bound_by})"
     if profiled:
-        res["device_ms"] = device_ms(torch, kernel)
-        res["plain_device_ms"] = device_ms(torch, plain)
-        line += (f"; device time kernel {res['device_ms']:.4f} ms, plain "
-                 f"{res['plain_device_ms']:.4f} ms (profiler)")
+        from naruto_tpu_torch.scripts.trace_summary import device_ms
+
+        def traced(fn):
+            """(device ms or None, as text): None where the tracer kept
+            losing records."""
+            t = device_ms(fn)
+            return (None, "not measured") if math.isnan(t) else \
+                (t, f"{t:.4f} ms")
+
+        res["device_ms"], k_ms = traced(kernel)
+        res["plain_device_ms"], p_ms = traced(plain)
+        line += f"; device time kernel {k_ms}, plain {p_ms}"
+        if library:
+            res["library_device_ms"], l_ms = traced(library)
+            line += f", library {l_ms}"
+        line += " (profiler)"
     log(line)
     return res
 
@@ -530,8 +586,9 @@ def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
 def check_primitives(torch, prims, dev) -> dict:
     """gather_rows, sorted_segment_sum and row_cumsum against their plain
     versions at the scripts' sizes, at ragged M and at the BA path's
-    shapes; returns, per kernel, every case, each marked with the path
-    whose shape it has ("microbenchmarks", "slice" or "ragged")."""
+    shapes, sorted_segment_sum also on key layouts that stress its tiling;
+    returns, per kernel, every case, each marked with the path whose shape
+    it has ("microbenchmarks", "slice", "ragged" or "layouts")."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     res = {k: [] for k in PRIM_KERNELS}
@@ -571,6 +628,38 @@ def check_primitives(torch, prims, dev) -> dict:
              lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
              nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
              library=lambda: tbl.index_select(0, idx), profiled=True)
+    def segment_cases(path, label, si, vals, size, profiled, library):
+        nf = vals.shape[1]
+        for rb in (True, False):
+            v = vals.bfloat16().float() if rb else vals
+            case("sorted_segment_sum", path,
+                 f"{'bf16' if rb else 'f32'} {label}{si.shape[0]} -> "
+                 f"[{size},{nf}]",
+                 lambda: prims.sorted_segment_sum(si, vals, size,
+                                                  round_bf16=rb),
+                 lambda: prims.sorted_segment_sum_plain(si, vals, size,
+                                                        round_bf16=rb),
+                 prims.SEGMENT_TOL, nbytes=nb(si, vals) + size * nf * 4,
+                 flops=si.shape[0] * nf,
+                 library=(lambda: vals.new_zeros((size, nf)).index_add_(
+                     0, si, v)) if library else None,
+                 profiled=profiled, deterministic=True)
+
+    # the BA's trilinear VJP: the cells of points along rays, sorted
+    from naruto_tpu_torch.ops.grid_sample import _corner_data
+
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(5)
+    shape = torch.tensor(UNCERT_SHAPE, dtype=torch.float32)
+    cells = _corner_data(UNCERT_SHAPE,
+                         (ba_points(torch, cpu_gen) * shape - 0.5))[0]
+    si = torch.sort(cells.to(torch.int32)).values.to(dev)
+    log(f"[kernels] BA cells: {BA_POINTS} points in "
+        f"{int(torch.unique(si).numel())} of {BA_CELLS} cells, longest run "
+        f"{int(torch.unique_consecutive(si, return_counts=True)[1].max())}")
+    segment_cases("slice", "BA cells ", si,
+                  torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev),
+                  BA_CELLS, True, True)
     for m in (PRIM_M,) + RAGGED_M:
         big = m == PRIM_M
         size = ((PRIM_T + 127) // 128) * 128 if big else RAGGED_SLOTS
@@ -579,32 +668,34 @@ def check_primitives(torch, prims, dev) -> dict:
         keys[-1] = size - 1                 # the last slot is never missed
         si = torch.sort(keys).values
         vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
-        for rb in (True, False):
-            v = vals.bfloat16().float() if rb else vals
-            case("sorted_segment_sum", "microbenchmarks" if big else "ragged",
-                 f"{'bf16' if rb else 'f32'} {m} -> [{size},{PRIM_F}]",
-                 lambda: prims.sorted_segment_sum(si, vals, size,
-                                                  round_bf16=rb),
-                 lambda: prims.sorted_segment_sum_plain(si, vals, size,
-                                                        round_bf16=rb),
-                 prims.SEGMENT_TOL, nbytes=nb(si, vals) + size * PRIM_F * 4,
-                 flops=m * PRIM_F,
-                 library=(lambda: vals.new_zeros((size, PRIM_F)).index_add_(
-                     0, si, v)) if big else None,
-                 profiled=big)
+        segment_cases("microbenchmarks" if big else "ragged", "", si, vals,
+                      size, big, big)
         case("row_cumsum", "microbenchmarks" if big else "ragged",
              f"[{m},{PRIM_F}] f32", lambda: prims.row_cumsum(vals),
              lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
              nbytes=2 * nb(vals), flops=m * PRIM_F,
              library=(lambda: torch.cumsum(vals, 0)) if big else None,
              profiled=big, deterministic=True)
-    for m, nf in BA_SCANS:
-        x = torch.randn((m, nf), generator=gen, device=dev)
-        case("row_cumsum", "slice", f"BA [{m},{nf}] f32",
-             lambda: prims.row_cumsum(x), lambda: prims.row_cumsum_plain(x),
-             prims.CUMSUM_TOL, nbytes=2 * nb(x), flops=m * nf,
-             library=lambda: torch.cumsum(x, 0), profiled=True,
-             deterministic=True)
+    for layout, m, size in SEGMENT_LAYOUTS:
+        keys = torch.randint(0, size, (m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        if layout.startswith("one key"):
+            keys[:(m * 3) // 5] = size // 3
+        elif layout == "first key late":
+            keys = size // 2 + keys // 2
+        elif layout == "last key early":
+            keys //= 3
+        elif layout == "long gaps":
+            keys = (keys % 3) * (size // 2 - 3) + keys % 5
+        si = torch.sort(keys).values
+        # long runs: small integers, whose sums are exact in any order,
+        # where the plain version's atomics over many terms would drift
+        vals = torch.randint(-4, 5, (m, PRIM_F), generator=gen,
+                             device=dev).float() \
+            if layout.startswith("one key") or layout == "long gaps" else \
+            torch.randn((m, PRIM_F), generator=gen, device=dev)
+        segment_cases("layouts", f"{layout}: ", si, vals, size,
+                      m >= 300_000, m == PRIM_M)
     return res
 
 
@@ -719,15 +810,18 @@ def main() -> None:
 
     spec = field_spec_from_config(make_config("Replica", "office0")).hash_spec
     check_segment_sum(torch, segment, spec, dev)
+    check_trilinear_vjp(torch, dev)
     sres = run_slice(torch, kernels, args.profile)
     pres = check_primitives(torch, primitives, dev)
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
 
     def summary(case: dict) -> dict:
-        return {k: case[k] for k in ("shape", "max_abs_err", "ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}
+        return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "device_ms": case.get("device_ms"),
+                "library_device_ms": case.get("library_device_ms")}
 
     on_slice = sres["launches"]
     # the fused scan: the BA runs its slot rows, and its full rows nowhere
@@ -744,7 +838,7 @@ def main() -> None:
     for name in PRIM_KERNELS:
         # the main path a kernel is on: the BA slice, else the
         # microbenchmarks; its numbers are those of that path's first shape
-        path = "slice" if name in SLICE_KERNELS else "microbenchmarks"
+        path = "slice" if BA_LAUNCHES_PER_ITER[name] else "microbenchmarks"
         main_case = next(c for c in pres[name] if c["path"] == path)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name],

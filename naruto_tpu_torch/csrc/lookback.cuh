@@ -66,6 +66,17 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
+// The tile flags of a state buffer, and the floats published behind its
+// flags (cap tile flags, cap / GROUP + 1 group flags).
+__device__ __forceinline__ unsigned* tile_flags(unsigned* state) {
+  return state + HEADER;
+}
+
+__device__ __forceinline__ float* published_floats(unsigned* state,
+                                                   int64_t cap) {
+  return reinterpret_cast<float*>(state + HEADER + cap + cap / GROUP + 1);
+}
+
 // part[g * nf + f] becomes the inclusive sum over g' <= g of the column-f
 // values of groups g', for g < ngr, in a fixed order. All threads call it.
 __device__ inline void scan_groups(float* part, int nf, int ngr, int g,
@@ -159,9 +170,9 @@ __device__ inline float exclusive_offset(unsigned* state, int64_t cap,
   const int f = tid % nf;
   const int g = tid / nf;
   const bool active = g < ngr;
-  unsigned* flags = state + HEADER;
+  unsigned* flags = tile_flags(state);
   unsigned* gflags = flags + cap;
-  float* aggs = reinterpret_cast<float*>(gflags + cap / GROUP + 1);
+  float* aggs = published_floats(state, cap);
   float* gsums = aggs + ntiles * nf;
 
   // 1. publish the aggregate

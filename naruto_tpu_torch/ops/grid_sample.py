@@ -7,8 +7,10 @@ align_corners=True maps it to (g+1)/2*(size-1). Out-of-range coordinates are
 clamped to the border (torch's grid_sample pads with zeros instead; the
 points here lie inside the AABB, so only the half-voxel fringe differs).
 
-The volume gradient goes through the sort-based segment sum, as in the JAX
-package, so both packages sum each cell's updates the same way.
+The volume gradient is a segment sum over cells, sort-based as in the JAX
+package: ``segment.dense_segment_sum`` sorts the cell ids, gathers the
+weighted cotangent rows by the permutation (``gather_rows``) and sums each
+cell's run with ``sorted_segment_sum``, in a fixed order on either device.
 """
 from __future__ import annotations
 

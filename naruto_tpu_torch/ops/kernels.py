@@ -61,7 +61,7 @@ ENTRY_POINTS = {
                                _I32)},
     "sorted_segment_sum": {
         "naruto_sorted_segment_sum": (
-            [_P, _P, _P, _I64, _I32, _I32, _I32, _P], _I32)},
+            [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P], _I32)},
     "row_cumsum": {
         "naruto_row_cumsum": ([_P, _P, _P, _I64, _I64, _I64, _I32, _P],
                               _I32)},
@@ -170,8 +170,9 @@ _SCAN_STATES: dict = {}
 
 
 def scan_state(dev: torch.device, tiles: int, nf: int) -> tuple:
-    """The look-back state of the one-pass scans (row_cumsum and the fused
-    outer scan) for the current stream of `dev`, and its capacity in tiles:
+    """The look-back state of the tiled one-pass kernels (row_cumsum, the
+    fused outer scan, sorted_segment_sum) for the current stream of `dev`,
+    and its capacity in tiles:
     made zeroed (one fill) at the stream's first call and when a call of
     `tiles` tiles of nf floats needs more room; each kernel leaves it ready
     for the next call itself."""

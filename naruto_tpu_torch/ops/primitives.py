@@ -11,9 +11,10 @@ and scripts/microbench_round2.py, which compute three functions:
     ``csrc/sorted_segment_sum.cu``.
   * ``row_cumsum``          (P4 ``cs_kernel``): ``csrc/row_cumsum.cu``.
 
-``gather_rows`` and ``row_cumsum`` also carry the mapper's BA path: the
-hash grid's forward gather, the backward's payload gathers, the
-uncertainty grid's cell gather and its segment sum's gathers and row scan.
+``gather_rows`` and ``sorted_segment_sum`` also carry the mapper's BA path:
+the hash grid's forward gather, the backward's payload gathers, the
+uncertainty grid's cell gather, and its trilinear VJP's segment sum (a
+gather by the sort permutation, then ``sorted_segment_sum``).
 
 Each source's header says what bounds the kernel on the card and how its
 design answers it. As in ``ops/kernels.py``, every wrapper checks the
@@ -33,7 +34,8 @@ from naruto_tpu_torch.ops.kernels import launch, lib, scan_state
 # tensors, as a share of max|plain|, and the reason for each:
 GATHER_TOL = 0.0       # a copy: bit-exact
 SEGMENT_TOL = 1e-6     # the plain index_add_ sums through atomics, in an
-                       # order that changes from run to run
+                       # order that changes from run to run (the kernel's
+                       # order is fixed: two calls agree bit for bit)
 CUMSUM_TOL = 1e-5      # f32 sums in another order over a random walk of up
                        # to 3M rows (the kernel: chunks of rows; torch: its
                        # own scan tree)
@@ -120,20 +122,32 @@ def sorted_segment_sum_plain(si: torch.Tensor, vals: torch.Tensor, size: int,
     return vals.new_zeros((size, vals.shape[1])).index_add_(0, si, v)
 
 
+_SEGMENT_MIN_ROWS = 32     # as MIN_ROWS in csrc/sorted_segment_sum.cu
+_SEGMENT_MAX_COLS = 256    # columns a launch takes (its THREADS)
+
+
 def sorted_segment_sum(si: torch.Tensor, vals: torch.Tensor, size: int, *,
                        round_bf16: bool) -> torch.Tensor:
     """out[s] = sum of r(vals[i]) over i with si[i] == s, in f32: si [M]
-    int32 sorted ascending with keys in [0, size), vals [M, F] f32 ->
-    [size, F] f32; r rounds to bf16 (round_bf16) or is the identity."""
+    int32 sorted ascending, vals [M, F] f32 -> [size, F] f32; r rounds to
+    bf16 (round_bf16) or is the identity. Every slot is written (empty ones
+    with 0). On the card the sums run in a fixed order, so two calls on the
+    same input agree bit for bit, and keys outside [0, size) are dropped;
+    the plain version takes keys in [0, size) only."""
     dev = _check_segment(si, vals, size)
     if not vals.is_cuda:
         return sorted_segment_sum_plain(si, vals, size, round_bf16=round_bf16)
-    out = vals.new_empty((size, vals.shape[1]))
+    m, nf = vals.shape
+    out = vals.new_empty((size, nf))
     if size:
+        # two words a column and tile, and room to align them
+        state, cap = scan_state(dev, m // _SEGMENT_MIN_ROWS + 2,
+                                2 * min(nf, _SEGMENT_MAX_COLS))
         launch("sorted_segment_sum",
                lib("sorted_segment_sum").naruto_sorted_segment_sum, dev,
-               si.data_ptr(), vals.data_ptr(), out.data_ptr(), si.shape[0],
-               size, vals.shape[1], int(round_bf16))
+               si.data_ptr(), vals.data_ptr(), out.data_ptr(),
+               state.data_ptr(), cap, state.numel(), m, size, nf,
+               int(round_bf16))
     return out
 
 

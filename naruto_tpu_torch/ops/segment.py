@@ -1,19 +1,24 @@
-"""Dense segment sums by sort + prefix sum (counterpart of
-naruto_tpu/ops/segment.py, the parts the mapper's backward calls).
+"""Dense segment sums by sort (counterpart of naruto_tpu/ops/segment.py,
+the parts the mapper's backward calls).
 
 ``dense_segment_sum_outer_level_major_frac`` is the hash-grid backward: the
 rank-1 updates outer(corner weights, level cotangent) are sorted by table
 slot (the weights travel as one packed-frac column and are rebuilt after the
 sort); the fused scan of ``ops/kernels.py`` writes, for every slot, the
 prefix sum through the slot's last update, and an adjacent difference turns
-those into per-slot sums. Every row gather here is
-``primitives.gather_rows`` and every row scan ``primitives.row_cumsum``:
-kernels on the card, their plain versions on the CPU. Each index is in range
-by construction (a sort permutation, a rank into a table one row longer), so
-the gather's device-side assert guards it without a host check.
-``dense_segment_sum`` has the JAX function's signature and default: the
-values are rounded to bf16 before the f32 prefix sum unless
-``pack_bf16=False`` (the exact form the trilinear VJP uses).
+those into per-slot sums.
+
+``dense_segment_sum`` (the uncertainty grid's trilinear VJP) sorts the keys,
+gathers the value rows by the sort permutation and sums each run of equal
+keys directly with ``primitives.sorted_segment_sum``: no prefix sum, no rank
+search, no difference of running totals. It has the JAX function's
+signature and default: the values are rounded to bf16 before the f32 sums
+unless ``pack_bf16=False`` (the exact form the trilinear VJP uses).
+
+Every row gather here is ``primitives.gather_rows``: like the segment sum, a
+kernel on the card and its plain version on the CPU. Each index is in range
+by construction (a sort permutation), so the gather's device-side assert
+guards it without a host check.
 """
 from __future__ import annotations
 
@@ -29,13 +34,6 @@ def _check_even(ka: int, kb: int) -> None:
     if ka % 2 or kb % 2:
         raise ValueError(f"dense_segment_sum_outer needs even factor widths; "
                          f"got a:{ka} b:{kb}")
-
-
-def _chunk_ranks(sorted_keys: torch.Tensor, size: int) -> torch.Tensor:
-    """ub[t] = #{i: sorted_keys[i] <= t} for t in [0, size): a binary search
-    on the card, where the TPU package needed a blocked compare-reduce."""
-    t = torch.arange(size, dtype=sorted_keys.dtype, device=sorted_keys.device)
-    return torch.searchsorted(sorted_keys, t, right=True)
 
 
 def pack_frac(frac: torch.Tensor) -> torch.Tensor:
@@ -111,13 +109,12 @@ def dense_segment_sum(indices: torch.Tensor, values: torch.Tensor,
     out[s] = sum of values where indices == s.
 
     pack_bf16 (and an even F): each value is rounded to bf16 before the f32
-    prefix sum, as the JAX function's bf16-pair sort payload rounds it;
-    pack_bf16=False sums the values exactly in f32."""
+    sums, as the JAX function's bf16-pair sort payload rounds it;
+    pack_bf16=False sums the values exactly in f32. Each slot's sum is taken
+    directly over its run of the sorted rows (the JAX function differences a
+    prefix sum, which also carries the running total's rounding)."""
     if pack_bf16 and values.shape[1] % 2 == 0:
         values = values.to(torch.bfloat16).to(values.dtype)
     si, perm = torch.sort(indices.to(torch.int32), stable=True)
     sv = primitives.gather_rows(values.contiguous(), perm)
-    cs = torch.cat([sv.new_zeros((1, sv.shape[1])),
-                    primitives.row_cumsum(sv)])
-    hi = primitives.gather_rows(cs, _chunk_ranks(si, size))
-    return hi - torch.cat([hi.new_zeros((1, hi.shape[1])), hi[:-1]])
+    return primitives.sorted_segment_sum(si, sv, size, round_bf16=False)

@@ -8,7 +8,8 @@ outputs feed the next call's inputs; two warm calls, then `reps` calls
 timed on the host clock with one torch.cuda.synchronize() at the end.
 
 The rows the JAX script ran through XLA (takes, sorts, merge-rank, cumsum,
-dense_segment_sum, the one-hot matmul scatter) are plain PyTorch here. Its
+the one-hot matmul scatter) are plain PyTorch here; the dense_segment_sum
+row is the port's (a sort, then gather_rows and sorted_segment_sum). Its
 Pallas rows go through the port's hand-written CUDA kernels
 (ops/primitives.py): the windowed accumulate (P1) through
 sorted_segment_sum on bf16-rounded updates, both VMEM-table takes (P2, P3)
@@ -166,7 +167,8 @@ def row_cumsum_step(st):
 
 
 def dense_segment_sum_step(t: int):
-    """The port's dense_segment_sum (sort + row scan + boundary diff)."""
+    """The port's dense_segment_sum: a stable sort, a gather by its
+    permutation, and sorted_segment_sum over the runs."""
     def step(st):
         ix, v = st
         out = dense_segment_sum(ix, v, t)
@@ -242,8 +244,8 @@ def main(argv=None) -> None:
     bench("torch.cumsum(v, 0) [3M,8] f32", cumsum_step, (upd0,), reps)
 
     # ---------------- the port's dense_segment_sum (bf16-rounded values)
-    bench("dense_segment_sum (sort + row scan)", dense_segment_sum_step(T),
-          (idx0, upd0), reps)
+    bench("dense_segment_sum (sort + gather + segment sum)",
+          dense_segment_sum_step(T), (idx0, upd0), reps)
 
     # ---------------- 5. P1 -> sorted_segment_sum, bf16-rounded updates
     size = tpad(T)

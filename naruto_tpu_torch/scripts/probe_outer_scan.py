@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from naruto_tpu_torch.ops import kernels
+from naruto_tpu_torch.scripts.trace_summary import device_ms
 
 M_REAL, M, SLOTS, K = 493_436, 493_568, 204_089, 8
 _PKG = Path(kernels.__file__).resolve().parents[1]
@@ -86,10 +87,10 @@ VARIANTS = {
 }
 
 
-def _build(name: str, code: str | None = None,
-           path: Path | None = None) -> ctypes.CDLL:
+def _build(name: str, code: str | None = None, path: Path | None = None,
+           source: str = "outer_cumsum") -> ctypes.CDLL:
     """The library of `path`, or of `code` written beside the tree's
-    headers."""
+    headers, with the entry points of csrc/<source>.cu."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     _OUT.mkdir(parents=True, exist_ok=True)
@@ -97,7 +98,7 @@ def _build(name: str, code: str | None = None,
     cu = path or _SRC.parent / f".probe_{tag}.cu"
     if code is not None:
         cu.write_text(code)
-    so = _OUT / f"lib{tag}.so"
+    so = _OUT / f"lib{source}_{tag}.so"
     try:
         run = subprocess.run(
             [os.path.join(CUDA_HOME, "bin", "nvcc"), *kernels.NVCC_FLAGS,
@@ -107,27 +108,14 @@ def _build(name: str, code: str | None = None,
             cu.unlink()
     if run.returncode:
         raise RuntimeError(f"nvcc failed on variant {name!r}:\n{run.stderr}")
-    for line in run.stderr.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  [{name}] {line.strip()}")
+    for line in sorted({ln.strip() for ln in run.stderr.splitlines()
+                        if "registers" in ln or "spill" in ln}):
+        print(f"  [{name}] {line}")
     lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, rtype) in kernels.ENTRY_POINTS["outer_cumsum"].items():
+    for fn, (argtypes, rtype) in kernels.ENTRY_POINTS[source].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = rtype
     return lib
-
-
-def _device_ms(fn, reps: int) -> float:
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
 def _print_timeline(state: torch.Tensor, at: int, call, slots: bool) -> None:
@@ -219,7 +207,7 @@ def main(argv=None) -> None:
         for name in order:
             if libs[name][1] and not torch.equal(call(name, slots), ref):
                 raise RuntimeError(f"variant {name!r} changed the output")
-            times[name].append(_device_ms(lambda: call(name, slots),
+            times[name].append(device_ms(lambda: call(name, slots),
                                           args.reps))
         for name, ts in times.items():
             print(f"{'slots' if slots else 'rows '} {name:40s} "

@@ -23,6 +23,46 @@ def gen():
     return np.random.default_rng(0)
 
 
+def _only_kernel(calls, kernel: str) -> None:
+    """Runs `calls` once each under the profiler and asserts that the
+    device saw one `kernel` per call and nothing else (no memset, no
+    copy). The tracer loses a session's first kernel in a process that has
+    run much before, so a launch that does not count goes first; and it
+    drops other records now and then, several traces on end, so a trace
+    that is short is taken again half a second later, up to five times:
+    one of them must show exactly one event per call. A call that launches
+    nothing is short every time, and fails."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from naruto_tpu_torch.scripts.trace_summary import (LEAD_KERNEL,
+                                                        lead_launch)
+
+    for fn in calls:                   # the first calls size the state
+        fn()
+    lead = torch.empty(1, dtype=torch.int8, device="cuda")
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_launch(lead)
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and LEAD_KERNEL not in e.name]
+        assert all(kernel in n for n in names), names
+        assert len(names) <= len(calls), names
+        if len(names) == len(calls):
+            return
+        seen.append(len(names))
+        time.sleep(0.5)
+    raise AssertionError(f"no trace of 5 shows {len(calls)} launches of "
+                         f"{kernel}: {seen}")
+
+
 INT32_MAX = 2 ** 31 - 1
 # (name, real rows, size, ka, kb): office0's shape (493,436 updates padded
 # to 493,568 rows, 204,089 slots) and key layouts that stress the slot
@@ -117,25 +157,13 @@ def test_outer_scan_is_deterministic_on_card(gen, cuda_device, name, n, size,
 def test_outer_scan_is_one_launch_on_card(gen, cuda_device):
     """Each call of either epilogue is one kernel and nothing else on the
     device (no memset, no copy), as the profiler records it."""
-    from torch.profiler import ProfilerActivity, profile
-
     inputs = [_scan_inputs(gen, cuda_device, *case) for case in SCAN_CASES]
     calls = [fn for (name, n, size, ka, kb), (si, sa, sb)
              in zip(SCAN_CASES, inputs)
              for fn in (lambda sa=sa, sb=sb: kernels.outer_cumsum_scan(sa, sb),
                         lambda si=si, sa=sa, sb=sb, size=size:
                         kernels.outer_cumsum_slots(si, sa, sb, size))]
-    for fn in calls:                   # the first calls size the state
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == len(calls), names
-    assert all("outer_scan" in n for n in names), names
+    _only_kernel(calls, "outer_scan")
 
 
 @pytest.mark.cuda
@@ -281,22 +309,11 @@ def test_row_cumsum_is_deterministic_on_card(gen, cuda_device, m, nf):
 def test_row_cumsum_is_one_launch_on_card(cuda_device):
     """One kernel, and nothing else on the device (no memset, no copy), per
     call at every M, as the profiler records it."""
-    from torch.profiler import ProfilerActivity, profile
-
     xs = [torch.ones((m, nf), device=cuda_device)
           for m, nf in ((1, 8), (964, 64), (93_568, 8), (3_000_000, 8),
                         (3000, 256))]
-    for x in xs:                       # the first calls size the state
-        primitives.row_cumsum(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            primitives.row_cumsum(x)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) == len(xs), names
-    assert all("row_cumsum" in n for n in names), names
+    _only_kernel([lambda x=x: primitives.row_cumsum(x) for x in xs],
+                 "row_cumsum")
 
 
 @pytest.mark.cuda
@@ -321,6 +338,153 @@ def test_sorted_segment_sum_matches_plain_on_card(gen, cuda_device,
     torch.cuda.synchronize()
     assert kernels.launch_counts()["sorted_segment_sum"] == n0 + 1
     assert _rel(got, ref) <= primitives.SEGMENT_TOL
+
+
+# (layout, rows, slots, columns). At 8 columns a tile has 512 rows below
+# ~1M rows and 2,048 rows at 3M, so 4607 / 4609 and 2,998,271 / 2,998,273
+# are one less / one more than a multiple of the tile.
+SEGMENT_CASES = [
+    ("ba_cells", 93_568, 89_760, 8),
+    ("uniform", 4607, 3000, 8),
+    ("uniform", 4609, 3000, 8),
+    ("uniform", 2_998_271, 201_088, 8),
+    ("uniform", 2_998_273, 201_088, 8),
+    ("dominant_key", 300_000, 5000, 8),
+    ("dominant_key", 3_000_000, 201_088, 8),
+    ("single_key", 70_000, 9, 8),
+    ("first_key_late", 20_000, 9000, 8),
+    ("last_key_early", 20_000, 9000, 8),
+    ("long_gaps", 5000, 200_000, 8),
+    ("out_of_range", 30_000, 4000, 8),
+    ("uniform", 5000, 300, 1),
+    ("uniform", 5000, 300, 12),
+    ("dominant_key", 40_000, 300, 3),
+    ("uniform", 20_000, 3000, 64),
+    ("dominant_key", 9000, 50, 300),     # two column blocks, scalar path
+    ("uniform", 9000, 500, 512),         # two column blocks, 16-byte path
+]
+
+
+EXACT_LAYOUTS = ("dominant_key", "single_key", "long_gaps")
+
+
+def _segment_inputs(gen, dev, name, m, size, nf):
+    """Sorted int32 keys and f32 values of a layout. The layouts with long
+    runs get small integer values: their sums are exact in any order, where
+    the plain version's atomics over many terms would drift."""
+    if name == "ba_cells":
+        # 2,176 rays x 43 samples through the unit cube, in the cells of a
+        # (49, 56, 35) grid, as the BA's trilinear VJP keys them
+        o = gen.uniform(0.3, 0.7, (m // 43, 1, 3))
+        d = gen.normal(size=(m // 43, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = np.linspace(0.0, 0.4, 43)[None, :, None]
+        p = np.clip(o + d * t, 0.0, 1.0).reshape(-1, 3)
+        c = np.minimum((p * [48, 55, 34]).astype(np.int64), [47, 54, 33])
+        keys = c[:, 0] * (55 * 34) + c[:, 1] * 34 + c[:, 2]
+    elif name == "uniform":
+        keys = gen.integers(0, size, m)
+    elif name == "dominant_key":
+        keys = np.concatenate([gen.integers(0, size, m - (m * 3) // 5),
+                               np.full((m * 3) // 5, size // 3)])
+    elif name == "single_key":
+        keys = np.full(m, 4)
+    elif name == "first_key_late":
+        keys = gen.integers(size // 2, size, m)
+    elif name == "last_key_early":
+        keys = gen.integers(0, size // 3, m)
+    elif name == "long_gaps":
+        keys = np.concatenate([gen.integers(0, 5, m // 3),
+                               gen.integers(90_000, 90_010, m // 3),
+                               gen.integers(size - 3, size, m - 2 * (m // 3))])
+    else:                                   # out_of_range
+        keys = np.concatenate([gen.integers(-500, 0, m // 4),
+                               gen.integers(0, size, m // 2),
+                               gen.integers(size, size + 500,
+                                            m - m // 4 - m // 2)])
+    assert keys.shape == (m,)
+    if name in EXACT_LAYOUTS:
+        vals = gen.integers(-4, 5, (m, nf))
+    else:
+        vals = gen.normal(size=(m, nf))
+    return (torch.tensor(np.sort(keys), dtype=torch.int32, device=dev),
+            torch.tensor(vals, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("name,m,size,nf", SEGMENT_CASES)
+def test_sorted_segment_sum_layouts_on_card(gen, cuda_device, name, m, size,
+                                            nf, round_bf16):
+    """The BA's shape and key layouts that stress the tiling (one key over
+    most of the rows, so over many tiles; empty leading and trailing slots;
+    long gaps; keys outside [0, size), which are dropped; M beside a tile
+    multiple; other column counts) against the plain version on the same
+    card tensors within SEGMENT_TOL; one launch counted; and a second call,
+    with a row_cumsum (which shares the look-back state) between them,
+    gives the same bits."""
+    si, vals = _segment_inputs(gen, cuda_device, name, m, size, nf)
+    n0 = kernels.launch_counts()["sorted_segment_sum"]
+    got = primitives.sorted_segment_sum(si, vals, size,
+                                        round_bf16=round_bf16)
+    assert kernels.launch_counts()["sorted_segment_sum"] == n0 + 1
+    primitives.row_cumsum(torch.ones((4097, 5), device=cuda_device))
+    again = primitives.sorted_segment_sum(si, vals, size,
+                                          round_bf16=round_bf16)
+    keep = (si >= 0) & (si < size)
+    ref = primitives.sorted_segment_sum_plain(
+        si[keep], vals[keep].contiguous(), size, round_bf16=round_bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+    if name in EXACT_LAYOUTS:
+        assert torch.equal(got, ref)        # exact sums: bit for bit
+
+
+@pytest.mark.cuda
+def test_sorted_segment_sum_misaligned_base_on_card(gen, cuda_device):
+    """Values that start one element into their storage (off the 16-byte
+    boundary of the vector path) are summed by the scalar path."""
+    m, size, nf = 5000, 700, 8
+    si, _ = _segment_inputs(gen, cuda_device, "uniform", m, size, nf)
+    flat = torch.tensor(gen.normal(size=m * nf + 1), dtype=torch.float32,
+                        device=cuda_device)
+    vals = flat[1:].view(m, nf)
+    assert vals.data_ptr() % 16
+    got = primitives.sorted_segment_sum(si, vals, size, round_bf16=False)
+    ref = primitives.sorted_segment_sum_plain(si, vals, size,
+                                              round_bf16=False)
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+
+
+@pytest.mark.cuda
+def test_sorted_segment_sum_is_one_launch_on_card(gen, cuda_device):
+    """One kernel, and nothing else on the device (no memset, no copy), per
+    call at up to 256 columns, as the profiler records it."""
+    cases = [c for c in SEGMENT_CASES if c[3] <= 256 and c[1] <= 300_000]
+    inputs = [_segment_inputs(gen, cuda_device, *c) for c in cases]
+    calls = [lambda si=si, v=v, size=c[2]: primitives.sorted_segment_sum(
+        si, v, size, round_bf16=False) for c, (si, v) in zip(cases, inputs)]
+    _only_kernel(calls, "segment_sum")
+
+
+@pytest.mark.cuda
+def test_trilinear_vjp_on_card_matches_host(gen, cuda_device):
+    """The uncertainty grid's volume gradient through the kernels on the
+    card and through the plain versions on the host: the same f32 terms,
+    per-cell sums in another order, so 1e-6 of max|d_vol|."""
+    from naruto_tpu_torch.ops.grid_sample import trilinear_sample
+
+    vol = torch.tensor(gen.normal(size=(49, 56, 35)), dtype=torch.float32)
+    pts = torch.tensor(0.3 + 0.4 * gen.uniform(size=(93_568, 3)),
+                       dtype=torch.float32)
+    g = torch.tensor(gen.normal(size=93_568), dtype=torch.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        v = vol.to(dev).requires_grad_(True)
+        out = trilinear_sample(v, pts.to(dev))
+        grads.append(torch.autograd.grad(out, v, g.to(dev))[0].cpu())
+    assert _rel(grads[1], grads[0]) <= 1e-6
 
 
 @pytest.mark.cuda

@@ -158,8 +158,9 @@ class TestFieldRenderLosses:
 CUR_CAP = 512
 # calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
 # same launch counts on the card): wrapper -> (module, calls)
-WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 6),
-                             "row_cumsum": (primitives, 1),
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 5),
+                             "sorted_segment_sum": (primitives, 1),
+                             "row_cumsum": (primitives, 0),
                              "outer_cumsum_slots": (kernels, 1),
                              "outer_cumsum_scan": (kernels, 0)}
 
@@ -278,12 +279,12 @@ def ba_pair():
 
 class TestBAIteration:
     def test_runs_through_the_kernel_wrappers(self, ba_pair):
-        """The iteration compared below gathers and scans rows through
-        primitives.gather_rows / row_cumsum and the hash backward's fused
-        scan (the kernels on the card): the hash forward, the hash
+        """The iteration compared below gathers and sums rows through
+        primitives.gather_rows / sorted_segment_sum and the hash backward's
+        fused scan (the kernels on the card): the hash forward, the hash
         backward's two payload gathers and its slot-row scan, the
-        uncertainty grid's cell gather and its segment sum's two gathers
-        and scan; never the full-row scan."""
+        uncertainty grid's cell gather and its VJP's gather and segment
+        sum; never the full-row scan nor row_cumsum."""
         assert ba_pair["calls"] == {
             name: n for name, (_, n) in WRAPPER_CALLS_PER_BA_ITER.items()}
 

@@ -17,7 +17,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from naruto_tpu.ops import segment as jseg
+from naruto_tpu.ops.grid_sample import trilinear_sample as j_trilinear
 from naruto_tpu_torch.ops import kernels, primitives, segment
+from naruto_tpu_torch.ops.grid_sample import trilinear_sample
 from naruto_tpu_torch.scripts import microbench_primitives as mb
 from naruto_tpu_torch.scripts import microbench_round2 as mb2
 
@@ -39,22 +41,263 @@ def _rel_err(got, ref):
                  / np.abs(ref).max())
 
 
-# --------------------------------------------------- dense_segment_sum fault
+# ------------------------------------------------------- dense_segment_sum
+# Layouts of keys that stress a segment sum over runs: (name, rows, size)
+SEGMENT_LAYOUTS = [
+    ("uniform", 4000, 50),
+    ("one_dominant_key", 4000, 300),     # > 50% of the rows in one key
+    ("empty_ends", 3000, 900),           # first key > 0, last key < size - 1
+    ("size_beyond_keys", 2500, 5000),    # size > max key + 1, long gaps
+]
+
+
+def _segment_keys(rng, name, n, size):
+    if name == "uniform":
+        return rng.integers(0, size, n)
+    if name == "one_dominant_key":
+        return np.concatenate([rng.integers(0, size, n - (n * 3) // 5),
+                               np.full((n * 3) // 5, size // 3)])
+    if name == "empty_ends":
+        return rng.integers(size // 3, size // 2, n)
+    return np.concatenate([rng.integers(0, 5, n // 2),
+                           rng.integers(2000, 2010, n - n // 2)])
+
+
+@pytest.mark.parametrize("name,n,size", SEGMENT_LAYOUTS)
 @pytest.mark.parametrize("kwargs", [{}, {"pack_bf16": False}],
                          ids=["default", "pack_bf16_false"])
-def test_dense_segment_sum_matches_jax(rng, kwargs):
+def test_dense_segment_sum_matches_jax(rng, kwargs, name, n, size):
     """The port's dense_segment_sum has JAX's signature and default: with
     pack_bf16 (the default) each value is rounded to bf16 before the f32
-    prefix sum. Same values either way; the f32 sums run in another order
-    (JAX's sort is not stable), so 1e-6 of max|cumsum|."""
-    idx = rng.integers(0, 50, 4000).astype(np.int32)
-    vals = rng.normal(size=(4000, 8)).astype(np.float32)
+    sums. Same values either way. The port sums each run directly; JAX
+    differences an f32 prefix sum over all rows (and its sort is not
+    stable), so its slot sums carry the running total's rounding: 1e-6 of
+    max|cumsum|, the scale of that prefix sum."""
+    idx = _segment_keys(rng, name, n, size).astype(np.int32)
+    rng.shuffle(idx)
+    vals = rng.normal(size=(n, 8)).astype(np.float32)
     ref = np.asarray(jseg.dense_segment_sum(jnp.asarray(idx),
-                                            jnp.asarray(vals), 50, **kwargs))
+                                            jnp.asarray(vals), size, **kwargs))
     got = segment.dense_segment_sum(torch.tensor(idx), torch.tensor(vals),
-                                    50, **kwargs).numpy()
+                                    size, **kwargs).numpy()
+    assert got.shape == ref.shape == (size, 8)
+    assert not got[np.setdiff1d(np.arange(size), idx)].any()
     scale = np.abs(np.cumsum(ref, axis=0)).max()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("crowded", [False, True])
+def test_trilinear_vjp_through_segment_sum_matches_jax(rng, crowded):
+    """The uncertainty grid's volume gradient (sort, gather_rows,
+    sorted_segment_sum, then the corner transpose) against the JAX
+    package's VJP on the same inputs, with the points spread over the grid
+    or, as the BA's rays do, crowded into a few cells (long runs, most
+    cells empty). f32 on both sides, per-cell sums in another order: 1e-6
+    of max|d_vol|."""
+    vol = rng.normal(size=(9, 10, 7)).astype(np.float32)
+    pts = rng.uniform(0, 1, (3000, 3)).astype(np.float32)
+    if crowded:
+        pts = (0.4 + 0.15 * pts).astype(np.float32)
+        pts[:1800] = 0.47 + 0.01 * pts[:1800]
+    g = rng.normal(size=(3000,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: j_trilinear(v, jnp.asarray(pts)),
+                     jnp.asarray(vol))
+    ref, = vjp(jnp.asarray(g))
+    tv = torch.tensor(vol, requires_grad=True)
+    got, = torch.autograd.grad(trilinear_sample(tv, torch.tensor(pts)), tv,
+                               torch.tensor(g))
+    assert _rel_err(got.numpy(), np.asarray(ref, np.float64)) < 1e-6
+
+
+# ----------------------------------- the segment-sum kernel's tiling, modelled
+INT32_MAX = 2 ** 31 - 1
+# (name, rows, size) for a tile of 4 stretches x 4 rows = 16 rows: a key over
+# many tiles, a late first key, an early last key, long gaps, keys outside
+# [0, size), and M one more / one less than a multiple of the tile
+WRITE_RULE_LAYOUTS = [
+    ("uniform", 160, 40),
+    ("uniform", 161, 40),
+    ("uniform", 159, 40),
+    ("uniform", 7, 40),
+    ("one_dominant_key", 200, 30),
+    ("one_dominant_key", 193, 30),
+    ("single_key", 64, 9),
+    ("first_key_late", 100, 90),
+    ("last_key_early", 100, 90),
+    ("long_gaps", 130, 5000),
+    ("out_of_range", 120, 50),
+    ("all_negative", 40, 12),
+    ("last_key_int32_max", 50, 20),
+    ("no_rows", 0, 12),
+]
+
+
+def _write_rule_keys(rng, name, n, size):
+    if name == "uniform":
+        keys = rng.integers(0, size, n)
+    elif name == "one_dominant_key":
+        keys = np.concatenate([rng.integers(0, size, n - (n * 3) // 5),
+                               np.full((n * 3) // 5, size // 2)])
+    elif name == "single_key":
+        keys = np.full(n, 4)
+    elif name == "first_key_late":
+        keys = rng.integers(size // 2, size, n)
+    elif name == "last_key_early":
+        keys = rng.integers(0, size // 3, n)
+    elif name == "long_gaps":
+        keys = np.concatenate([rng.integers(0, 5, n // 3),
+                               rng.integers(2500, 2510, n // 3),
+                               rng.integers(size - 3, size, n - 2 * (n // 3))])
+    elif name == "out_of_range":
+        keys = np.concatenate([rng.integers(-30, 0, n // 4),
+                               rng.integers(0, size, n // 2),
+                               rng.integers(size, size + 40, n - n // 4
+                                            - n // 2)])
+    elif name == "all_negative":
+        keys = rng.integers(-9, 0, n)
+    elif name == "last_key_int32_max":
+        keys = np.concatenate([rng.integers(0, size, n - 20),
+                               np.full(20, INT32_MAX)])
+    else:
+        keys = np.zeros(0)
+    return np.sort(keys).astype(np.int32)
+
+
+class _Slots:
+    """The output as the kernel's stores see it: counts the writes of each
+    slot and refuses a store outside [0, size)."""
+
+    def __init__(self, size, nf):
+        self.out = np.full((size, nf), np.nan, np.float32)
+        self.writes = np.zeros(size, np.int64)
+        self.size = size
+
+    def emit(self, a, end, total):
+        """The write rule of a closing row: its run's sum to out[a] if a is
+        a slot, zeros to the slots strictly between a and `end`."""
+        if 0 <= a < self.size:
+            self.out[a] = total
+            self.writes[a] += 1
+        self.zero(0 if a < 0 else a + 1, end)
+
+    def zero(self, lo, end):
+        if end > lo:
+            assert 0 <= lo and end <= self.size
+            self.out[lo:end] = 0.0
+            self.writes[lo:end] += 1
+
+
+def _scan_stretches(xs, fl):
+    """Segmented inclusive Hillis-Steele scan over the stretches, in place:
+    fl marks a stretch that closes a run, after which the sum starts anew."""
+    d = 1
+    while d < len(fl):
+        pv, pf = xs.copy(), fl.copy()
+        for g in range(d, len(fl)):
+            if not fl[g]:
+                xs[g] = xs[g] + pv[g - d]
+            fl[g] = fl[g] or pf[g - d]
+        d *= 2
+
+
+def _tiled_model(si, vals, size, ngr=4, L=4):
+    """csrc/sorted_segment_sum.cu in numpy, step by step. A tile has ngr
+    stretches of L rows. Runs inside a stretch are written at once; a
+    segmented scan over the stretches (flag: the stretch closes a run;
+    value: its sum after the last closing row) joins the rest; every tile
+    publishes one record. The run open at a tile's first row takes the
+    records of the tiles before that it covers, which are found from the
+    keys alone. f32 adds throughout. Returns the slots and the records
+    each tile read."""
+    m, nf = vals.shape
+    R = ngr * L
+    ntiles = max(1, -(-m // R))
+    slots = _Slots(size, nf)
+    recs = np.zeros((ntiles, nf), np.float32)
+    owners = []
+    zero = np.zeros(nf, np.float32)
+    # the slots before the first key of all and after the last: shared out
+    # among the tiles
+    lead = min(max(int(si[0]), 0), size) if m else size
+    trail = min(max(int(si[-1]) + 1, 0), size) if m else size
+    empty = lead + size - trail
+    share = -(-empty // ntiles)
+    for t in range(ntiles):
+        for i in range(t * share, min((t + 1) * share, empty)):
+            u = i if i < lead else trail + i - lead
+            slots.zero(u, u + 1)
+        s0 = t * R
+        xs = np.zeros((ngr, nf), np.float32)
+        fl = np.zeros(ngr, bool)
+        heads = [None] * ngr
+        for g in range(ngr):
+            acc, closes = zero, False
+            for i in range(s0 + g * L, min(s0 + g * L + L, m)):
+                acc = acc + vals[i]
+                last = i == m - 1
+                if last or si[i] != si[i + 1]:
+                    # the slots after the last key are not this row's
+                    end = 0 if last else min(int(si[i + 1]), size)
+                    if not closes:
+                        heads[g] = (int(si[i]), end, acc)
+                    else:
+                        slots.emit(int(si[i]), end, acc)
+                    acc, closes = zero, True
+            xs[g], fl[g] = acc, closes
+        _scan_stretches(xs, fl)
+        recs[t] = xs[ngr - 1]
+        for g in range(ngr):
+            if heads[g] is None:
+                continue
+            key, end, head = heads[g]
+            before = xs[g - 1] if g else zero
+            if g and fl[g - 1]:
+                slots.emit(key, end, head + before)
+            else:
+                owners.append((t, key, end, head, before))
+    reads = {}
+    for t, key, end, head, before in owners:
+        carry = zero
+        if t > 0 and si[t * R - 1] == si[t * R]:
+            assert key == si[t * R]
+            nrec = 1
+            if si[(t - 1) * R] == key:
+                inside = next((e for e in range(t)
+                               if si[(t - 1 - e) * R] != key), t)
+                nrec = inside + (inside < t
+                                 and si[(t - inside) * R - 1] == key)
+            reads[t] = nrec
+            for e in range(nrec):
+                carry = carry + recs[t - 1 - e]
+        slots.emit(key, end, head + (before + carry))
+    return slots, reads
+
+
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("name,n,size", WRITE_RULE_LAYOUTS)
+def test_segment_kernel_tiling_model(rng, name, n, size, round_bf16):
+    """The kernel's tiling and write rule, modelled in numpy on tiles of
+    16 and of 20 rows, against sorted_segment_sum's plain version: every
+    slot is
+    written exactly once (so the output needs no memset), empty slots and
+    gaps hold 0, keys outside [0, size) are dropped, and a run over many
+    tiles reads one record per tile it covers. Small integer values, so
+    every sum is exact in any order and the comparison is bit for bit."""
+    si = _write_rule_keys(rng, name, n, size)
+    vals = rng.integers(-8, 9, (n, 3)).astype(np.float32) \
+        * (1.0 if round_bf16 else 0.125)
+    keep = (si >= 0) & (si < size)
+    ref = primitives.sorted_segment_sum(
+        torch.tensor(si[keep]), torch.tensor(vals[keep]), size,
+        round_bf16=round_bf16).numpy()
+    for tiling in ({}, {"ngr": 5}):
+        slots, reads = _tiled_model(si, vals, size, **tiling)
+        assert (slots.writes == 1).all()
+        np.testing.assert_array_equal(slots.out, ref)
+        if name in ("one_dominant_key", "single_key") and n >= 64:
+            assert max(reads.values()) >= 3      # a run over several tiles
+    if name == "no_rows":
+        assert not slots.out.any()
 
 
 # ------------------------------------------------------ plain versions vs JAX

@@ -1,12 +1,13 @@
 """The port's measurement scripts that run without a card: the trace
-summary, and the fused-scan probe's source substitutions (every variant's
-anchor text must still be in csrc/outer_cumsum.cu, or the probe fails on
-the card)."""
+summary, and the source substitutions of the fused-scan and segment-sum
+probes (every variant's anchor text must still be in the kernel's source,
+or the probe fails on the card)."""
 import json
 
 import pytest
 
-from naruto_tpu_torch.scripts import probe_outer_scan, trace_summary
+from naruto_tpu_torch.scripts import (probe_outer_scan, probe_segment_sum,
+                                      trace_summary)
 
 
 @pytest.mark.parametrize("name,short", [
@@ -48,13 +49,21 @@ def test_trace_summary_keys_by_operator_and_port_grid(tmp_path, capsys):
     assert "4 launches, 10.0 us (2.0 launches and 5.0 us an iteration)" in out
 
 
-@pytest.mark.parametrize("name", list(probe_outer_scan.VARIANTS))
-def test_probe_variants_apply_to_the_source(name):
-    code = probe_outer_scan._SRC.read_text()
-    subs = probe_outer_scan.VARIANTS[name][0]
-    for old, new in subs if subs is not None else \
-            probe_outer_scan._timeline(1 << 20):
+def _apply_variant(probe, name):
+    code = probe._SRC.read_text()
+    subs = probe.VARIANTS[name][0]
+    for old, new in subs if subs is not None else probe._timeline(1 << 20):
         assert old in code, (name, old)
         code = code.replace(old, new)
     if name == "tree":
-        assert code == probe_outer_scan._SRC.read_text()
+        assert code == probe._SRC.read_text()
+
+
+@pytest.mark.parametrize("name", list(probe_outer_scan.VARIANTS))
+def test_probe_variants_apply_to_the_source(name):
+    _apply_variant(probe_outer_scan, name)
+
+
+@pytest.mark.parametrize("name", list(probe_segment_sum.VARIANTS))
+def test_segment_probe_variants_apply_to_the_source(name):
+    _apply_variant(probe_segment_sum, name)
