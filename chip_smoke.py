@@ -36,7 +36,25 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      bit for bit; the host's cost per call of
      every wrapper and plain version; then both ported microbenchmark
      scripts run in this process, and their launch counts show every
-     kernel ran.
+     kernel ran;
+  6. the passive run: the port's Engine on configs/ab/passive_traj_ab.yaml
+     (1,000 steps of data/traj_ab/traj.txt on the analytic office0 room,
+     the full-width defaults of phase 4) through run() and finalize(), as
+     `python -m naruto_tpu_torch.run` drives it: the final mesh at
+     mesh.voxel_final (the field's dense query in chunks of 2^20 points,
+     marching tets, vertex colours), the checkpoint, and the metric row.
+     The row must hold the trajectory's length (33.179382 m within 1e-4),
+     completion ratio >= 99.0% and MAD <= 0.572 cm (the JAX package's
+     0.472 cm plus 0.1 cm), and every BA iteration of the run must launch
+     BA_LAUNCHES_PER_ITER. It prints the row beside the JAX package's, the
+     run's wall time and timer sections, and the final extraction's seconds
+     by stage (one extraction chunk's device time and kernels:
+     `python -m naruto_tpu_torch.scripts.probe_passive`). Every kernel
+     wrapper call of the run is counted by its shapes, and the inputs of
+     the first call at each shape are kept: the BA's at every keyframe
+     bucket, the volumes', the snapshots', the final extraction's (2^20-
+     point chunks and the ragged last one), the colours' and the MAD's.
+     After the run each is held against its plain version on those inputs.
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -44,7 +62,9 @@ rate, from the published H100 SXM peaks) and, where one PyTorch call
 computes the same function, that call's time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit, and the line before that the kernels' JSON.
+card's name and power limit, and the line before that the kernels' JSON
+(each kernel's launches on every path that drives it: the slice of phase
+4, the microbenchmarks of phase 5, the passive run of phase 6).
 """
 from __future__ import annotations
 
@@ -54,6 +74,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNEL_TOL = 1e-6          # max |kernel - plain| / max |plain|
@@ -109,6 +130,15 @@ SEGMENT_LAYOUTS = (
     ("uniform, a tile multiple + 1", 512 * 9 + 1, 3000),
     ("uniform, a tile multiple + 1", 2048 * 1465 + 1, 201_088),
 )
+# phase 6: the passive run and the JAX package's row for it
+# (results/ab_r4_parity_traj/Replica/office0/eval_result.txt)
+PASSIVE_CFG = "configs/ab/passive_traj_ab.yaml"
+REFERENCE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307488,
+                 "completion_cm": 1.282566, "completion_ratio_pct": 99.63,
+                 "fscore_pct": 99.517122, "mad_cm": 0.472080}
+TRAJ_TOL = 1e-4            # the poses are the file's: exact up to printing
+MIN_RATIO_PCT = 99.0
+MAX_MAD_CM = REFERENCE_ROW["mad_cm"] + 0.1
 SOURCE = {
     "outer_scan": "naruto_tpu_torch/csrc/outer_cumsum.cu",
     "gather_rows": "naruto_tpu_torch/csrc/gather_rows.cu",
@@ -527,15 +557,34 @@ def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
     return took / calls * 1e6
 
 
+def relative_error(torch, got, ref, magnitude=None) -> float:
+    """max|got - ref| / max|ref|; or, given `magnitude` (a tensor of ref's
+    shape), max over elements of |got - ref| / magnitude (an element whose
+    magnitude is 0 must agree exactly)."""
+    if not got.numel():
+        return 0.0
+    diff = (got.float() - ref.float()).abs()
+    if magnitude is None:
+        scale = float(ref.float().abs().max())
+        return float(diff.max()) / scale if scale else float(diff.max())
+    mag = magnitude.float()
+    exact = torch.where(diff > 0, math.inf, 0.0)
+    return float(torch.where(mag > 0, diff / mag.clamp_min(1e-38),
+                             exact).max())
+
+
 def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
                 nbytes: float, flops: float = 0.0, library=None,
-                profiled: bool = False, deterministic: bool = False) -> dict:
+                profiled: bool = False, deterministic: bool = False,
+                magnitude=None, of: str = "max|plain|") -> dict:
     """One kernel against its plain version on the same card tensors, then
     both timed: the median of PRIM_REPS CUDA-event launches, and where
     `profiled`, the device time from the profiler. `deterministic`: a
     second kernel call must give the same bits. nbytes / flops: what the
     function must move and compute, for its bound; `library`: one PyTorch
-    call that computes the same function, timed beside it."""
+    call that computes the same function, timed beside it. The error is a
+    share of max|plain|, or, where `magnitude` gives a tensor of scales
+    (`of` says what they are), the largest share of an element's scale."""
     got = kernel()
     ref = plain()
     torch.cuda.synchronize()
@@ -546,18 +595,18 @@ def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
         fail(f"{name} {shape}: two calls on the same input differ")
     abs_err = float((got.float() - ref.float()).abs().max()) \
         if got.numel() else 0.0
-    scale = float(ref.float().abs().max()) if ref.numel() else 0.0
-    rel = abs_err / scale if scale else abs_err
+    rel = relative_error(torch, got, ref,
+                         None if magnitude is None else magnitude())
     if not math.isfinite(rel) or rel > tol:
-        fail(f"{name} {shape}: error {rel:.3e} of max|plain| > {tol}")
+        fail(f"{name} {shape}: error {rel:.3e} of {of} > {tol}")
     bound_ms, bound_by = bound(nbytes, flops)
     res = {"shape": shape, "max_abs_err": abs_err, "rel_err": rel,
            "ms": cuda_ms(kernel, PRIM_REPS),
            "plain_ms": cuda_ms(plain, PRIM_REPS),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": cuda_ms(library, LIBRARY_REPS) if library else None}
-    line = (f"[kernels] {name} {shape}: max|kernel-plain| {abs_err:.3e} = "
-            f"{rel:.3e} of max|plain| (tol {tol}); kernel {res['ms']:.4f} "
+    line = (f"[kernels] {name} {shape}: max|kernel-plain| {abs_err:.3e}; "
+            f"{rel:.3e} of {of} (tol {tol}); kernel {res['ms']:.4f} "
             f"ms, plain {res['plain_ms']:.4f} ms (median of {PRIM_REPS})")
     if library:
         line += f", library {res['library_ms']:.4f} ms"
@@ -769,6 +818,281 @@ def run_microbenchmarks(torch, kernels) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 6
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _gather_work(tbl, idx):
+    return _nbytes(tbl, idx) + idx.shape[0] * _nbytes(tbl[:1]), 0.0
+
+
+def _segment_work(si, vals, size, **_):
+    return _nbytes(si, vals) + size * vals.shape[1] * 4, \
+        si.shape[0] * vals.shape[1]
+
+
+def _cumsum_work(x):
+    return 2 * _nbytes(x), x.numel()
+
+
+def _scan_rows_work(sa, sb):
+    m, ka, kb = sa.shape[0], sa.shape[1], sb.shape[1]
+    return _nbytes(sa, sb) + m * ka * kb * 4, 2 * m * ka * kb
+
+
+def _scan_slots_work(si, sa, sb, size):
+    ka, kb = sa.shape[1], sb.shape[1]
+    return _nbytes(si, sa, sb) + size * ka * kb * 4, \
+        2 * sa.shape[0] * ka * kb
+
+
+F32_U = 2.0 ** -24         # unit roundoff of f32
+
+
+def _abs_sum(torch, plain, args: list, kw: dict):
+    """Each output element's sum of |terms|: the plain version on the
+    inputs' absolute values (a product of bf16 factors rounds the same
+    either way). The scale of an f32 sum's rounding, far above max|plain|
+    where the terms cancel, as the run's gradients do."""
+    return plain(*[a.abs() if isinstance(a, torch.Tensor) and
+                   a.is_floating_point() else a for a in args], **kw)
+
+
+def _two_orders_bound(torch, plain, args: list, kw: dict):
+    """Per slot of a segment sum of n terms, 2 gamma_(n-1) x its sum of
+    |terms| (gamma_k = k u / (1 - k u)): two f32 sums of the same terms in
+    any orders differ by no more than this, so a larger difference is a
+    fault, not rounding. A slot of one term must agree exactly."""
+    si, vals, size = args
+    n = plain(si, torch.ones_like(vals), size, **kw)
+    k = (n - 1).clamp_min(0) * F32_U
+    return 2 * k / (1 - k) * _abs_sum(torch, plain, args, kw)
+
+
+class ShapeRecorder:
+    """While on, every call of a kernel wrapper on card tensors is counted
+    under its key (the wrapper, its tensors' shapes and dtypes, its other
+    arguments), and the first call at each key keeps a copy of its inputs.
+    replay() then holds the kernel against its plain version on each copy:
+    every shape the run gave each kernel, on the run's own data. A sum's
+    error is a share of a per-element scale (_abs_sum, _two_orders_bound):
+    the run's gradients cancel. The callers reach the wrappers as module
+    attributes (primitives.gather_rows, kernels.outer_cumsum_slots), so
+    swapping those attributes sees every call; the wrappers themselves, and
+    their launch counts, are unchanged."""
+
+    def __init__(self, torch, kernels, prims):
+        self.torch = torch
+        # launch-count name: (module, attribute, plain version, tolerance,
+        # bytes and operations of the function, per-element scale of the
+        # error or None for max|plain|)
+        self.sites = {
+            "gather_rows": (prims, "gather_rows", prims.gather_rows_plain,
+                            prims.GATHER_TOL, _gather_work, None),
+            "sorted_segment_sum": (prims, "sorted_segment_sum",
+                                   prims.sorted_segment_sum_plain, 1.0,
+                                   _segment_work, _two_orders_bound),
+            "row_cumsum": (prims, "row_cumsum", prims.row_cumsum_plain,
+                           prims.CUMSUM_TOL, _cumsum_work, _abs_sum),
+            "outer_scan_rows": (kernels, "outer_cumsum_scan",
+                                kernels.outer_cumsum_scan_plain, KERNEL_TOL,
+                                _scan_rows_work, _abs_sum),
+            "outer_scan_slots": (kernels, "outer_cumsum_slots",
+                                 kernels.outer_cumsum_slots_plain,
+                                 KERNEL_TOL, _scan_slots_work, _abs_sum),
+        }
+        self.scale_names = {None: "max|plain|",
+                            _abs_sum: "each element's sum of |terms|",
+                            _two_orders_bound: "each slot's bound on two "
+                                               "f32 orders"}
+        self.wrappers = {name: getattr(mod, attr) for name, (mod, attr, *_)
+                         in self.sites.items()}
+        self.seen = {}          # key -> [name, args, kwargs, calls]
+
+    def _recording(self, name, fn):
+        torch = self.torch
+
+        def call(*args, **kw):
+            if args[0].is_cuda:
+                key = (name,) + tuple(
+                    (tuple(a.shape), str(a.dtype))
+                    if isinstance(a, torch.Tensor) else a for a in args) \
+                    + tuple(sorted(kw.items()))
+                rec = self.seen.get(key)
+                if rec is None:
+                    rec = self.seen[key] = [name, [
+                        a.detach().clone() if isinstance(a, torch.Tensor)
+                        else a for a in args], kw, 0]
+                rec[3] += 1
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for name, (mod, attr, *_) in self.sites.items():
+            setattr(mod, attr, self._recording(name, self.wrappers[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr, *_) in self.sites.items():
+            setattr(mod, attr, self.wrappers[name])
+
+    def replay(self, path: str) -> dict:
+        """Per launch-count name, a kernel_case (marked with `path` and the
+        calls at its key) for every key seen; fails on any disagreement."""
+        torch = self.torch
+        res = {name: [] for name in self.sites}
+        for name, args, kw, calls in self.seen.values():
+            _, _, plain, tol, work, scale = self.sites[name]
+            kernel = self.wrappers[name]
+            label = " x ".join(
+                f"{list(a.shape)} {str(a.dtype).replace('torch.', '')}"
+                if isinstance(a, self.torch.Tensor) else str(a)
+                for a in args) + "".join(f" {k}={v}" for k, v in kw.items())
+            nbytes, flops = work(*args, **kw)
+            magnitude = (lambda: scale(torch, plain, args, kw)) \
+                if scale else None
+            f64_err = None
+            if name == "sorted_segment_sum" and not kw["round_bf16"]:
+                # both against the sum in f64 (logged before the check): is
+                # the kernel as close to it as the plain version?
+                exact = plain(args[0], args[1].double(), args[2], **kw)
+                mag = _abs_sum(torch, plain, args, kw)
+                f64_err = {who: relative_error(torch, out.double(), exact, mag)
+                           for who, out in (("kernel", kernel(*args, **kw)),
+                                            ("plain", plain(*args, **kw)))}
+                log(f"[kernels] {name} {path} {label}: against the f64 sum, "
+                    f"of each element's sum of |terms|: kernel "
+                    f"{f64_err['kernel']:.3e}, plain {f64_err['plain']:.3e}")
+            case = kernel_case(
+                torch, name, f"{path} ({calls} calls) {label}",
+                lambda: kernel(*args, **kw), lambda: plain(*args, **kw), tol,
+                nbytes=nbytes, flops=flops, deterministic=True,
+                magnitude=magnitude, of=self.scale_names[scale])
+            if f64_err:
+                case["f64_err"] = f64_err
+            res[name].append({"path": path, "calls": calls,
+                              "err_of": self.scale_names[scale], **case})
+        return res
+
+
+def run_passive(torch, kernels, prims, root: str) -> tuple:
+    """The passive 1,000-step run through the port's Engine; returns the
+    launches of each kernel over run() and finalize(), and every (kernel,
+    shape) of that run held against its plain version."""
+    import numpy as np
+
+    from naruto_tpu_torch.config import load_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.geometry.voxel import voxel_axes
+    from naruto_tpu_torch.mesh import extract, marching
+    from naruto_tpu_torch.native import build
+    from naruto_tpu_torch.system import engine as engine_mod
+
+    cfg = load_config(os.path.join(root, PASSIVE_CFG))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = deep_update(cfg, {
+            "general": {"result_dir": tmp},
+            "sim": {"scene_path": os.path.join(root, cfg.sim.scene_path)}})
+        m = cfg.mapper
+        log(f"[passive] {PASSIVE_CFG}: {cfg.general.num_iter} steps, "
+            f"frames {cfg.cam.H}x{cfg.cam.W}, grid L{cfg.grid.n_levels}F"
+            f"{cfg.grid.n_features_per_level} {cfg.grid.layout}, map_every "
+            f"{m.map_every}, iters {m.iters}, first_iters {m.first_iters}, "
+            f"final mesh at {cfg.mesh.voxel_final} m")
+        lib = build.lib_path("marching_tets")
+        how = "found" if lib.exists() else "built with g++"
+        t0 = time.perf_counter()
+        marching._load_lib()
+        log(f"[passive] marching tets: the native backend (the default; it "
+            f"raises if g++ fails), {lib.name} {how} and loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
+        per_iter = []
+        count_ba_launches(kernels, eng.mapper, per_iter)
+        # the gather_rows launches of each dense query (the snapshots', then
+        # the final mesh's)
+        gathers = []
+        dense = extract._dense_sdf
+
+        def dense_counted(*a, **kw):
+            before = kernels.launch_counts()["gather_rows"]
+            out = dense(*a, **kw)
+            gathers.append(kernels.launch_counts()["gather_rows"] - before)
+            return out
+
+        extract._dense_sdf = dense_counted
+        recorder = ShapeRecorder(torch, kernels, prims)
+        try:
+            with recorder:
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                want_iters = sum(1 for i in range(1, cfg.general.num_iter)
+                                 if i % m.map_every == 0) * m.iters
+                if len(per_iter) != want_iters:
+                    fail(f"the run made {len(per_iter)} BA iterations, not "
+                         f"{want_iters}")
+                check_ba_launches(per_iter)
+                log(f"[passive] run(): {cfg.general.num_iter} steps in "
+                    f"{run_s:.2f} s; every one of {len(per_iter)} BA "
+                    f"iterations launched {BA_LAUNCHES_PER_ITER}")
+                t0 = time.perf_counter()
+                eng.finalize()
+                torch.cuda.synchronize()
+                fin_s = time.perf_counter() - t0
+        finally:
+            extract._dense_sdf = dense
+        counts = kernels.launch_counts()
+        run_dir = os.path.join(tmp, cfg.general.dataset, cfg.general.scene)
+        with open(os.path.join(run_dir, "eval_result.txt")) as f:
+            header, values = f.read().strip().splitlines()[-2:]
+        row = dict(zip(header.split(","), map(float, values.split(","))))
+        n_pts = int(np.prod([len(a) for a in voxel_axes(
+            np.asarray(m.marching_cubes_bound, np.float32),
+            cfg.mesh.voxel_final)]))
+        # the final mesh's stages are the last entries of their sections
+        t = eng.timer.timings
+        stages = {k: t[k][-1] for k in (
+            "mesh_field_query", "mesh_marching_tets", "mesh_colors",
+            "final_mesh", "checkpoint", "gt_mesh", "eval_mesh", "eval_mad")}
+        log(f"[passive] finalize(): {fin_s:.2f} s; "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + f"; the final field query of {n_pts} points launched "
+            f"gather_rows {gathers[-1]} times in chunks of "
+            f"{extract.EXTRACT_CHUNK}")
+        log(f"[passive] wall: run {run_s:.2f} s + finalize {fin_s:.2f} s = "
+            f"{run_s + fin_s:.2f} s")
+        log(f"[passive] {'metric':22s} {'port (this run)':>16s} "
+            f"{'JAX package':>12s}")
+        for k, ref in REFERENCE_ROW.items():
+            log(f"[passive] {k:22s} {row.get(k, float('nan')):16.6f} "
+                f"{ref:12.6f}")
+        if list(row) != list(REFERENCE_ROW):
+            fail(f"eval_result.txt columns {list(row)} != "
+                 f"{list(REFERENCE_ROW)}")
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"a metric is not finite: {row}")
+        if abs(row["traj_length_m"] - REFERENCE_ROW["traj_length_m"]) > \
+                TRAJ_TOL:
+            fail(f"traj_length_m {row['traj_length_m']} != "
+                 f"{REFERENCE_ROW['traj_length_m']} within {TRAJ_TOL}")
+        if row["completion_ratio_pct"] < MIN_RATIO_PCT:
+            fail(f"completion_ratio_pct {row['completion_ratio_pct']} < "
+                 f"{MIN_RATIO_PCT}")
+        if row["mad_cm"] > MAX_MAD_CM:
+            fail(f"mad_cm {row['mad_cm']} > {MAX_MAD_CM:.3f}")
+    # every (kernel, shape) of the run against its plain version, after the
+    # counts were read: these launches are not the path's
+    log(f"[passive] {len(recorder.seen)} distinct (kernel, shape) in run() "
+        f"and finalize(); each against its plain version on the inputs of "
+        f"its first call:")
+    return counts, recorder.replay("passive")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -815,6 +1139,7 @@ def main() -> None:
     pres = check_primitives(torch, primitives, dev)
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
+    passive, passive_cases = run_passive(torch, kernels, primitives, root)
 
     def summary(case: dict) -> dict:
         return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",
@@ -822,6 +1147,16 @@ def main() -> None:
                                         "library_ms")},
                 "device_ms": case.get("device_ms"),
                 "library_device_ms": case.get("library_device_ms")}
+
+    def in_brief(cases: list):
+        """A kernel's shapes on the passive run, in brief for the JSON line
+        (each has its own [kernels] line above)."""
+        if not cases:
+            return None
+        worst = max(cases, key=lambda c: c["rel_err"])
+        return {"shapes": len(cases), "calls": sum(c["calls"] for c in cases),
+                "worst_shape": worst["shape"],
+                "worst_rel_err": worst["rel_err"], "err_of": worst["err_of"]}
 
     on_slice = sres["launches"]
     # the fused scan: the BA runs its slot rows, and its full rows nowhere
@@ -831,8 +1166,14 @@ def main() -> None:
         "launches": on_slice["outer_scan_slots"] + on_slice["outer_scan_rows"],
         "launches_by_epilogue": {"slots": on_slice["outer_scan_slots"],
                                  "rows": on_slice["outer_scan_rows"]},
+        "launches_by_path": {
+            path: counts["outer_scan_slots"] + counts["outer_scan_rows"]
+            for path, counts in (("slice", on_slice), ("passive", passive))},
         **summary(kres["slots"][0]), **hres["outer_scan_slots"],
         "epilogues": kres,
+        "passive_shapes": {
+            "slots": in_brief(passive_cases["outer_scan_slots"]),
+            "rows": in_brief(passive_cases["outer_scan_rows"])},
         "host_by_epilogue": {"slots": hres["outer_scan_slots"],
                              "rows": hres["outer_scan_rows"]}}]
     for name in PRIM_KERNELS:
@@ -846,8 +1187,10 @@ def main() -> None:
             "launches": (on_slice if path == "slice"
                          else bench_launches)[name],
             "launches_by_path": {"slice": on_slice[name],
-                                 "microbenchmarks": bench_launches[name]},
-            **summary(main_case), **hres[name], "cases": pres[name]})
+                                 "microbenchmarks": bench_launches[name],
+                                 "passive": passive[name]},
+            **summary(main_case), **hres[name], "cases": pres[name],
+            "passive_shapes": in_brief(passive_cases[name])})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -22,11 +22,19 @@ score per pixel for a keyframe insertion; in a run they come from one
 replayed JAX key splits. The current-frame ray block is padded to one of
 ``CUR_BUCKETS`` and masked, as in the JAX package.
 
-Not ported yet: tracking and pose optimisation, the sharded BA, mesh
-saving and full-state resume.
+Meshes (``save_mesh``, the periodic snapshot of ``online_recon_step``) and
+evaluation checkpoints (``save_ckpt`` / ``load_ckpt``, in the JAX package's
+npz format) are as in the JAX package. With a ``Timer`` the online step
+times its stages as [Mapper] sections; like the JAX package's, a section
+around device work ends when the work is enqueued.
+
+Not ported yet: tracking and pose optimisation, the sharded BA, the lazy
+volume read-back (``LazyVolumes``) and full-state resume.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -44,9 +52,10 @@ from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.ops.encoding import table_leaves
 from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
+from naruto_tpu_torch.utils import ckpt_io
 from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.seeding import make_generators
-from naruto_tpu_torch.utils.weights import load_jax_params
+from naruto_tpu_torch.utils.timer import Timer
 
 # padded current-ray block sizes, as in the JAX package
 CUR_BUCKETS = (512, 2048, 8192)
@@ -144,7 +153,8 @@ class Mapper:
     (online_recon_step / predict_sdf) on one torch device."""
 
     def __init__(self, cfg: MainConfig, device="cuda",
-                 printer: Optional[InfoPrinter] = None):
+                 printer: Optional[InfoPrinter] = None,
+                 timer: Optional[Timer] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Mapper(device='cuda') needs a CUDA device "
@@ -152,6 +162,10 @@ class Mapper:
         use_full_fp32_matmul()
         self.cfg = cfg
         self.printer = printer or InfoPrinter(quiet=True)
+        # records a per-stage breakdown of online_recon_step when given
+        self.timer = timer
+        # where save_mesh writes (the engine sets the run's directory)
+        self.result_dir: Optional[str] = None
         m, t, c = cfg.mapper, cfg.training, cfg.cam
         if m.tracking_enable:
             raise NotImplementedError("tracking is not ported yet")
@@ -220,19 +234,16 @@ class Mapper:
 
     # ------------------------------------------------------------- weights
     @torch.no_grad()
-    def load_weights(self, src) -> None:
-        """Copy field params from a JAX checkpoint path or an in-memory
-        pytree of numpy arrays (utils/weights.py) into this mapper."""
-        new_groups = _param_groups(load_jax_params(src, self.device))
+    def load_weights(self, tree) -> None:
+        """Copy field params from an in-memory pytree of numpy arrays (the
+        params tree, or a tree holding it under "params", e.g. the JAX
+        package's state) into this mapper. Files go through load_ckpt."""
+        if "params" in tree:
+            tree = tree["params"]
+        self._check_param_compat(tree)
+        new_groups = _param_groups(ckpt_io.to_torch(tree, self.device))
         for k, cur in self._groups.items():
-            got = new_groups[k]
-            shapes = ([tuple(t.shape) for t in got],
-                      [tuple(t.shape) for t in cur])
-            if shapes[0] != shapes[1]:
-                raise ValueError(f"checkpoint {k} shapes {shapes[0]} differ "
-                                 f"from the configured {shapes[1]} (another "
-                                 f"grid.layout or grid size?)")
-            for p, q in zip(cur, got):
+            for p, q in zip(cur, new_groups[k]):
                 p.copy_(q)
 
     # ------------------------------------------------------ frame handling
@@ -490,7 +501,38 @@ class Mapper:
     def get_map_volumes(self):
         return tuple(v.cpu().numpy() for v in self.map_volumes())
 
+    # --------------------------------------------------------------- meshes
+    def _save_mesh(self, kind: str, step: int, voxel_size: float,
+                   suffix: str, color_mode: str) -> Optional[str]:
+        if self.result_dir is None:
+            return None
+        from naruto_tpu_torch.mesh.extract import save_mesh
+
+        path = os.path.join(self.result_dir, kind,
+                            f"mesh_{step:04d}{suffix}.ply")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return save_mesh(self, path, voxel_size=voxel_size,
+                         color_mode=color_mode)
+
+    def save_mesh(self, step: int, voxel_size: float = 0.05,
+                  suffix: str = "") -> Optional[str]:
+        """Periodic mesh snapshot (ref save_mesh, coslam.py:421-458);
+        requires result_dir to be set."""
+        return self._save_mesh("mesh", step, voxel_size, suffix, "color")
+
+    def save_uncert_mesh(self, step: int, voxel_size: float = 0.05,
+                         suffix: str = "") -> Optional[str]:
+        """Uncertainty-colored mesh (ref save_uncert_mesh, coslam.py:460)."""
+        return self._save_mesh("uncert_mesh", step, voxel_size, suffix,
+                               "uncert")
+
     # ------------------------------------------------------------ online API
+    def _t(self, name: str):
+        """Timer section under the [Mapper] group (no-op without a timer)."""
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.time(name, "Mapper")
+
     def needs_frame(self, i: int) -> bool:
         m = self.cfg.mapper
         return i == 0 or i % m.map_every == 0 or i % m.keyframe_every == 0
@@ -501,24 +543,36 @@ class Mapper:
         may be None when needs_frame(i) is False."""
         m = self.cfg.mapper
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.device)
-        frame_rays = (self.frame_to_rays(color, depth)
-                      if self.needs_frame(i) else None)
+        frame_rays = None
+        if self.needs_frame(i):
+            with self._t("frame_transfer"):
+                frame_rays = self.frame_to_rays(color, depth)
         vols = None
+
+        # periodic mesh snapshot (ref coslam.py:571-574)
+        if self.result_dir is not None and i % self.cfg.mesh.vis_freq == 0:
+            with self._t("mesh_snapshot"):
+                self.save_mesh(i, voxel_size=self.cfg.mesh.voxel_eval)
+
         if i == 0:
             self.printer("First frame mapping...", i, "Mapper")
-            self.last_aux = self._first_frame_impl(
-                frame_rays, c2w,
-                (self._draw_first_frame() for _ in range(m.first_iters)))
+            with self._t("first_frame"):
+                self.last_aux = self._first_frame_impl(
+                    frame_rays, c2w,
+                    (self._draw_first_frame() for _ in range(m.first_iters)))
             self.add_keyframe(frame_rays, 0)
             return self.map_volumes()
         self.poses[i] = c2w
         if i % m.map_every == 0:
             bucket = self._pick_bucket(self.kf.count)
             self.printer(f"Global BA (bucket={bucket})", i, "Mapper")
-            self.last_aux = self._ba_impl(bucket, frame_rays, c2w, i)
-            vols = self.map_volumes()
+            with self._t("ba_dispatch"):
+                self.last_aux = self._ba_impl(bucket, frame_rays, c2w, i)
+            with self._t("volumes_dispatch"):
+                vols = self.map_volumes()
         if i % m.keyframe_every == 0:
-            self.add_keyframe(frame_rays, i)
+            with self._t("keyframe_add"):
+                self.add_keyframe(frame_rays, i)
         return vols
 
     # ----------------------------------------------------------- query API
@@ -534,3 +588,44 @@ class Mapper:
                 for s in range(0, x01.shape[0], chunk)]
         return (torch.cat(outs).cpu().numpy() if outs
                 else np.zeros((0,), np.float32))
+
+    # ----------------------------------------------------------- checkpoint
+    def _ckpt_tree(self) -> Dict:
+        return {"params": self.params, "poses": self.poses}
+
+    def save_ckpt(self, path: str) -> None:
+        """Poses + field params (ref save_ckpt coslam.py:494-517), as the
+        JAX package's versioned npz (utils/ckpt_io.py): the JAX Mapper's
+        load_ckpt reads it."""
+        ckpt_io.save_tree(path, self._ckpt_tree(),
+                          meta={"kind": "eval_ckpt", "step": int(self.step),
+                                "grid_layout": self.cfg.grid.layout})
+
+    def _check_param_compat(self, loaded_params: Dict) -> None:
+        """Fail fast with a config hint when a checkpoint was written under
+        a different table layout/shape."""
+        cur = self.params
+        lk, ck = set(loaded_params), set(cur)
+        mism = [f"param set differs: ckpt has {sorted(lk - ck)} extra, "
+                f"missing {sorted(ck - lk)}"] if lk != ck else []
+        for k in sorted(lk & ck):
+            ls = [tuple(np.shape(x)) for _, x in
+                  ckpt_io.flatten_with_keys(loaded_params[k])]
+            cs = [tuple(x.shape) for _, x in
+                  ckpt_io.flatten_with_keys(cur[k])]
+            if ls != cs:
+                mism.append(f"{k}: ckpt leaf shapes {ls} vs configured {cs}")
+        if mism:
+            raise ValueError(
+                "checkpoint incompatible with the configured field "
+                "(likely saved under a different grid.layout / grid size — "
+                "set grid.layout to match the run that wrote it): "
+                + "; ".join(mism))
+
+    def load_ckpt(self, path: str) -> None:
+        """Params, poses and step from a save_ckpt file of either package."""
+        blob, meta = ckpt_io.load_tree(path, self._ckpt_tree())
+        self.load_weights(blob["params"])
+        self.poses = torch.from_numpy(
+            np.asarray(blob["poses"], np.float32)).to(self.device)
+        self.step = int(meta.get("step", 0))

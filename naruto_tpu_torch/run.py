@@ -1,0 +1,76 @@
+"""CLI entry point of the port: run a reconstruction on one torch device
+(counterpart of naruto_tpu/run.py).
+
+Surface parity with the reference entry (src/naruto/cfg_loader.py:57-76 /
+src/naruto/main.py): `--cfg` YAML experiment file (or `--dataset --scene`
+preset), `--seed`, `--result_dir`, `--num_iter`. The JAX CLI's `--platform`
+is `--device` here (default cuda; `--device cpu` runs on the host). Its
+`--enable_vis` (the artifact saver, ROADMAP queue 1 item 8) and `--sim`
+(other simulators, item 9) come with what they select.
+
+    python -m naruto_tpu_torch.run --cfg configs/ab/passive_traj_ab.yaml
+
+The port runs the passive path (enable_active_planning: false) on the
+analytic simulator; the engine refuses what is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="NARUTO-TPU reconstruction, PyTorch port")
+    p.add_argument("--cfg", type=str, default=None,
+                   help="YAML experiment config (with inherit_from support)")
+    p.add_argument("--dataset", type=str, default="Replica")
+    p.add_argument("--scene", type=str, default="office0")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--result_dir", type=str, default=None)
+    p.add_argument("--num_iter", type=int, default=None)
+    p.add_argument("--scene_path", type=str, default=None,
+                   help="scene asset path (sim.scene_path)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the run (default cuda; cpu runs on "
+                        "the host)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="full-state snapshot to resume from (not ported "
+                        "yet: raises)")
+    return p.parse_args(argv)
+
+
+def build_config(args):
+    from naruto_tpu_torch.config import load_config, make_config
+    from naruto_tpu_torch.config.schema import deep_update
+
+    if args.cfg:
+        cfg = load_config(args.cfg)
+    else:
+        cfg = make_config(args.dataset, args.scene, seed=args.seed,
+                          num_iter=args.num_iter)
+    over = {"general": {"seed": args.seed}}
+    if args.num_iter is not None:
+        over["general"]["num_iter"] = args.num_iter
+    if args.result_dir:
+        over["general"]["result_dir"] = args.result_dir
+    if args.scene_path:
+        over["sim"] = {"scene_path": args.scene_path}
+    return deep_update(cfg, over)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.resume:
+        raise NotImplementedError(
+            "--resume needs full-state snapshots, which are not ported yet "
+            "(ROADMAP queue 1, item 5)")
+    cfg = build_config(args)
+    from naruto_tpu_torch.system.engine import Engine
+
+    engine = Engine(cfg, device=args.device)
+    engine.run()
+    engine.finalize()
+
+
+if __name__ == "__main__":
+    main()

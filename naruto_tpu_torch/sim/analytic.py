@@ -15,6 +15,7 @@ import torch
 
 from naruto_tpu_torch.config import MainConfig
 from naruto_tpu_torch.geometry.rays import get_camera_rays
+from naruto_tpu_torch.geometry.voxel import world_grid
 from naruto_tpu_torch.sim.base import Simulator
 from naruto_tpu_torch.utils.printer import InfoPrinter
 
@@ -146,3 +147,11 @@ class AnalyticSimulator(Simulator):
     def gt_sdf(self, pts: np.ndarray) -> np.ndarray:
         p = torch.as_tensor(np.asarray(pts, np.float32), device=self.device)
         return self.sdf(p).cpu().numpy()
+
+    @torch.no_grad()
+    def gt_occupancy_volume(self, voxel_size: float) -> np.ndarray:
+        """The scene's SDF on the mapping AABB's voxel grid [X, Y, Z],
+        computed on the sim's device (host numpy out)."""
+        grid = world_grid(self.bound, voxel_size)
+        p = torch.from_numpy(grid.reshape(-1, 3)).to(self.device)
+        return self.sdf(p).cpu().numpy().reshape(grid.shape[:3])

@@ -1,6 +1,7 @@
 """The port's own copies of the config tree and the geometry helpers
 against naruto_tpu's: equal field for field, and equal outputs."""
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -57,3 +58,13 @@ def test_volume_helpers_match_jax(dataset, scene, voxel):
         jvoxel.volume_shape(bound, voxel)
     np.testing.assert_array_equal(tvoxel.world_grid(bound, voxel),
                                   jvoxel.world_grid(bound, voxel))
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p) for p in pathlib.Path(__file__).resolve().parents[1].glob(
+        "configs/**/*.yaml")))
+def test_load_config_matches_jax(path):
+    """Every shipped YAML experiment file (inherit_from chains included)
+    loads to the same config in both packages."""
+    assert dataclasses.asdict(tcfg.load_config(path)) == \
+        dataclasses.asdict(jcfg.load_config(path))

@@ -541,3 +541,87 @@ def test_primitives_launch_nothing_for_empty_outputs(cuda_device):
     out = primitives.sorted_segment_sum(ix, none, 5, round_bf16=True)
     torch.cuda.synchronize()
     assert out.shape == (5, 8) and not bool(out.any())
+
+
+# ------------------------------------------------- extraction, checkpoints
+MESH_BOUND = ((-1.0, 1.0), (-1.0, 1.0), (-1.0, 1.0))
+MESH_TINY = {"cam": {"H": 24, "W": 32, "fx": 20.0, "fy": 20.0, "cx": 15.5,
+                     "cy": 11.5, "far": 5.0},
+             "grid": {"n_levels": 4, "hash_size": 12, "voxel_sdf": 0.1},
+             "mapper": {"sample": 64, "iters": 2, "first_iters": 2,
+                        "min_pixels_cur": 4, "act_ray_num_uncert_sample": 8,
+                        "bound": MESH_BOUND,
+                        "marching_cubes_bound": MESH_BOUND,
+                        "voxel_size": 0.5},
+             "training": {"n_samples_d": 8, "n_range_d": 5,
+                          "smooth_pts": 4}}
+
+
+@pytest.fixture
+def mapper_pair(cuda_device, tmp_path):
+    """A host Mapper whose field was fitted to a sphere's SDF (a well
+    conditioned isosurface) and a card Mapper that loaded its checkpoint."""
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.mapping.field import query_sdf
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    cfg = make_config("Replica", "office0", num_iter=10, overrides=MESH_TINY)
+    host = Mapper(cfg, device="cpu")
+    opt = torch.optim.Adam(host._all_params(), lr=1e-2)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(80):
+        x01 = torch.rand((2048, 3), generator=g)
+        target = (torch.linalg.norm(x01 * 2 - 1, dim=-1) - 0.55) * 4
+        loss = ((query_sdf(host.params, x01, host.spec) - target)
+                ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    path = str(tmp_path / "host.pkl")
+    host.save_ckpt(path)
+    card = Mapper(cfg, device=cuda_device)
+    card.load_ckpt(path)
+    return host, card
+
+
+@pytest.mark.cuda
+def test_extract_mesh_on_card_matches_host(mapper_pair):
+    """The field's dense query and colours through gather_rows on the card
+    give the host's mesh: the same faces, vertices within 1e-3 cm."""
+    from naruto_tpu_torch.mesh.extract import _dense_sdf, extract_mesh
+
+    host, card = mapper_pair
+    bound = np.asarray(MESH_BOUND, np.float32)
+    sh, uh, _ = _dense_sdf(host, bound, 0.05)
+    before = kernels.launch_counts()["gather_rows"]
+    sc, uc, _ = _dense_sdf(card, bound, 0.05, chunk=20_000)
+    assert kernels.launch_counts()["gather_rows"] > before
+    assert np.abs(sc - sh).max() < 5e-6 and np.abs(uc - uh).max() < 5e-6
+    vh, fh, ch = extract_mesh(host, 0.05)
+    vc, fc, cc = extract_mesh(card, 0.05)
+    assert len(fh) > 1000
+    np.testing.assert_array_equal(fc, fh)
+    assert np.abs(vc - vh).max() < 1e-5
+    assert np.abs(cc - ch).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_card_reads_on_host(mapper_pair, tmp_path):
+    from naruto_tpu_torch.mapping.mapper import Mapper
+    from naruto_tpu_torch.utils import ckpt_io
+
+    host, card = mapper_pair
+    card.poses[2] = torch.eye(4, device="cuda") * 2
+    card.step = 2
+    path = str(tmp_path / "card.pkl")
+    card.save_ckpt(path)
+    back = Mapper(host.cfg, device="cpu")
+    back.load_ckpt(path)
+    assert back.step == 2
+    for (k, a), (_, b) in zip(ckpt_io.flatten_with_keys(back._ckpt_tree()),
+                              ckpt_io.flatten_with_keys(card._ckpt_tree())):
+        assert torch.equal(a.detach(), b.detach().cpu()), k
+    pts = np.random.default_rng(0).uniform(-1, 1, (500, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(back.predict_sdf(pts),
+                                  host.predict_sdf(pts))

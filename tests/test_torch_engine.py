@@ -1,0 +1,261 @@
+"""The port's engine on the passive path (sim -> map over a recorded
+trajectory, then mesh, checkpoint and the metric row), its frame
+prefetcher, its CLI, and what it refuses, against naruto_tpu where the two
+compute the same thing."""
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from naruto_tpu.config import make_config as jmake_config
+from naruto_tpu.evaluation import eval_traj_length as jeval_traj_length
+from naruto_tpu.sim.analytic import AnalyticSimulator as JAnalytic
+from naruto_tpu.system.pose_loader import load_traj_file as jload_traj
+from naruto_tpu_torch import run as trun
+from naruto_tpu_torch.config import make_config
+from naruto_tpu_torch.config.schema import deep_update
+from naruto_tpu_torch.mesh.ply import read_ply
+from naruto_tpu_torch.sim import init_simulator
+from naruto_tpu_torch.sim.analytic import AnalyticSimulator
+from naruto_tpu_torch.sim.prefetch import FramePrefetcher
+from naruto_tpu_torch.system import engine as tengine
+from naruto_tpu_torch.system.engine import Engine
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAJ_DIR = os.path.join(ROOT, "data", "traj_ab")
+N_STEPS = 40
+EVAL_SAMPLES = 20_000
+# The 24x32 form of configs/ab/passive_traj_ab.yaml: the engine config of
+# tests/test_quality.py::test_active_loop_metric_floor, run passively over
+# the first 40 poses of data/traj_ab/traj.txt, meshes at 0.1 m.
+PASSIVE_40 = {
+    "cam": {"H": 24, "W": 32, "fx": 16.0, "fy": 16.0, "cx": 15.5,
+            "cy": 11.5, "far": 3.0},
+    "sim": {"pinhole_hw": (24, 32), "erp_hw": (16, 32),
+            "scene_path": TRAJ_DIR},
+    "grid": {"hash_size": 12},
+    "mapper": {"sample": 64, "iters": 2, "first_iters": 8,
+               "min_pixels_cur": 8, "act_ray_num_uncert_sample": 16},
+    "training": {"n_range_d": 5, "n_samples_d": 8, "smooth_pts": 8},
+    "mesh": {"voxel_final": 0.1, "voxel_eval": 0.1},
+}
+# Floors calibrated once against the JAX engine on the same config, seed 0
+# and 20,000 eval samples (run outside tier-1): acc 14.25 cm, comp 20.29 cm,
+# ratio 17.46%, MAD 2.53 cm. As in test_active_loop_metric_floor they sit
+# ~25-40% beyond those values: the two packages draw from other generators,
+# so the rows differ, but a broken loss or sampler halves the ratio or
+# multiplies the MAD.
+FLOORS = {"completion_ratio_pct": 11.0, "mad_cm": 3.5,
+          "completion_cm": 27.0, "accuracy_cm": 20.0}
+
+
+def passive_cfg(tmp):
+    cfg = make_config("Replica", "office0", num_iter=N_STEPS, overrides={
+        **PASSIVE_40, "general": {"result_dir": str(tmp), "seed": 0}})
+    return cfg.replace(enable_active_planning=False)
+
+
+@pytest.fixture(scope="module")
+def passive_run(tmp_path_factory):
+    """The port's engine through run() and finalize() on the host, with the
+    evaluation's surface samples cut to EVAL_SAMPLES."""
+    tmp = tmp_path_factory.mktemp("passive")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tengine, "eval_mesh", functools.partial(
+            tengine.eval_mesh, n_samples=EVAL_SAMPLES))
+        mp.setattr(tengine, "eval_mad", functools.partial(
+            tengine.eval_mad, n_samples=EVAL_SAMPLES))
+        eng = Engine(passive_cfg(tmp), device="cpu", quiet=True)
+        renders = []
+        simulate = eng.sim.simulate
+        eng.sim.simulate = lambda c2w, **kw: (renders.append(1),
+                                              simulate(c2w, **kw))[1]
+        final = eng.run()
+        eng.finalize()
+    return eng, final, renders, tmp / "Replica" / "office0"
+
+
+def _row(run_dir):
+    header, values = (run_dir / "eval_result.txt").read_text().strip() \
+        .splitlines()[-2:]
+    return dict(zip(header.split(","), map(float, values.split(","))))
+
+
+def test_passive_run_traj_length_matches_jax(passive_run):
+    eng, final, _, run_dir = passive_run
+    poses = np.stack(jload_traj(os.path.join(TRAJ_DIR, "traj.txt"),
+                                "Replica"))[:N_STEPS]
+    assert _row(run_dir)["traj_length_m"] == pytest.approx(
+        jeval_traj_length(poses), abs=1e-6)
+    np.testing.assert_array_equal(final, poses[-1])
+    np.testing.assert_array_equal(eng.mapper.poses[:N_STEPS].numpy(), poses)
+
+
+def test_passive_run_metric_floors(passive_run):
+    m = _row(passive_run[3])
+    assert list(m) == ["traj_length_m", "accuracy_cm", "completion_cm",
+                       "completion_ratio_pct", "fscore_pct", "mad_cm"]
+    assert m["completion_ratio_pct"] > FLOORS["completion_ratio_pct"], m
+    assert m["mad_cm"] < FLOORS["mad_cm"], m
+    assert m["completion_cm"] < FLOORS["completion_cm"], m
+    assert m["accuracy_cm"] < FLOORS["accuracy_cm"], m
+
+
+def test_passive_run_artifacts(passive_run):
+    """The final mesh, the checkpoint, the GT mesh, the snapshot at step 0
+    and the config; no planner, so no planner_stats.json."""
+    eng, _, _, run_dir = passive_run
+    v, f, c = read_ply(str(run_dir / f"mesh_{N_STEPS:04d}_final.ply"))
+    assert len(f) > 100 and c is not None and np.isfinite(v).all()
+    gv, gf, _ = read_ply(str(run_dir / "gt_mesh.ply"))
+    assert len(gf) > 100
+    assert (run_dir / "mesh" / "mesh_0000.ply").exists()
+    assert (run_dir / "config.json").exists()
+    assert not (run_dir / "planner_stats.json").exists()
+    assert not hasattr(eng, "planner")
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    m = Mapper(eng.cfg, device="cpu")
+    m.load_ckpt(str(run_dir / f"ckpt_{N_STEPS:04d}_final.pkl"))
+    pts = np.random.default_rng(0).uniform(-1, 1, (300, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(m.predict_sdf(pts),
+                                  eng.mapper.predict_sdf(pts))
+
+
+def test_passive_run_renders_only_consumed_frames(passive_run):
+    """The prefetcher renders the frames the mapper consumes and no other;
+    the engine's timer has one Simulation and one SLAM section a step."""
+    eng, _, renders, _ = passive_run
+    needed = sum(eng.mapper.needs_frame(i) for i in range(N_STEPS))
+    assert len(renders) == needed < N_STEPS
+    t = eng.timer.timings
+    assert len(t["Simulation"]) == len(t["SLAM"]) == N_STEPS
+    assert eng.timer.groups["ba_dispatch"] == "Mapper"
+
+
+def test_passive_run_finalize_sections(passive_run):
+    """finalize() times each of its stages, and every extraction (the
+    snapshots', then the final mesh's) its field query and marching tets,
+    and its colours where the mesh has vertices."""
+    t = passive_run[0].timer.timings
+    for name in ("final_mesh", "checkpoint", "gt_mesh", "eval_mesh",
+                 "eval_mad"):
+        assert len(t[name]) == 1 and passive_run[0].timer.groups[name] == \
+            "Finalize"
+    snapshots = len(t["mesh_snapshot"])
+    assert snapshots >= 1
+    for name in ("mesh_field_query", "mesh_marching_tets"):
+        assert len(t[name]) == snapshots + 1
+    assert 1 <= len(t["mesh_colors"]) <= snapshots + 1
+    assert t["mesh_field_query"][-1] <= t["final_mesh"][0]
+
+
+def test_gt_occupancy_volume_matches_jax():
+    over = {"cam": {"H": 24, "W": 32}, "sim": {"pinhole_hw": (24, 32)}}
+    got = AnalyticSimulator(make_config("Replica", "office0",
+                                        overrides=over),
+                            device="cpu").gt_occupancy_volume(0.1)
+    want = JAnalytic(jmake_config("Replica", "office0",
+                                  overrides=over)).gt_occupancy_volume(0.1)
+    assert got.shape == want.shape == (49, 56, 35)
+    assert np.abs(got - want).max() < 1e-6
+
+
+# --------------------------------------------------------------- prefetcher
+@pytest.mark.parametrize("quantize", [True, False])
+def test_prefetcher_order_and_needs_filter(tmp_path, quantize):
+    """Frames come back in step order and equal a direct render (quantized
+    to uint8 when a needs-filter is given); steps nothing consumes get
+    (None, None) and are never rendered; nothing is rendered at or past
+    the horizon."""
+    cfg = passive_cfg(tmp_path)
+    sim = AnalyticSimulator(cfg, device="cpu")
+    poses = [np.asarray(p) for p in jload_traj(
+        os.path.join(TRAJ_DIR, "traj.txt"), "Replica")[:12]]
+    needs = (lambda i: i % 5 == 0 or i == 7) if quantize else None
+    rendered = []
+    simulate = sim.simulate
+    sim.simulate = lambda c2w, **kw: (rendered.append(c2w),
+                                      simulate(c2w, **kw))[1]
+    pf = FramePrefetcher(sim, lambda s: poses[s], needs_fn=needs,
+                         horizon=11)
+    try:
+        got = [pf.get(i) for i in range(11)]
+    finally:
+        pf.close()
+    want_steps = [i for i in range(11) if needs is None or needs(i)]
+    assert len(rendered) == len(want_steps)
+    for r, i in zip(rendered, want_steps):
+        np.testing.assert_array_equal(r, poses[i])
+    for i, (color, depth) in enumerate(got):
+        if i not in want_steps:
+            assert color is None and depth is None
+            continue
+        c_ref, d_ref = simulate(poses[i])
+        if quantize:
+            assert color.dtype == torch.uint8
+            c_ref = (torch.clamp(c_ref, 0, 1) * 255 + 0.5).to(torch.uint8)
+        torch.testing.assert_close(color, c_ref, rtol=0, atol=0)
+        torch.testing.assert_close(depth, d_ref, rtol=0, atol=0)
+
+
+# ----------------------------------------------------------------- refusals
+@pytest.mark.parametrize("over,match", [
+    ({"enable_active_planning": True}, "items 7-8"),
+    ({"vis": {"enable_all_vis": True}}, "item 8"),
+    ({"general": {"ckpt_freq": 10}}, "item 5"),
+])
+def test_engine_refuses_what_is_not_ported(tmp_path, over, match):
+    cfg = deep_update(passive_cfg(tmp_path), over)
+    with pytest.raises(NotImplementedError, match=match):
+        Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["replay", "raycast"])
+def test_other_simulators_refused(tmp_path, method):
+    cfg = deep_update(passive_cfg(tmp_path), {"sim": {"method": method}})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        init_simulator(cfg, "cpu")
+    with pytest.raises(ValueError, match="unknown simulator"):
+        init_simulator(deep_update(cfg, {"sim": {"method": "nope"}}), "cpu")
+
+
+def test_run_cli_refuses_resume(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        trun.main(["--cfg", os.path.join(ROOT, "configs", "ab",
+                                         "passive_traj_ab.yaml"),
+                   "--resume", "auto", "--device", "cpu"])
+
+
+def test_no_quiet_fallback_to_the_host(tmp_path):
+    """Without a card the engine and the run and evaluate CLIs raise unless
+    the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(passive_cfg(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["--cfg", os.path.join(ROOT, "configs", "ab",
+                                         "passive_traj_ab.yaml"),
+                   "--result_dir", str(tmp_path)])
+    from naruto_tpu_torch import evaluate as tevaluate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tevaluate.main(["--rec", "r.ply", "--gt", "g.ply"])
+
+
+def test_run_cli_builds_the_passive_config(tmp_path):
+    args = trun.parse_args(["--cfg", os.path.join(
+        ROOT, "configs", "ab", "passive_traj_ab.yaml"), "--result_dir",
+        str(tmp_path), "--num_iter", "7", "--seed", "3"])
+    assert args.device == "cuda"
+    cfg = trun.build_config(args)
+    assert not cfg.enable_active_planning
+    assert cfg.sim.scene_path == "data/traj_ab"
+    assert (cfg.general.num_iter, cfg.general.seed) == (7, 3)
+    assert cfg.general.result_dir == str(tmp_path)

@@ -19,7 +19,7 @@ from naruto_tpu_torch.mapping import losses as tlosses
 from naruto_tpu_torch.mapping import render as trender
 from naruto_tpu_torch.mapping.mapper import BADraws, Mapper
 from naruto_tpu_torch.ops import kernels, primitives
-from naruto_tpu_torch.utils.weights import load_jax_params
+from naruto_tpu_torch.utils.ckpt_io import to_torch
 
 torch.set_num_threads(1)
 
@@ -63,7 +63,7 @@ def field_pair():
     params_j["uncert_grid"] = params_j["uncert_grid"] + jnp.asarray(
         np.random.default_rng(1).normal(size=spec_j.uncert_shape),
         jnp.float32)
-    params_t = load_jax_params(jax.tree_util.tree_map(np.asarray, params_j))
+    params_t = to_torch(jax.tree_util.tree_map(np.asarray, params_j))
     return spec_j, spec_t, params_j, params_t
 
 
@@ -331,13 +331,13 @@ class TestBAIteration:
 
 
 def test_jax_checkpoint_carries_weights(ba_pair, tmp_path, rng):
-    """Mapper.save_ckpt's npz, read with numpy alone, gives the port the
-    same field: predict_sdf agrees with the JAX mapper's."""
+    """Mapper.save_ckpt's npz, read by the port's load_ckpt, gives the
+    port the same field: predict_sdf agrees with the JAX mapper's."""
     mj = ba_pair["mj"]
     path = str(tmp_path / "ckpt.npz")
     mj.save_ckpt(path)
     mt = Mapper(mj.cfg, device="cpu")
-    mt.load_weights(path)
+    mt.load_ckpt(path)
     pts = rng.uniform(-1.5, 1.5, (200, 3)).astype(np.float32)
     assert _rel_err(mt.predict_sdf(pts), mj.predict_sdf(pts)) < 1e-5
 
