@@ -1,1 +1,1 @@
-"""geometry (PyTorch port): camera rays and voxel grids."""
+"""geometry (PyTorch port): camera rays, voxel grids and pose math."""

@@ -1,5 +1,4 @@
-"""Voxel grid helpers (the port's own copy of the parts of
-naruto_tpu/geometry/voxel.py that the mapper uses).
+"""Voxel grid helpers (the port's own copy of naruto_tpu/geometry/voxel.py).
 
 Behavioral contract from upstream Co-SLAM `getVoxels` (import sites:
 src/slam/coslam/coslam_utils.py:33, src/planner/rrt.py:9): per-axis
@@ -41,3 +40,22 @@ def world_grid(bound: np.ndarray, voxel_size: float) -> np.ndarray:
     tx, ty, tz = voxel_axes(bound, voxel_size)
     gx, gy, gz = np.meshgrid(tx, ty, tz, indexing="ij")
     return np.stack([gx, gy, gz], axis=-1).astype(np.float32)
+
+
+def vox2loc(vox: np.ndarray, bound: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Voxel -> metric coords (ref: src/planner/planner.py:85-100)."""
+    return np.asarray(vox) * voxel_size + np.asarray(bound)[:, 0]
+
+
+def loc2vox(loc: np.ndarray, bound: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Metric -> voxel coords (continuous; ref: planner.py:102-117)."""
+    return (np.asarray(loc) - np.asarray(bound)[:, 0]) / voxel_size
+
+
+def normalize_points(pts, bound):
+    """Normalize world points into [0,1]^3 within the AABB (the field's input
+    domain — ref: run_network / coslam_utils.py:82)."""
+    bound = np.asarray(bound) if isinstance(pts, np.ndarray) else bound
+    lo = bound[:, 0]
+    hi = bound[:, 1]
+    return (pts - lo) / (hi - lo)

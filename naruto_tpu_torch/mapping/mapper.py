@@ -169,6 +169,7 @@ class Mapper:
         m, t, c = cfg.mapper, cfg.training, cfg.cam
         if m.tracking_enable:
             raise NotImplementedError("tracking is not ported yet")
+        self.track_enabled = m.tracking_enable
         dev = self.device
 
         self.spec = field_spec_from_config(cfg)
@@ -534,8 +535,12 @@ class Mapper:
         return self.timer.time(name, "Mapper")
 
     def needs_frame(self, i: int) -> bool:
+        """True when step i consumes the RGB-D frame: first frame, tracking
+        enabled, a mapping step, or a keyframe step. The engine renders
+        no other frame."""
         m = self.cfg.mapper
-        return i == 0 or i % m.map_every == 0 or i % m.keyframe_every == 0
+        return (i == 0 or self.track_enabled
+                or i % m.map_every == 0 or i % m.keyframe_every == 0)
 
     def online_recon_step(self, i: int, color, depth, c2w):
         """One mapping step. Returns (uncert_vol, sdf_vol) device tensors on

@@ -1,10 +1,17 @@
-"""SDF volume interpolation (the part of naruto_tpu/planner/collision.py
-that the port has so far: the trilinear interpolation of a voxel volume,
-which colours the uncertainty mesh).
+"""SDF collision primitives, vectorized (the port's own copy of
+naruto_tpu/planner/collision.py; numpy on the host, where the RRT runs).
 
+Behavioral contract from src/planner/rrt.py:12-117:
+  * a segment pa->pb is sampled every step_size/5 voxels (inclusive
+    endpoints, count = ceil(len/(step/5)) + 1);
+  * collision iff any sampled trilinear SDF <= collision_thre (0.5 voxel);
+  * the returned prefix count is (#leading-free-samples - 1) // 5 — i.e. how
+    many full step_size moves are safe (minimum 1 when fully free).
 Coordinates are clamped to the volume, as in the JAX package.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -29,3 +36,23 @@ def trilinear_interpolation_np(vol: np.ndarray, pts: np.ndarray) -> np.ndarray:
     c0 = c00 * (1 - fy) + c01 * fy
     c1 = c10 * (1 - fy) + c11 * fy
     return c0 * (1 - fx) + c1 * fx
+
+
+def query_sdf_np(sdf_grid: np.ndarray, points: np.ndarray) -> np.ndarray:
+    return trilinear_interpolation_np(sdf_grid, points)
+
+
+def is_collision_free(pa: np.ndarray, pb: np.ndarray, sdf_map: np.ndarray,
+                      step_size: float = 1.0,
+                      collision_thre: float = 0.5) -> Tuple[int, bool]:
+    """Returns (num_collision_free_steps, completely_free)."""
+    pa = np.asarray(pa, dtype=np.float64)
+    pb = np.asarray(pb, dtype=np.float64)
+    n = int(np.ceil(np.linalg.norm(pb - pa) / (step_size / 5.0))) + 1
+    points = np.linspace(pa, pb, num=n)
+    vals = query_sdf_np(sdf_map, points)
+    free = vals > collision_thre
+    if free.all():
+        return max((len(free) - 1) // 5, 1), True
+    first_blocked = int(np.argmax(~free))
+    return (first_blocked - 1) // 5, False

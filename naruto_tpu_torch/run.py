@@ -8,10 +8,12 @@ is `--device` here (default cuda; `--device cpu` runs on the host). Its
 `--enable_vis` (the artifact saver, ROADMAP queue 1 item 8) and `--sim`
 (other simulators, item 9) come with what they select.
 
+    python -m naruto_tpu_torch.run --cfg configs/Replica/office0/naruto.yaml
     python -m naruto_tpu_torch.run --cfg configs/ab/passive_traj_ab.yaml
 
-The port runs the passive path (enable_active_planning: false) on the
-analytic simulator; the engine refuses what is not ported yet.
+The first is the active loop (simulate -> map -> plan, the default), the
+second the passive protocol over a recorded trajectory; both on the
+analytic simulator. The engine refuses what is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,22 +1,12 @@
-"""Probe the passive run (configs/ab/passive_traj_ab.yaml) on one NVIDIA
-card, in two parts:
+"""Probe the passive run's final extraction (configs/ab/passive_traj_ab.yaml)
+on one NVIDIA card: one chunk of the mesh extraction's dense query, the
+first 2^20 points of the grid at mesh.voxel_final through the field (random
+weights from the seed), timed by CUDA events and by the profiler's device
+time (trace_summary.device_ms), then its kernels by launching operator
+(trace_summary's table). Run it in a fresh process: in one that has run the
+mapper the profiler loses records.
 
-1. one chunk of the final mesh extraction's dense query: the first 2^20
-   points of the grid at mesh.voxel_final through the field (random
-   weights from the seed), timed by CUDA events and by the profiler's
-   device time (trace_summary.device_ms), then its kernels by launching
-   operator (trace_summary's table). This part runs first: in a process
-   that has run the mapper the profiler loses records.
-2. the frame prefetcher's cost: the engine's first --steps steps with each
-   frame rendered ahead by the prefetcher's worker thread (as the engine
-   runs) and with each frame rendered on the main thread when it is taken,
-   in turns inside this process (--turns pairs, the order alternating),
-   after an untimed 20-step run that builds the kernels. For each: run()'s
-   wall time, and the engine's Simulation and SLAM sections and its
-   mapper's ba_dispatch section.
-
-Run:  python -m naruto_tpu_torch.scripts.probe_passive [--steps 300]
-          [--turns 2] [--out DIR]
+Run:  python -m naruto_tpu_torch.scripts.probe_passive [--out DIR]
 
 The chunk's chrome trace goes to DIR (a temporary directory by default).
 """
@@ -26,7 +16,6 @@ import argparse
 import os
 import statistics
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -39,22 +28,10 @@ from naruto_tpu_torch.mapping.field import query_sdf
 from naruto_tpu_torch.mapping.mapper import Mapper
 from naruto_tpu_torch.mesh.extract import EXTRACT_CHUNK
 from naruto_tpu_torch.scripts import trace_summary
-from naruto_tpu_torch.sim.prefetch import FramePrefetcher
-from naruto_tpu_torch.system import engine as engine_mod
 
 ROOT = Path(__file__).resolve().parents[2]
 PASSIVE_CFG = ROOT / "configs" / "ab" / "passive_traj_ab.yaml"
 CHUNK_REPS = 5
-
-
-class InlineFrames(FramePrefetcher):
-    """The prefetcher's interface without its thread: a consumed frame is
-    rendered on the calling thread when it is taken."""
-
-    def get(self, step: int):
-        if self.needs is not None and not self.needs(step):
-            return None, None
-        return self._load(step)
 
 
 def extraction_chunk(cfg, out_dir: str) -> None:
@@ -106,29 +83,8 @@ def extraction_chunk(cfg, out_dir: str) -> None:
     trace_summary.main([path, "--iters", str(CHUNK_REPS), "--top", "30"])
 
 
-def run_steps(cfg, frames_cls) -> dict:
-    """run() of a fresh engine with `frames_cls` in the prefetcher's
-    place."""
-    eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
-    engine_mod.FramePrefetcher = frames_cls
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        engine_mod.FramePrefetcher = FramePrefetcher
-    t = eng.timer.timings
-    return {"wall_s": wall, "simulation_s": sum(t["Simulation"]),
-            "slam_s": sum(t["SLAM"]),
-            "ba_dispatch_ms": 1e3 * statistics.mean(t["ba_dispatch"])}
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--out", default=None,
                     help="directory for the chunk's trace")
     args = ap.parse_args(argv)
@@ -138,30 +94,8 @@ def main(argv=None) -> None:
         out = args.out or tmp
         os.makedirs(out, exist_ok=True)
         cfg = load_config(str(PASSIVE_CFG))
-        cfg = deep_update(cfg, {
-            "general": {"result_dir": tmp, "num_iter": args.steps},
-            "sim": {"scene_path": str(ROOT / cfg.sim.scene_path)}})
+        cfg = deep_update(cfg, {"general": {"result_dir": tmp}})
         extraction_chunk(cfg, out)
-
-        run_steps(deep_update(cfg, {"general": {"num_iter": 20}}),
-                  FramePrefetcher)
-        modes = {"worker thread": FramePrefetcher, "main thread": InlineFrames}
-        order = list(modes)
-        runs = {m: [] for m in modes}
-        for turn in range(args.turns):
-            for name in (order if turn % 2 == 0 else order[::-1]):
-                r = run_steps(cfg, modes[name])
-                runs[name].append(r)
-                print(f"[frames] turn {turn}, rendered on the {name}: "
-                      f"run() {r['wall_s']:.2f} s for {args.steps} steps; "
-                      f"Simulation {r['simulation_s']:.2f} s, SLAM "
-                      f"{r['slam_s']:.2f} s, ba_dispatch "
-                      f"{r['ba_dispatch_ms']:.1f} ms a BA step", flush=True)
-        for name, rs in runs.items():
-            walls = [r["wall_s"] for r in rs]
-            print(f"[frames] rendered on the {name}: run() median "
-                  f"{statistics.median(walls):.2f} s, range "
-                  f"{min(walls):.2f}-{max(walls):.2f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -44,14 +44,19 @@ def lead_launch(lead) -> None:
 
 
 def device_ms(fn, reps: int = 10, tries: int = 5) -> float:
-    """Device time of one fn() in milliseconds: the kernels and copies that
-    torch.profiler traces over `reps` calls, summed, over reps. Unlike the
-    CUDA-event time it leaves out the device's wait on the host's enqueue.
-    The tracer drops records now and then, whole traces too, and for
-    several traces on end: a trace in which some kernel does not show a
-    multiple of `reps` times is taken again half a second later, and after
-    `tries` such traces this gives NaN, with a line on stderr. No time
-    comes from a trace that lost records."""
+    """Device time of one fn() in milliseconds (device_profile's)."""
+    return device_profile(fn, reps, tries)[0]
+
+
+def device_profile(fn, reps: int = 10, tries: int = 5) -> tuple:
+    """(device ms, launches) of one fn(): the kernels and copies that
+    torch.profiler traces over `reps` calls, their time summed and counted,
+    over reps. Unlike the CUDA-event time it leaves out the device's wait
+    on the host's enqueue. The tracer drops records now and then, whole
+    traces too, and for several traces on end: a trace in which some
+    kernel does not show a multiple of `reps` times is taken again half a
+    second later, and after `tries` such traces this gives (NaN, NaN), with
+    a line on stderr. No number comes from a trace that lost records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,13 +76,13 @@ def device_ms(fn, reps: int = 10, tries: int = 5) -> float:
                      and not e.is_user_annotation
                      and LEAD_KERNEL not in e.key]
         if on_device and all(e.count % reps == 0 for e in on_device):
-            return sum(e.self_device_time_total
-                       for e in on_device) / 1e3 / reps
+            return (sum(e.self_device_time_total for e in on_device)
+                    / 1e3 / reps, sum(e.count for e in on_device) / reps)
         seen.append([(e.key, e.count) for e in on_device])
         time.sleep(0.5)
-    print(f"device_ms: the profiler lost records in {tries} traces of "
+    print(f"device_profile: the profiler lost records in {tries} traces of "
           f"{reps} calls, no device time: {seen}", file=sys.stderr, flush=True)
-    return float("nan")
+    return float("nan"), float("nan")
 
 
 def short_name(name: str) -> str:

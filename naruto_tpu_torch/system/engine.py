@@ -1,19 +1,20 @@
-"""The reconstruction engine's passive path: the sim -> map loop over a
-predefined trajectory (counterpart of naruto_tpu/system/engine.py with
-``enable_active_planning: false``).
+"""The reconstruction engine: the sim -> map -> plan loop (counterpart of
+naruto_tpu/system/engine.py).
 
-Per step: update the module steps, take the trajectory's pose, get the
-RGB-D frame (rendered ahead by a worker thread, sim/prefetch.py) and run one
-mapping step. At the end, ``finalize`` writes the final mesh, the checkpoint,
-the trajectory length, the analytic scene's ground-truth mesh and the metric
-row (accuracy, completion, ratio, F-score, MAD) to ``eval_result.txt``, and
-prints the timing breakdown.
+Per step: update the module steps, resolve the pose (the planner's in the
+active mode, the trajectory's in the passive one), render the RGB-D frame
+on the main thread when the mapper consumes it (``needs_frame``), run one
+mapping step, and in the active mode let the planner emit the next pose
+from the volumes of the last mapping step. At the end, ``finalize`` writes
+the final mesh, the checkpoint, the trajectory length, the planner's
+statistics (``planner_stats.json``, active mode), the analytic scene's
+ground-truth mesh and the metric row (accuracy, completion, ratio, F-score,
+MAD) to ``eval_result.txt``, and prints the timing breakdown.
 
-Not ported yet, and refused: active planning (the planner, ROADMAP queue 1
-items 7-8), the artifact saver of ``vis.enable_all_vis`` (item 8),
-mid-run full-state checkpoints (``general.ckpt_freq``) and resuming from
-them (item 5), and so ``planner_stats.json``, which the planner writes.
-A failed evaluation fails the run.
+Not ported yet, and refused: the artifact saver of ``vis.enable_all_vis``
+(ROADMAP queue 1, item 8), mid-run full-state checkpoints
+(``general.ckpt_freq``) and resuming from them (item 5). A failed
+evaluation fails the run.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from naruto_tpu_torch.mapping.mapper import Mapper
 from naruto_tpu_torch.mesh.extract import save_mesh
 from naruto_tpu_torch.mesh.marching import marching_cubes
 from naruto_tpu_torch.mesh.ply import read_ply, write_ply
+from naruto_tpu_torch.planner import init_planner
 from naruto_tpu_torch.sim import init_simulator
-from naruto_tpu_torch.sim.prefetch import FramePrefetcher
 from naruto_tpu_torch.system.pose_loader import PoseLoader
 from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.results import update_results_file
@@ -39,11 +40,6 @@ from naruto_tpu_torch.utils.timer import Timer
 
 
 def _refuse_unported(cfg: MainConfig) -> None:
-    if cfg.enable_active_planning:
-        raise NotImplementedError(
-            "enable_active_planning: true needs the planner, which is not "
-            "ported yet (ROADMAP queue 1, items 7-8); the port runs the "
-            "passive path (enable_active_planning: false)")
     if cfg.vis.enable_all_vis:
         raise NotImplementedError(
             "vis.enable_all_vis needs the artifact saver, which is not "
@@ -52,6 +48,15 @@ def _refuse_unported(cfg: MainConfig) -> None:
         raise NotImplementedError(
             "general.ckpt_freq > 0 writes full-state snapshots, which are "
             "not ported yet (ROADMAP queue 1, item 5)")
+
+
+def quantize_color(color: torch.Tensor) -> torch.Tensor:
+    """Float colour in [0, 1] -> uint8 (the mapper's frame_to_rays
+    dequantizes it), in both modes: the JAX package's passive runs quantize
+    a frame for its host-to-device hop, so the two packages' passive frames
+    are equal; its active loop hands the mapper the analytic simulator's
+    device colour unquantized (half a step of 1/255 apart at most)."""
+    return (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
 class Engine:
@@ -78,6 +83,14 @@ class Engine:
                 f"size")
         self.sim = init_simulator(cfg, self.device, self.printer)
         self.mapper = Mapper(cfg, self.device, self.printer, self.timer)
+        if cfg.enable_active_planning:
+            self.planner = init_planner(cfg, self.device, self.printer,
+                                        self.timer)
+            self.planner.update_sim(self.sim)
+            self.planner.init_data(cfg.mapper.bound_np)
+            self.planner.init_local_planner()
+            # the volumes of the last mapping step, which the planner reads
+            self.uncert_sdf = None
         self.pose_loader = PoseLoader(cfg)
 
         self.run_dir = os.path.join(cfg.general.result_dir,
@@ -88,30 +101,49 @@ class Engine:
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             json.dump(cfg.to_dict(), f, indent=1, default=str)
 
-    def run(self, num_iter: Optional[int] = None) -> np.ndarray:
-        """Map the trajectory's first `num_iter` steps (general.num_iter by
-        default); returns the last pose."""
-        n = num_iter if num_iter is not None else self.cfg.general.num_iter
+    def _init_pose(self) -> np.ndarray:
         c2w = self.pose_loader.load_init_pose()
-        traj = self.pose_loader.traj
-        # frame i+1's pose is known: a worker renders it while step i maps
-        prefetcher = FramePrefetcher(self.sim, lambda s: traj[s],
-                                     needs_fn=self.mapper.needs_frame,
-                                     horizon=min(n, len(traj)))
-        try:
-            for i in range(n):
-                # the prefetcher's worker steps the sim ahead of the engine
-                self.mapper.update_step(i)
-                c2w = self.pose_loader.update_pose(c2w, i)
+        if self.cfg.enable_active_planning and self.pose_loader.traj is None \
+                and self.cfg.start_c2w is None:
+            # no per-scene start configured: asset-free runs start at the
+            # room center (always free space in the analytic scenes)
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, 3] = self.cfg.mapper.bound_np.mean(axis=1)
+        return c2w
+
+    def run(self, num_iter: Optional[int] = None) -> np.ndarray:
+        """The first `num_iter` steps (general.num_iter by default); returns
+        the last pose (host [4, 4])."""
+        cfg = self.cfg
+        n = num_iter if num_iter is not None else cfg.general.num_iter
+        active = cfg.enable_active_planning
+        c2w = self._init_pose()
+        for i in range(n):
+            for mod in ((self.sim, self.mapper, self.planner) if active
+                        else (self.sim, self.mapper)):
+                mod.update_step(i)
+            c2w = self.pose_loader.update_pose(c2w, i)
+            color = depth = None
+            # a frame nothing consumes is not rendered, and not timed
+            if self.mapper.needs_frame(i):
                 with self.timer.time("Simulation", "General"):
-                    color, depth = prefetcher.get(i)
-                with self.timer.time("SLAM", "General"):
-                    self.mapper.online_recon_step(i, color, depth, c2w)
-                if (i + 1) % 250 == 0:
-                    print(f"[Engine] step {i + 1} timers:\n"
-                          f"{self.timer.summary()}", flush=True)
-        finally:
-            prefetcher.close()
+                    color, depth = self.sim.simulate(c2w)[:2]
+                    color = quantize_color(color)
+            with self.timer.time("SLAM", "General"):
+                new_vols = self.mapper.online_recon_step(i, color, depth,
+                                                         c2w)
+            if active:
+                with self.timer.time("Planning", "General"):
+                    if new_vols is not None:
+                        self.uncert_sdf = new_vols
+                    c2w = self.planner.main(self.uncert_sdf, c2w,
+                                            new_vols is not None)
+            if (i + 1) % 250 == 0:
+                print(f"[Engine] step {i + 1} timers:\n"
+                      f"{self.timer.summary()}", flush=True)
+                if active:
+                    print(f"[Engine] planner: "
+                          f"{self.planner.stats_summary()}", flush=True)
         return np.asarray(c2w)
 
     def finalize(self, result_dir: Optional[str] = None) -> None:
@@ -134,6 +166,13 @@ class Engine:
         n = min(cfg.general.num_iter, self.mapper.poses.shape[0])
         traj_len = eval_traj_length(self.mapper.poses[:n].cpu().numpy())
         update_results_file({"traj_length_m": traj_len}, results)
+
+        # exploration diagnostics
+        if cfg.enable_active_planning:
+            with open(os.path.join(out, "planner_stats.json"), "w") as f:
+                json.dump({"summary": self.planner.stats_summary(),
+                           "events": self.planner.stats["events"]}, f,
+                          indent=1)
 
         # the analytic scene's exact GT mesh: the recon metrics need no
         # external data

@@ -13,18 +13,22 @@ from typing import Dict
 import numpy as np
 import torch
 
-# the mapper's draw sites (see mapping/mapper.py)
+# the draw sites: the mapper's (see mapping/mapper.py), then the planner's
+# target subset (planner/naruto_planner.py). A site is seeded from its
+# index, so a new site goes at the end: the others keep their draws.
 SITES = ("init", "first_frame_rays", "global_rays", "current_rays",
-         "z_noise", "smoothness", "keyframe_scores")
+         "z_noise", "smoothness", "keyframe_scores", "planner_subset")
+
+
+def make_generator(seed: int, site: str, device) -> torch.Generator:
+    """The generator of one draw site, on `device`, seeded from (seed, site
+    index) through numpy's SeedSequence."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([seed, SITES.index(site)])
+                      .generate_state(1, np.uint64)[0]))
+    return g
 
 
 def make_generators(seed: int, device) -> Dict[str, torch.Generator]:
-    """One generator per draw site, on `device`, each seeded independently
-    from (seed, site index) through numpy's SeedSequence."""
-    gens = {}
-    for i, site in enumerate(SITES):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(np.random.SeedSequence([seed, i])
-                          .generate_state(1, np.uint64)[0]))
-        gens[site] = g
-    return gens
+    """One generator per draw site, each seeded independently."""
+    return {site: make_generator(seed, site, device) for site in SITES}

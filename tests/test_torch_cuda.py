@@ -625,3 +625,45 @@ def test_checkpoint_written_on_card_reads_on_host(mapper_pair, tmp_path):
         np.float32)
     np.testing.assert_array_equal(back.predict_sdf(pts),
                                   host.predict_sdf(pts))
+
+
+@pytest.mark.cuda
+def test_aggregation_on_card_matches_host(cuda_device):
+    """The planner's goal-space aggregation on the card against the same
+    on the host, at office0's volume and goal space: the top-k in the same
+    order through a run of ties (more zeros than the rest of the top-k),
+    the same targets, pairs and validity, the goal scores within 1e-6; and
+    the card's own subset draw gives distinct indices into the top-k."""
+    from naruto_tpu_torch.planner.aggregation import (Aggregator,
+                                                      make_goal_space)
+
+    rng = np.random.default_rng(7)
+    shape = (49, 56, 35)
+    sdf = rng.uniform(-0.5, 3.0, shape).astype(np.float32)
+    uncert = np.where(rng.uniform(size=shape) < 0.02,
+                      rng.uniform(0.01, 2.0, shape), 0.0).astype(np.float32)
+    gs = make_goal_space(shape, 0.1)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        agg = Aggregator(shape, gs, 0.1, goal_chunk=2048, device=dev)
+        sel = torch.from_numpy(rng.permutation(agg.k_eff)[:agg.subset_eff]
+                               if dev == "cpu" else outs[0][1])
+        out = agg(torch.from_numpy(uncert).to(dev),
+                  torch.from_numpy(sdf).to(dev), sel)
+        outs.append(([t.cpu() for t in out], sel.numpy()))
+    (host, _), (card, _) = outs
+    assert np.count_nonzero(uncert) < 4000
+    for name, h, c in zip(("gs_aggre", "topk_vxl", "collections",
+                           "any_valid"), host, card):
+        if name == "gs_aggre":
+            torch.testing.assert_close(c, h, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(c, h), name
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    vals = torch.from_numpy(np.sort(uncert.reshape(-1))[::-1][:4000]
+                            .copy()).to(cuda_device)
+    for weighted in (True, False):
+        agg.subset_nonzero_weighted = weighted
+        sel = agg.draw_subset(vals, gen).cpu()
+        assert sel.numel() == 300 == torch.unique(sel).numel()
+        assert 0 <= int(sel.min()) and int(sel.max()) < 4000

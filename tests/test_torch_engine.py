@@ -1,9 +1,11 @@
 """The port's engine on the passive path (sim -> map over a recorded
-trajectory, then mesh, checkpoint and the metric row), its frame
-prefetcher, its CLI, and what it refuses, against naruto_tpu where the two
-compute the same thing."""
+trajectory, then mesh, checkpoint and the metric row) and on the active
+one (sim -> map -> plan), its CLI, and what it refuses, against naruto_tpu
+where the two compute the same thing."""
 import functools
+import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -11,15 +13,16 @@ import torch
 
 from naruto_tpu.config import make_config as jmake_config
 from naruto_tpu.evaluation import eval_traj_length as jeval_traj_length
+from naruto_tpu.mapping.mapper import Mapper as JMapper
 from naruto_tpu.sim.analytic import AnalyticSimulator as JAnalytic
 from naruto_tpu.system.pose_loader import load_traj_file as jload_traj
 from naruto_tpu_torch import run as trun
 from naruto_tpu_torch.config import make_config
 from naruto_tpu_torch.config.schema import deep_update
+from naruto_tpu_torch.mapping.mapper import Mapper
 from naruto_tpu_torch.mesh.ply import read_ply
 from naruto_tpu_torch.sim import init_simulator
 from naruto_tpu_torch.sim.analytic import AnalyticSimulator
-from naruto_tpu_torch.sim.prefetch import FramePrefetcher
 from naruto_tpu_torch.system import engine as tengine
 from naruto_tpu_torch.system.engine import Engine
 
@@ -51,6 +54,10 @@ PASSIVE_40 = {
 # multiplies the MAD.
 FLOORS = {"completion_ratio_pct": 11.0, "mad_cm": 3.5,
           "completion_cm": 27.0, "accuracy_cm": 20.0}
+
+
+ACTIVE_CFG = os.path.join(ROOT, "configs", "Replica", "office0",
+                          "naruto.yaml")
 
 
 def passive_cfg(tmp):
@@ -128,13 +135,15 @@ def test_passive_run_artifacts(passive_run):
 
 
 def test_passive_run_renders_only_consumed_frames(passive_run):
-    """The prefetcher renders the frames the mapper consumes and no other;
-    the engine's timer has one Simulation and one SLAM section a step."""
+    """The engine renders the frames the mapper consumes and no other; the
+    timer has a Simulation section for each render (as the JAX package's
+    inline loop times them) and one SLAM section a step."""
     eng, _, renders, _ = passive_run
     needed = sum(eng.mapper.needs_frame(i) for i in range(N_STEPS))
     assert len(renders) == needed < N_STEPS
     t = eng.timer.timings
-    assert len(t["Simulation"]) == len(t["SLAM"]) == N_STEPS
+    assert len(t["Simulation"]) == needed
+    assert len(t["SLAM"]) == N_STEPS
     assert eng.timer.groups["ba_dispatch"] == "Mapper"
 
 
@@ -166,52 +175,21 @@ def test_gt_occupancy_volume_matches_jax():
     assert np.abs(got - want).max() < 1e-6
 
 
-# --------------------------------------------------------------- prefetcher
-@pytest.mark.parametrize("quantize", [True, False])
-def test_prefetcher_order_and_needs_filter(tmp_path, quantize):
-    """Frames come back in step order and equal a direct render (quantized
-    to uint8 when a needs-filter is given); steps nothing consumes get
-    (None, None) and are never rendered; nothing is rendered at or past
-    the horizon."""
-    cfg = passive_cfg(tmp_path)
-    sim = AnalyticSimulator(cfg, device="cpu")
-    poses = [np.asarray(p) for p in jload_traj(
-        os.path.join(TRAJ_DIR, "traj.txt"), "Replica")[:12]]
-    needs = (lambda i: i % 5 == 0 or i == 7) if quantize else None
-    rendered = []
-    simulate = sim.simulate
-    sim.simulate = lambda c2w, **kw: (rendered.append(c2w),
-                                      simulate(c2w, **kw))[1]
-    pf = FramePrefetcher(sim, lambda s: poses[s], needs_fn=needs,
-                         horizon=11)
-    try:
-        got = [pf.get(i) for i in range(11)]
-    finally:
-        pf.close()
-    want_steps = [i for i in range(11) if needs is None or needs(i)]
-    assert len(rendered) == len(want_steps)
-    for r, i in zip(rendered, want_steps):
-        np.testing.assert_array_equal(r, poses[i])
-    for i, (color, depth) in enumerate(got):
-        if i not in want_steps:
-            assert color is None and depth is None
-            continue
-        c_ref, d_ref = simulate(poses[i])
-        if quantize:
-            assert color.dtype == torch.uint8
-            c_ref = (torch.clamp(c_ref, 0, 1) * 255 + 0.5).to(torch.uint8)
-        torch.testing.assert_close(color, c_ref, rtol=0, atol=0)
-        torch.testing.assert_close(depth, d_ref, rtol=0, atol=0)
-
-
 # ----------------------------------------------------------------- refusals
 @pytest.mark.parametrize("over,match", [
-    ({"enable_active_planning": True}, "items 7-8"),
+    ({"enable_active_planning": True}, None),
     ({"vis": {"enable_all_vis": True}}, "item 8"),
     ({"general": {"ckpt_freq": 10}}, "item 5"),
 ])
 def test_engine_refuses_what_is_not_ported(tmp_path, over, match):
+    """The artifact saver and full-state snapshots raise; active planning,
+    ported, builds the planner on the engine's device."""
     cfg = deep_update(passive_cfg(tmp_path), over)
+    if match is None:
+        eng = Engine(cfg, device="cpu", quiet=True)
+        assert eng.planner.aggregate.device == eng.device
+        assert eng.planner.sim is eng.sim and eng.pose_loader.traj is None
+        return
     with pytest.raises(NotImplementedError, match=match):
         Engine(cfg, device="cpu")
 
@@ -243,6 +221,8 @@ def test_no_quiet_fallback_to_the_host(tmp_path):
         trun.main(["--cfg", os.path.join(ROOT, "configs", "ab",
                                          "passive_traj_ab.yaml"),
                    "--result_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["--cfg", ACTIVE_CFG, "--result_dir", str(tmp_path)])
     from naruto_tpu_torch import evaluate as tevaluate
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -259,3 +239,106 @@ def test_run_cli_builds_the_passive_config(tmp_path):
     assert cfg.sim.scene_path == "data/traj_ab"
     assert (cfg.general.num_iter, cfg.general.seed) == (7, 3)
     assert cfg.general.result_dir == str(tmp_path)
+
+
+def test_run_cli_builds_the_active_config(tmp_path):
+    """configs/Replica/office0/naruto.yaml is the active loop; with no
+    --cfg the JAX CLI's defaults (--dataset Replica --scene office0) build
+    the same run."""
+    for argv in (["--cfg", ACTIVE_CFG], []):
+        args = trun.parse_args(argv + ["--result_dir", str(tmp_path)])
+        assert args.device == "cuda"
+        cfg = trun.build_config(args)
+        assert cfg.enable_active_planning and cfg.planner.method == "naruto"
+        assert (cfg.general.dataset, cfg.general.scene,
+                cfg.general.num_iter, cfg.general.seed) == (
+                    "Replica", "office0", 2000, 0)
+        assert cfg.general.result_dir == str(tmp_path)
+
+
+def test_active_start_pose(tmp_path):
+    """The configured start_c2w (office0's preset: identity); without one,
+    the room centre."""
+    cfg = deep_update(passive_cfg(tmp_path), {"enable_active_planning": True})
+    np.testing.assert_array_equal(Engine(cfg, device="cpu")._init_pose(),
+                                  np.asarray(cfg.start_c2w, np.float32))
+    want = np.eye(4, dtype=np.float32)
+    want[:3, 3] = cfg.mapper.bound_np.mean(axis=1)
+    np.testing.assert_array_equal(
+        Engine(cfg.replace(start_c2w=None), device="cpu")._init_pose(), want)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("every", [(5, 5), (3, 4)])
+def test_needs_frame_matches_jax(tmp_path, track, every):
+    """The frames the mapper consumes, with and without tracking, as
+    naruto_tpu's Mapper.needs_frame gives them."""
+    over = {"mapper": {"map_every": every[0], "keyframe_every": every[1]}}
+    mapper = Mapper(deep_update(passive_cfg(tmp_path), over), device="cpu")
+    assert mapper.track_enabled is False
+    mapper.track_enabled = track
+    ref = SimpleNamespace(cfg=jmake_config("Replica", "office0",
+                                           overrides=over),
+                          track_enabled=track)
+    got = [mapper.needs_frame(i) for i in range(40)]
+    assert got == [JMapper.needs_frame(ref, i) for i in range(40)]
+    assert all(got) == track
+
+
+# ------------------------------------------------------------- active run
+# tests/test_quality.py::test_active_loop_metric_floor's engine config
+ACTIVE_40 = {
+    "cam": PASSIVE_40["cam"],
+    "sim": {"pinhole_hw": (24, 32), "erp_hw": (16, 32)},
+    "grid": {"hash_size": 12},
+    "mapper": PASSIVE_40["mapper"],
+    "training": PASSIVE_40["training"],
+}
+
+
+def test_active_run_metric_floors(tmp_path):
+    """The port's active loop (analytic sim -> mapper -> planner -> mesh ->
+    eval) at 24x32 for 40 steps on the host clears the floors of
+    tests/test_quality.py::test_active_loop_metric_floor, writes
+    planner_stats.json, and no plan writes into the mapper's uncertainty
+    volume."""
+    cfg = make_config("Replica", "office0", num_iter=N_STEPS, overrides={
+        **ACTIVE_40, "general": {"result_dir": str(tmp_path), "seed": 0}})
+    assert cfg.enable_active_planning
+    eng = Engine(cfg, device="cpu", quiet=True)
+    main, plans = eng.planner.main, []
+
+    def checked(vols, c2w, is_new_vols):
+        u = eng.mapper.uncert_vol
+        ptr, vals = u.data_ptr(), u.clone()
+        out = main(vols, c2w, is_new_vols)
+        if eng.planner.state == "planning":
+            plans.append(vols[0] is u and eng.mapper.uncert_vol is u
+                         and u.data_ptr() == ptr and torch.equal(u, vals))
+        return out
+
+    eng.planner.main = checked
+    final = eng.run()
+    eng.finalize()
+    run_dir = tmp_path / "Replica" / "office0"
+    m = _row(run_dir)
+    assert m["completion_ratio_pct"] > 28.0, m
+    assert m["mad_cm"] < 4.0, m
+    assert m["completion_cm"] < 26.0, m
+    assert m["accuracy_cm"] < 26.0, m
+    assert plans and all(plans), plans
+
+    poses = eng.mapper.poses[:N_STEPS].numpy()
+    np.testing.assert_array_equal(poses[0], np.asarray(cfg.start_c2w))
+    assert m["traj_length_m"] == pytest.approx(jeval_traj_length(poses),
+                                               abs=1e-6) and \
+        m["traj_length_m"] > 0.5
+    assert final.shape == (4, 4) and np.isfinite(final).all()
+    stats = json.loads((run_dir / "planner_stats.json").read_text())
+    assert stats["summary"] == json.loads(json.dumps(
+        eng.planner.stats_summary()))
+    assert stats["summary"]["n_plans"] == len(stats["events"]) == len(plans)
+    t = eng.timer.timings
+    assert len(t["Planning"]) == len(t["SLAM"]) == N_STEPS
+    assert len(t["Simulation"]) == sum(eng.mapper.needs_frame(i)
+                                       for i in range(N_STEPS))
