@@ -55,6 +55,29 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      bucket, the volumes', the snapshots', the final extraction's (2^20-
      point chunks and the ragged last one), the colours' and the MAD's.
      After the run each is held against its plain version on those inputs.
+  7. the active run: configs/Replica/office0/naruto.yaml, 2,000 steps at
+     ACTIVE_SEED, through run() and finalize(): the planner's gates, the
+     aggregation's device time a plan, the launch check and the replays of
+     phase 6;
+  8. the parity grid: phase 6's run, uncut, with the grid: section of
+     configs/parity.yaml (the vertex layout: 16 levels of 2 features, an
+     f32 table of 814,897 rows); its row held to the JAX package's for the
+     same poses (trajectory within 1e-4 m, ratio >= 99.0%, MAD <= its
+     0.459 cm + 0.1 cm), PARITY_LAUNCHES_PER_ITER in every BA iteration,
+     and the replays of phase 6 (the vertex backward's segment sum over
+     15.8M rows of F = 2, the forward's gather of [814,897, 2] f32 rows);
+  9. the remaining settings: phase 6's run with tracking (schema defaults:
+     10 iterations of 1,024 rays a frame), n_importance 12, smooth_sample
+     4,096 and the weights carry on the default hybrid grid, cut to
+     SETTINGS_STEPS steps: every pose finite, SETTINGS_LAUNCHES_PER_ITER in
+     every BA iteration and TRACK_LAUNCHES_PER_ITER in every tracking
+     iteration, and the replays; the tracked poses against the
+     trajectory's are printed beside its largest steps (10-degree turns,
+     beyond what 10 tracking iterations can move a pose). Then the mapper
+     with the same settings tracks TRACK_PATH_STEPS frames of a
+     constant-speed path at half a tracking call's reach: the tracked
+     translations within MAX_TRACK_RMSE_CM (RMSE) and MAX_TRACK_ERR_CM
+     (worst frame) of the path's.
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -65,7 +88,7 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON
 (each kernel's launches on every path that drives it: the slice of phase
 4, the microbenchmarks of phase 5, the passive run of phase 6, the active
-run of phase 7).
+run of phase 7, the parity run of phase 8, the settings run of phase 9).
 """
 from __future__ import annotations
 
@@ -140,13 +163,53 @@ REFERENCE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307488,
                  "fscore_pct": 99.517122, "mad_cm": 0.472080}
 TRAJ_TOL = 1e-4            # the poses are the file's: exact up to printing
 MIN_RATIO_PCT = 99.0
-MAX_MAD_CM = REFERENCE_ROW["mad_cm"] + 0.1
+MAD_MARGIN_CM = 0.1        # Gate S4: the reference's MAD plus 0.1 cm
 # phase 7: the active run, and the JAX package's rows of the same protocol
 # (2,000 steps, seeds 0/500/1000/1500/1999; PERFORMANCE.md "5-seed
 # protocol"). Seeds 0 and 500 of the port fall into the reference's
 # collision livelock (PERFORMANCE.md, raycast seed_1999: the agent wedged
 # at the learned surface, every plan's first move collides); seed 1 is the
 # lowest seed whose run does not (PERF.md, section 6).
+# phase 8: the passive run on configs/parity.yaml's grid (the vertex
+# layout), and the JAX package's row for it, from a mapper of three rounds
+# before (results/ab_passive_vertex/Replica/office0/eval_result.txt; it has
+# no F-score column)
+PARITY_CFG = "configs/parity.yaml"
+PARITY_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.357286,
+              "completion_cm": 1.288284, "completion_ratio_pct": 99.609,
+              "mad_cm": 0.459087}
+# its BA iteration: gather_rows for the hash forward (one row of F = 2 per
+# corner), the uncertainty grid's cell gather, and the two segment sums'
+# gathers by their sort permutations; sorted_segment_sum for the vertex
+# rows (bf16-rounded) and the trilinear VJP (exact); no fused scan
+PARITY_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
+                            "gather_rows": 4, "row_cumsum": 0,
+                            "sorted_segment_sum": 2}
+# phase 9: the passive protocol with the remaining settings, cut to
+# SETTINGS_STEPS steps (schema defaults: 10 tracking iterations of 1,024
+# rays), on the default hybrid grid
+SETTINGS_STEPS = 200
+SETTINGS_OVER = {"mapper": {"tracking_enable": True},
+                 "training": {"n_importance": 12, "smooth_sample": 4096},
+                 "grid": {"sort_carry": "weights"}}
+# its BA iteration (poses optimised): the hash encode runs twice, the first
+# pass with the smoothness pairs riding it; gather_rows for both forwards,
+# both uncertainty-grid lookups, each backward's two payload gathers (the
+# weights carry) and its position gradient's feature gather, and the
+# trilinear VJP's gather; the slot-row scan in both hash backwards; one
+# sorted_segment_sum (the trilinear VJP: no loss reads the first pass's
+# uncertainty)
+SETTINGS_LAUNCHES_PER_ITER = {"outer_scan_slots": 2, "outer_scan_rows": 0,
+                              "gather_rows": 11, "row_cumsum": 0,
+                              "sorted_segment_sum": 1}
+# a tracking iteration (the field frozen): both forwards' hash and
+# uncertainty gathers, and the position gradient's feature gather; no
+# table gradient, so no segment sum and no scan
+TRACK_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
+                           "gather_rows": 5, "row_cumsum": 0,
+                           "sorted_segment_sum": 0}
+MAX_TRACK_RMSE_CM, MAX_TRACK_ERR_CM = 5.0, 10.0
+TRACK_PATH_STEPS = 40
 ACTIVE_CFG = "configs/Replica/office0/naruto.yaml"
 ACTIVE_SEED = 1
 JAX_ACTIVE_ROWS = "results/seeds_r3/Replica/office0/seed_{}/Replica/office0/" \
@@ -420,12 +483,30 @@ def count_ba_launches(kernels, mapper, per_iter: list) -> None:
     mapper._ba_iteration = counted
 
 
-def check_ba_launches(per_iter: list) -> None:
-    wrong = [(i, n) for i, n in enumerate(per_iter)
-             if n != BA_LAUNCHES_PER_ITER]
+def count_track_launches(kernels, mapper, per_iter: list) -> None:
+    """From now on, every tracking call of `mapper` appends to per_iter the
+    launches of each kernel of the path that it made per iteration (a
+    share that is not whole fails the check)."""
+    track = mapper._tracking_impl
+
+    def counted(frame_rays, init, draws):
+        draws = list(draws)
+        before = kernels.launch_counts()
+        out = track(frame_rays, init, draws)
+        after = kernels.launch_counts()
+        per_iter.append({k: (after[k] - before[k]) / len(draws)
+                         for k in BA_LAUNCHES_PER_ITER})
+        return out
+
+    mapper._tracking_impl = counted
+
+
+def check_ba_launches(per_iter: list, want=None, what="BA") -> None:
+    want = BA_LAUNCHES_PER_ITER if want is None else want
+    wrong = [(i, n) for i, n in enumerate(per_iter) if n != want]
     if wrong:
-        fail(f"{len(wrong)} of {len(per_iter)} BA iterations launched other "
-             f"than {BA_LAUNCHES_PER_ITER}; first: iteration {wrong[0][0]}: "
+        fail(f"{len(wrong)} of {len(per_iter)} {what} iterations launched "
+             f"other than {want}; first: iteration {wrong[0][0]}: "
              f"{wrong[0][1]}")
 
 
@@ -1056,10 +1137,17 @@ def read_row(path: str) -> dict:
     return dict(zip(header.split(","), map(float, values.split(","))))
 
 
-def run_passive(torch, kernels, prims, root: str) -> tuple:
-    """The passive 1,000-step run through the port's Engine; returns the
-    launches of each kernel over run() and finalize(), and every (kernel,
-    shape) of that run held against its plain version."""
+def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
+                over=None, num_iter=None, reference=REFERENCE_ROW,
+                want=None, check=None) -> tuple:
+    """The passive run of PASSIVE_CFG through the port's Engine, with the
+    overrides `over` and `num_iter` steps (the file's 1,000 by default);
+    returns the launches of each kernel over run() and finalize(), and
+    every (kernel, shape) of that run held against its plain version.
+    `reference`: the JAX package's row the run's row is held to (None: the
+    row must be finite only); `want`: the launches of a BA iteration;
+    `check(eng, row)`: further gates. With tracking on, every tracking
+    iteration must launch TRACK_LAUNCHES_PER_ITER."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -1069,27 +1157,39 @@ def run_passive(torch, kernels, prims, root: str) -> tuple:
     from naruto_tpu_torch.native import build
     from naruto_tpu_torch.system import engine as engine_mod
 
+    want = BA_LAUNCHES_PER_ITER if want is None else want
     cfg = load_config(os.path.join(root, PASSIVE_CFG))
+    if over:
+        cfg = deep_update(cfg, over)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = deep_update(cfg, {
-            "general": {"result_dir": tmp},
+            "general": {"result_dir": tmp,
+                        "num_iter": num_iter or cfg.general.num_iter},
             "sim": {"scene_path": os.path.join(root, cfg.sim.scene_path)}})
-        m = cfg.mapper
-        log(f"[passive] {PASSIVE_CFG}: {cfg.general.num_iter} steps, "
+        m, t = cfg.mapper, cfg.training
+        log(f"[{tag}] {PASSIVE_CFG}: {cfg.general.num_iter} steps, "
             f"frames {cfg.cam.H}x{cfg.cam.W}, grid L{cfg.grid.n_levels}F"
-            f"{cfg.grid.n_features_per_level} {cfg.grid.layout}, map_every "
-            f"{m.map_every}, iters {m.iters}, first_iters {m.first_iters}, "
-            f"final mesh at {cfg.mesh.voxel_final} m")
+            f"{cfg.grid.n_features_per_level} {cfg.grid.layout} "
+            f"{cfg.grid.table_dtype} (sort carry {cfg.grid.sort_carry}), "
+            f"map_every {m.map_every}, iters {m.iters}, first_iters "
+            f"{m.first_iters}, tracking {m.tracking_enable} ({m.track_iter} "
+            f"iterations of {m.track_sample} rays), n_importance "
+            f"{t.n_importance}, smooth_sample {t.smooth_sample}, final mesh "
+            f"at {cfg.mesh.voxel_final} m")
         lib = build.lib_path("marching_tets")
         how = "found" if lib.exists() else "built with g++"
         t0 = time.perf_counter()
         marching._load_lib()
-        log(f"[passive] marching tets: the native backend (the default; it "
+        log(f"[{tag}] marching tets: the native backend (the default; it "
             f"raises if g++ fails), {lib.name} {how} and loaded in "
             f"{time.perf_counter() - t0:.2f} s")
         eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
-        per_iter = []
+        log(f"[{tag}] hash grid: {eng.mapper.spec.hash_spec.total_entries} "
+            f"table rows, resolutions {eng.mapper.spec.hash_spec.resolutions}")
+        per_iter, per_track = [], []
         count_ba_launches(kernels, eng.mapper, per_iter)
+        if m.tracking_enable:
+            count_track_launches(kernels, eng.mapper, per_track)
         # the gather_rows launches of each dense query (the snapshots', then
         # the final mesh's)
         gathers = []
@@ -1106,6 +1206,7 @@ def run_passive(torch, kernels, prims, root: str) -> tuple:
         try:
             with recorder:
                 kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 eng.run()
@@ -1116,14 +1217,25 @@ def run_passive(torch, kernels, prims, root: str) -> tuple:
                 if len(per_iter) != want_iters:
                     fail(f"the run made {len(per_iter)} BA iterations, not "
                          f"{want_iters}")
-                check_ba_launches(per_iter)
-                log(f"[passive] run(): {cfg.general.num_iter} steps in "
+                check_ba_launches(per_iter, want)
+                log(f"[{tag}] run(): {cfg.general.num_iter} steps in "
                     f"{run_s:.2f} s; every one of {len(per_iter)} BA "
-                    f"iterations launched {BA_LAUNCHES_PER_ITER}")
+                    f"iterations launched {want}")
+                if m.tracking_enable:
+                    if len(per_track) != cfg.general.num_iter - 1:
+                        fail(f"{len(per_track)} tracking calls, not "
+                             f"{cfg.general.num_iter - 1}")
+                    check_ba_launches(per_track, TRACK_LAUNCHES_PER_ITER,
+                                      "tracking")
+                    log(f"[{tag}] every iteration of {len(per_track)} "
+                        f"tracking calls launched {TRACK_LAUNCHES_PER_ITER}")
+                peak_run = torch.cuda.max_memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 eng.finalize()
                 torch.cuda.synchronize()
                 fin_s = time.perf_counter() - t0
+                peak_fin = torch.cuda.max_memory_allocated() / 2 ** 30
         finally:
             extract._dense_sdf = dense
         counts = kernels.launch_counts()
@@ -1133,42 +1245,175 @@ def run_passive(torch, kernels, prims, root: str) -> tuple:
             np.asarray(m.marching_cubes_bound, np.float32),
             cfg.mesh.voxel_final)]))
         # the final mesh's stages are the last entries of their sections
-        t = eng.timer.timings
-        stages = {k: t[k][-1] for k in (
+        tm = eng.timer.timings
+        stages = {k: tm[k][-1] for k in (
             "mesh_field_query", "mesh_marching_tets", "mesh_colors",
             "final_mesh", "checkpoint", "gt_mesh", "eval_mesh", "eval_mad")}
-        log(f"[passive] finalize(): {fin_s:.2f} s; "
+        log(f"[{tag}] finalize(): {fin_s:.2f} s; "
             + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
             + f"; the final field query of {n_pts} points launched "
             f"gather_rows {gathers[-1]} times in chunks of "
             f"{extract.EXTRACT_CHUNK}")
-        log(f"[passive] wall: run {run_s:.2f} s + finalize {fin_s:.2f} s = "
-            f"{run_s + fin_s:.2f} s")
-        log(f"[passive] {'metric':22s} {'port (this run)':>16s} "
+        log(f"[{tag}] wall: run {run_s:.2f} s + finalize {fin_s:.2f} s = "
+            f"{run_s + fin_s:.2f} s; peak device memory {peak_run:.3f} GiB "
+            f"in run(), {peak_fin:.3f} GiB in finalize() (the extraction's "
+            f"chunks; torch.cuda.max_memory_allocated)")
+        ref = reference or {}
+        log(f"[{tag}] {'metric':22s} {'port (this run)':>16s} "
             f"{'JAX package':>12s}")
-        for k, ref in REFERENCE_ROW.items():
-            log(f"[passive] {k:22s} {row.get(k, float('nan')):16.6f} "
-                f"{ref:12.6f}")
-        if list(row) != list(REFERENCE_ROW):
-            fail(f"eval_result.txt columns {list(row)} != "
-                 f"{list(REFERENCE_ROW)}")
+        for k, v in row.items():
+            log(f"[{tag}] {k:22s} {v:16.6f} "
+                + (f"{ref[k]:12.6f}" if k in ref else f"{'-':>12s}"))
         if not all(math.isfinite(v) for v in row.values()):
             fail(f"a metric is not finite: {row}")
-        if abs(row["traj_length_m"] - REFERENCE_ROW["traj_length_m"]) > \
-                TRAJ_TOL:
-            fail(f"traj_length_m {row['traj_length_m']} != "
-                 f"{REFERENCE_ROW['traj_length_m']} within {TRAJ_TOL}")
-        if row["completion_ratio_pct"] < MIN_RATIO_PCT:
-            fail(f"completion_ratio_pct {row['completion_ratio_pct']} < "
-                 f"{MIN_RATIO_PCT}")
-        if row["mad_cm"] > MAX_MAD_CM:
-            fail(f"mad_cm {row['mad_cm']} > {MAX_MAD_CM:.3f}")
+        if reference is not None:
+            if not set(reference) <= set(row):
+                fail(f"eval_result.txt columns {list(row)} lack "
+                     f"{sorted(set(reference) - set(row))}")
+            max_mad = reference["mad_cm"] + MAD_MARGIN_CM
+            if abs(row["traj_length_m"] - reference["traj_length_m"]) > \
+                    TRAJ_TOL:
+                fail(f"traj_length_m {row['traj_length_m']} != "
+                     f"{reference['traj_length_m']} within {TRAJ_TOL}")
+            if row["completion_ratio_pct"] < MIN_RATIO_PCT:
+                fail(f"completion_ratio_pct {row['completion_ratio_pct']} < "
+                     f"{MIN_RATIO_PCT}")
+            if row["mad_cm"] > max_mad:
+                fail(f"mad_cm {row['mad_cm']} > {max_mad:.3f}")
+        if check is not None:
+            check(eng, row)
     # every (kernel, shape) of the run against its plain version, after the
     # counts were read: these launches are not the path's
-    log(f"[passive] {len(recorder.seen)} distinct (kernel, shape) in run() "
+    log(f"[{tag}] {len(recorder.seen)} distinct (kernel, shape) in run() "
         f"and finalize(); each against its plain version on the inputs of "
         f"its first call:")
-    return counts, recorder.replay("passive")
+    return counts, recorder.replay(tag)
+
+
+def pose_errors(est, gt):
+    """Per pose: translation error (cm) and rotation error (degrees)."""
+    import numpy as np
+
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1) * 100
+    rel = np.einsum("nji,njk->nik", gt[:, :3, :3], est[:, :3, :3])
+    ang = np.degrees(np.arccos(np.clip(
+        (np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1.0, 1.0)))
+    return err, ang
+
+
+def tracking_reach(m) -> tuple:
+    """How far one tracking call can move a pose beyond its start: Adam
+    moves each coordinate by at most ~lr an iteration, so track_iter * lr
+    (* sqrt 3 over three coordinates): (cm, degrees)."""
+    return (100 * math.sqrt(3) * m.track_iter * m.lr_trans,
+            math.degrees(math.sqrt(3) * m.track_iter * m.lr_rot))
+
+
+def check_tracking():
+    """Phase 9's gates on the engine run's tracked trajectory: every pose
+    finite. The tracked poses against data/traj_ab/traj.txt's (the poses
+    the engine rendered from) are printed with the trajectory's largest
+    step beside what a tracking call can move: that trajectory, the NARUTO
+    planner's, turns 10 degrees in a step, beyond the reach of the schema's
+    10 iterations at lr 1e-3, in either package, so the tracking gates are
+    held on a path within that reach (track_path)."""
+    import numpy as np
+
+    def check(eng, row):
+        m = eng.cfg.mapper
+        n = eng.cfg.general.num_iter
+        est = eng.mapper.poses[:n].cpu().numpy().astype(np.float64)
+        gt = np.stack(eng.pose_loader.traj[:n]).astype(np.float64)
+        if not np.isfinite(est).all():
+            fail("a tracked pose is not finite")
+        err, ang = pose_errors(est, gt)
+        step_t, step_r = pose_errors(gt[1:], gt[:-1])
+        reach_t, reach_r = tracking_reach(m)
+        rmse = float(np.sqrt(np.mean(err ** 2)))
+        log(f"[settings] every one of {n} poses finite; tracked against "
+            f"data/traj_ab/traj.txt: translation RMSE {rmse:.3f} cm, worst "
+            f"{err.max():.3f} cm (frame {int(err.argmax())}), mean "
+            f"{err.mean():.3f} cm; rotation error mean {ang.mean():.4f} deg, "
+            f"worst {ang.max():.4f} deg; trajectory {row['traj_length_m']:.6f}"
+            f" m tracked. The trajectory's steps: up to {step_t.max():.3f} "
+            f"cm and {step_r.max():.3f} deg ({int((step_r > reach_r).sum())}"
+            f" of {n - 1} turn more than a tracking call's reach of "
+            f"{reach_r:.3f} deg, {reach_t:.3f} cm: {m.track_iter} "
+            f"iterations at lr {m.lr_rot}/{m.lr_trans}); first such step "
+            f"{int(np.argmax(step_r > reach_r)) + 1}, first frame off by "
+            f"> 10 cm {int(np.argmax(err > 10))}")
+    return check
+
+
+def track_path_pose(i: int, step_cm: float, step_deg: float):
+    """A path of constant speed: a yaw of step_deg and step_cm along +x a
+    step (phase 4's path, slowed to a tracking call's reach)."""
+    import numpy as np
+
+    a = math.radians(step_deg) * i
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = np.array([[math.cos(a), 0.0, math.sin(a)],
+                            [0.0, 1.0, 0.0],
+                            [-math.sin(a), 0.0, math.cos(a)]], np.float32)
+    c2w[:3, 3] = [0.01 * step_cm * i, 0.0, 0.0]
+    return c2w
+
+
+def track_path(torch, kernels) -> None:
+    """Phase 9's tracking gates: the mapper with phase 9's settings, frames
+    of the analytic office0 room rendered along track_path_pose at half a
+    tracking call's reach a step, TRACK_PATH_STEPS steps through
+    online_recon_step (tracking every frame from the constant-speed start,
+    BA with pose optimisation every map_every): the tracked translations
+    within MAX_TRACK_RMSE_CM (RMSE) and MAX_TRACK_ERR_CM (worst frame) of
+    the path's. A tracker that returned its start would be off by one step
+    a frame from frame 1 on (TRACK_PATH_STEPS half-reaches at the end)."""
+    import numpy as np
+
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.mapping.mapper import Mapper
+    from naruto_tpu_torch.sim.analytic import AnalyticSimulator
+
+    cfg = make_config("Replica", "office0", overrides=SETTINGS_OVER)
+    m = cfg.mapper
+    reach_cm, reach_deg = tracking_reach(m)
+    step_cm, step_deg = 0.5 * reach_cm / math.sqrt(3), \
+        0.5 * reach_deg / math.sqrt(3)
+    sim = AnalyticSimulator(cfg, device="cuda")
+    mapper = Mapper(cfg, device="cuda")
+    per_track = []
+    count_track_launches(kernels, mapper, per_track)
+    gt = [track_path_pose(i, step_cm, step_deg)
+          for i in range(TRACK_PATH_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, c2w in enumerate(gt):
+        sim.update_step(i)
+        mapper.update_step(i)
+        color, depth = sim.simulate(c2w)
+        mapper.online_recon_step(i, color, depth, c2w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_ba_launches(per_track, TRACK_LAUNCHES_PER_ITER, "tracking")
+    est = mapper.poses[:TRACK_PATH_STEPS].cpu().numpy().astype(np.float64)
+    if not np.isfinite(est).all():
+        fail("a tracked pose of the path is not finite")
+    err, ang = pose_errors(est, np.stack(gt).astype(np.float64))
+    rmse = float(np.sqrt(np.mean(err ** 2)))
+    log(f"[track path] {TRACK_PATH_STEPS} steps of {step_cm:.3f} cm and "
+        f"{step_deg:.4f} deg (half a tracking call's reach) through "
+        f"online_recon_step in {wall:.2f} s, frames {mapper.H}x{mapper.W}: "
+        f"translation RMSE {rmse:.3f} cm, worst {err.max():.3f} cm (frame "
+        f"{int(err.argmax())}); rotation error mean {ang.mean():.4f} deg, "
+        f"worst {ang.max():.4f} deg; a tracker that kept its start would be "
+        f"{step_cm * (TRACK_PATH_STEPS - 1):.2f} cm off at the end")
+    if rmse > MAX_TRACK_RMSE_CM:
+        fail(f"tracked translation RMSE {rmse:.3f} cm > {MAX_TRACK_RMSE_CM} "
+             f"cm on the path")
+    if err.max() > MAX_TRACK_ERR_CM:
+        fail(f"tracked translation error {err.max():.3f} cm > "
+             f"{MAX_TRACK_ERR_CM} cm at frame {int(err.argmax())} of the "
+             f"path")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1412,6 +1657,23 @@ def main() -> None:
     bench_launches = run_microbenchmarks(torch, kernels)
     passive, passive_cases = run_passive(torch, kernels, primitives, root)
     active, active_cases = run_active(torch, kernels, primitives, root)
+    import yaml
+
+    with open(os.path.join(root, PARITY_CFG)) as f:
+        parity_grid = yaml.safe_load(f)["grid"]
+    parity, parity_cases = run_passive(
+        torch, kernels, primitives, root, "parity",
+        over={"grid": parity_grid}, reference=PARITY_ROW,
+        want=PARITY_LAUNCHES_PER_ITER)
+    settings, settings_cases = run_passive(
+        torch, kernels, primitives, root, "settings", over=SETTINGS_OVER,
+        num_iter=SETTINGS_STEPS, reference=None,
+        want=SETTINGS_LAUNCHES_PER_ITER, check=check_tracking())
+    track_path(torch, kernels)
+    runs = (("passive", passive, passive_cases),
+            ("active", active, active_cases),
+            ("parity", parity, parity_cases),
+            ("settings", settings, settings_cases))
 
     def summary(case: dict) -> dict:
         return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",
@@ -1440,15 +1702,13 @@ def main() -> None:
                                  "rows": on_slice["outer_scan_rows"]},
         "launches_by_path": {
             path: counts["outer_scan_slots"] + counts["outer_scan_rows"]
-            for path, counts in (("slice", on_slice), ("passive", passive),
-                                 ("active", active))},
+            for path, counts, _ in (("slice", on_slice, None), *runs)},
         **summary(kres["slots"][0]), **hres["outer_scan_slots"],
         "epilogues": kres,
         **{f"{path}_shapes": {
             "slots": in_brief(cases["outer_scan_slots"]),
             "rows": in_brief(cases["outer_scan_rows"])}
-           for path, cases in (("passive", passive_cases),
-                               ("active", active_cases))},
+           for path, _, cases in runs},
         "host_by_epilogue": {"slots": hres["outer_scan_slots"],
                              "rows": hres["outer_scan_rows"]}}]
     for name in PRIM_KERNELS:
@@ -1463,11 +1723,11 @@ def main() -> None:
                          else bench_launches)[name],
             "launches_by_path": {"slice": on_slice[name],
                                  "microbenchmarks": bench_launches[name],
-                                 "passive": passive[name],
-                                 "active": active[name]},
+                                 **{path: counts[name]
+                                    for path, counts, _ in runs}},
             **summary(main_case), **hres[name], "cases": pres[name],
-            "passive_shapes": in_brief(passive_cases[name]),
-            "active_shapes": in_brief(active_cases[name])})
+            **{f"{path}_shapes": in_brief(cases[name])
+               for path, _, cases in runs}})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

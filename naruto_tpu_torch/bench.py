@@ -18,6 +18,11 @@ more than most changes move it, so the rows are timed in turns inside one
 process, `--windows` windows of `--steps` steps each, the order of the two
 alternating from window to window; each row reports its median and range.
 
+As in bench.py, the environment variable NARUTO_BENCH_CFG (a JSON dict of
+config overrides, e.g. '{"grid": {"layout": "vertex", ...}}' for the grid
+of configs/parity.yaml) times that configuration instead of the defaults,
+alone: the turbo row is not timed then.
+
 Prints one JSON line with bench.py's keys (`metric`, `value`, `unit`,
 `vs_baseline`, `extra`). `vs_baseline` is over the same estimate bench.py
 divides by: ~100 mapping iters/s for the reference on an RTX 3090 (see
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -115,18 +121,20 @@ class _Row:
 
 
 def measure(cfg, n_steps: int, windows: int, settle: int = 10,
-            device="cuda") -> Dict[str, Dict]:
-    """The parity row (`cfg`) and the turbo row, timed in turns: `windows`
-    windows of `n_steps` BA steps each. Returns {"parity": ..., "turbo":
-    ...} of `_Row.summary()` dicts, plus the process's peak device memory
-    (GiB, both rows' mappers resident) under "peak_memory_gib" on a card."""
+            device="cuda", turbo: bool = True) -> Dict[str, Dict]:
+    """The parity row (`cfg`) and, with `turbo`, the turbo row, timed in
+    turns: `windows` windows of `n_steps` BA steps each. Returns {"parity":
+    ..., "turbo": ...} of `_Row.summary()` dicts, plus the process's peak
+    device memory (GiB, every row's mapper resident) under
+    "peak_memory_gib" on a card."""
     from naruto_tpu_torch.config.schema import deep_update
 
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    rows = {"parity": _Row(cfg, device, settle),
-            "turbo": _Row(deep_update(cfg, TURBO), device, settle)}
+    rows = {"parity": _Row(cfg, device, settle)}
+    if turbo:
+        rows["turbo"] = _Row(deep_update(cfg, TURBO), device, settle)
     order = list(rows)
     for w in range(windows):
         for name in (order if w % 2 == 0 else order[::-1]):
@@ -140,9 +148,9 @@ def measure(cfg, n_steps: int, windows: int, settle: int = 10,
 
 def bench_result(res: Dict, device_name: str, card: str) -> Dict:
     """bench.py's JSON line from `measure`'s result."""
-    parity, turbo = dict(res["parity"]), res["turbo"]
+    parity, turbo = dict(res["parity"]), res.get("turbo")
     its = parity.pop("iters_per_sec")
-    return {
+    out = {
         "metric": "mapping_iters_per_sec",
         "value": round(its, 2),
         "unit": "iters/s",
@@ -151,16 +159,18 @@ def bench_result(res: Dict, device_name: str, card: str) -> Dict:
             **parity, "device": device_name,
             "card": card,
             "peak_memory_gib": res["peak_memory_gib"],
-            "turbo": {
-                "iters_per_sec": round(turbo["iters_per_sec"], 2),
-                "vs_baseline": round(
-                    turbo["iters_per_sec"] / BASELINE_ITERS_PER_SEC, 3),
-                "compile_s": turbo["compile_s"],
-                "iters_per_sec_range": turbo["iters_per_sec_range"],
-                "iters_per_sec_windows": turbo["iters_per_sec_windows"],
-            },
         },
     }
+    if turbo is not None:
+        out["extra"]["turbo"] = {
+            "iters_per_sec": round(turbo["iters_per_sec"], 2),
+            "vs_baseline": round(
+                turbo["iters_per_sec"] / BASELINE_ITERS_PER_SEC, 3),
+            "compile_s": turbo["compile_s"],
+            "iters_per_sec_range": turbo["iters_per_sec_range"],
+            "iters_per_sec_windows": turbo["iters_per_sec_windows"],
+        }
+    return out
 
 
 def main(argv=None) -> None:
@@ -178,13 +188,18 @@ def main(argv=None) -> None:
         raise SystemExit(1)
 
     from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.config.schema import deep_update
 
+    cfg = make_config("Replica", "office0")
+    env_over = os.environ.get("NARUTO_BENCH_CFG")
+    if env_over:
+        cfg = deep_update(cfg, json.loads(env_over))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    res = measure(make_config("Replica", "office0"), args.steps,
-                  args.windows, args.settle, "cuda")
+    res = measure(cfg, args.steps, args.windows, args.settle, "cuda",
+                  turbo=not env_over)
     print(json.dumps(bench_result(res, torch.cuda.get_device_name(0), card)))
 
 

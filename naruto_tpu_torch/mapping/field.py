@@ -10,6 +10,8 @@ Wiring: h = HashGrid(x01) [L*F]; p = OneBlob(x01) [3*bins];
 sdf MLP([h, p]) -> [sdf, geo(15)]; colour MLP([p, geo]) -> rgb;
 uncertainty = trilinear sample of the learnable grid (align_corners=False).
 Raw output channels [rgb(3), sdf, uncert]; SDF in truncation units.
+The query points carry gradients (to the poses they came from) only where
+``diff_positions`` is set, as in the JAX package: with tracking on.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ class FieldSpec:
     uncert_grid: bool = True
     pred_uncert: bool = False
     uncert_voxel_size: float = 0.1
+    diff_positions: bool = False           # gradients reach the points
 
     @functools.cached_property
     def hash_spec(self) -> HashGridSpec:
@@ -112,6 +115,11 @@ def normalize_world(pts: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     return (pts - bound[:, 0]) / (bound[:, 1] - bound[:, 0])
 
 
+def _points(spec: FieldSpec, *x01: torch.Tensor):
+    """The query points, cut from the graph unless spec.diff_positions."""
+    return x01 if spec.diff_positions else tuple(x.detach() for x in x01)
+
+
 def query_uncert(params: Params, x01: torch.Tensor) -> torch.Tensor:
     """Raw (pre-softplus) uncertainty from the learnable grid."""
     return trilinear_sample(params["uncert_grid"], x01, align_corners=False)
@@ -133,7 +141,7 @@ def _heads(params: Params, x01: torch.Tensor, h: torch.Tensor,
 def field_query(params: Params, x01: torch.Tensor,
                 spec: FieldSpec) -> torch.Tensor:
     """Full raw query -> [N, 5]: [rgb(3) pre-sigmoid, sdf, uncert]."""
-    x01 = x01.detach()
+    x01, = _points(spec, x01)
     h = hash_encode(params["table"], x01, spec.hash_spec)
     sdf, geo, uncert, p = _heads(params, x01, h, spec)
     rgb = mlp_apply(params["color_mlp"], torch.cat([p, geo], dim=-1))
@@ -144,7 +152,7 @@ def field_query_plus_embed(params: Params, x01: torch.Tensor,
                            x01_extra: torch.Tensor, spec: FieldSpec):
     """Raw query on x01 plus hash embeddings at x01_extra, sharing ONE hash
     encode (and so one backward segment sum) for both point sets."""
-    x01, x01_extra = x01.detach(), x01_extra.detach()
+    x01, x01_extra = _points(spec, x01, x01_extra)
     n = x01.shape[0]
     h_all = hash_encode(params["table"], torch.cat([x01, x01_extra]),
                         spec.hash_spec)
@@ -157,7 +165,7 @@ def field_query_plus_embed(params: Params, x01: torch.Tensor,
 def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
               with_uncert: bool = False):
     """SDF (and optionally raw uncertainty) at x01 [N, 3]."""
-    x01 = x01.detach()
+    x01, = _points(spec, x01)
     h = hash_encode(params["table"], x01, spec.hash_spec)
     sdf, _, uncert, _ = _heads(params, x01, h, spec)
     return (sdf, uncert) if with_uncert else sdf

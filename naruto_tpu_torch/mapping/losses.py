@@ -4,14 +4,15 @@ Every mean uses an explicit mask-aware denominator, so padded rays add
 exactly nothing: rgb (per-ray weight 1 or rgb_missing), depth (valid
 rays), free-space and sdf (front / truncation regions over all [N, S]
 samples, each scaled by 1 - n_region/n_both), uncertainty NLL and the
-smoothness TV^2 of hash embeddings on a jittered (smooth_pts-1)^3 lattice.
-The lattice's random offset and jitter are arguments (draws made by the
-caller). The Monte-Carlo smoothness variant (smooth_sample > 0) is not
-ported yet.
+smoothness TV^2 of hash embeddings on a jittered (smooth_pts-1)^3 lattice,
+or (smooth_sample > 0) its unbiased Monte-Carlo estimate from
+smooth_sample random neighbour pairs along each axis. The lattice's random
+offset and jitter and the pairs' lattice coordinates are arguments (draws
+made by the caller).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -87,12 +88,16 @@ def uncert_loss(rend: Dict, target_d, valid_mask, lw: LossWeights):
 
 
 def smoothness_points(spec: FieldSpec, lw: LossWeights,
-                      offset_u: torch.Tensor, jitter: torch.Tensor):
-    """Normalized points of the smoothness lattice: the full random
-    (smooth_pts-1)^3 sub-grid. offset_u [3] and jitter [3] are U[0, 1)
-    draws. Returns (x01 [n^3, 3], n)."""
-    if lw.smooth_sample:
-        raise NotImplementedError("smooth_sample > 0 is not ported yet")
+                      offset_u: torch.Tensor, jitter: torch.Tensor,
+                      base: Optional[torch.Tensor] = None,
+                      diffc: Optional[torch.Tensor] = None):
+    """Normalized points of the smoothness lattice. offset_u [3] and jitter
+    [3] are U[0, 1) draws. smooth_sample == 0: the full random
+    (smooth_pts-1)^3 sub-grid. smooth_sample = S > 0: for each axis, S pair
+    bases and their +1 neighbours along it (6S points); base [3, S, 3]
+    holds lattice coordinates uniform in [0, n-1] and diffc [3, S, 1] the
+    differenced coordinate uniform in [0, n-2] (integers), so only that
+    coordinate is kept off the last slice. Returns (x01, n)."""
     n = lw.smooth_pts - 1
     dev = offset_u.device
     bound = device_const(spec.bound, torch.float32, dev)
@@ -101,16 +106,34 @@ def smoothness_points(spec: FieldSpec, lw: LossWeights,
     offset_max = torch.clamp(extent - grid_size - 2 * lw.smooth_margin,
                              min=0.0)
     offset = offset_u * offset_max + lw.smooth_margin
-    ax = torch.arange(n, dtype=torch.float32, device=dev)
-    coords = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1)
-    pts = (coords + jitter.reshape(1, 1, 1, 3)) * lw.smooth_vox \
-        + bound[:, 0] + offset
-    return ((pts - bound[:, 0]) / extent).reshape(-1, 3), n
+    if lw.smooth_sample:
+        if base is None or diffc is None:
+            raise ValueError("smooth_sample > 0 needs the pairs' base "
+                             "[3, S, 3] and diffc [3, S, 1]")
+        eye = torch.eye(3, device=dev)
+        base = torch.where(eye[:, None, :] > 0.5, diffc.float(), base.float())
+        coords = torch.cat([torch.cat([base[a], base[a] + eye[a]])
+                            for a in range(3)])                   # [6S, 3]
+    else:
+        ax = torch.arange(n, dtype=torch.float32, device=dev)
+        coords = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"),
+                             dim=-1).reshape(-1, 3)
+    pts = (coords + jitter.reshape(1, 3)) * lw.smooth_vox + bound[:, 0] \
+        + offset
+    return (pts - bound[:, 0]) / extent, n
 
 
 def smoothness_tv(embed: torch.Tensor, n: int, lw: LossWeights):
     """Sum of squared axis differences of the lattice embeddings divided by
-    smooth_pts^3."""
+    smooth_pts^3; with smooth_sample, each axis's mean over its sampled
+    pairs times that axis's (n-1)*n*n pairs."""
+    if lw.smooth_sample:
+        s = lw.smooth_sample
+        parts = embed.reshape(3, 2, s, -1)        # axis, (base, +1), pair
+        tv = torch.sum(torch.mean(torch.sum(
+            torch.square(parts[:, 1] - parts[:, 0]), dim=-1), dim=-1)) \
+            * ((n - 1) * n * n)
+        return tv / (lw.smooth_pts ** 3)
     emb = embed.reshape(n, n, n, -1)
     tv = (torch.sum(torch.square(emb[1:] - emb[:-1]))
           + torch.sum(torch.square(emb[:, 1:] - emb[:, :-1]))

@@ -1,6 +1,6 @@
-"""The neural mapper: first-frame mapping, global bundle adjustment (BA) and
-the dense SDF/uncertainty volumes (counterpart of
-naruto_tpu/mapping/mapper.py, with tracking off).
+"""The neural mapper: first-frame mapping, tracking, global bundle
+adjustment (BA) and the dense SDF/uncertainty volumes (counterpart of
+naruto_tpu/mapping/mapper.py).
 
   * first-frame mapping: ``first_iters`` iterations of (sample pixels ->
     render -> loss -> Adam) on frame 0; the uncertainty grid's gradients
@@ -10,14 +10,22 @@ naruto_tpu/mapping/mapper.py, with tracking off).
     uncertainty selection, render, losses, backward, Adam on the hash table
     (eps 1e-15) and the decoders (coupled weight decay 1e-6), and every
     ``uncert_accum_iters`` iterations on the uncertainty grid with the
-    accumulated gradients}.
+    accumulated gradients}. With tracking on, the keyframe poses (but the
+    first) and the current pose are optimised too, as axis-angle and
+    translation with their own Adam (betas (0.9, 0.99), eps 1e-8),
+    stepped every ``pose_accum_step`` iterations on the accumulated
+    gradients, and written back after the step.
+  * tracking (``mapper.tracking_enable``): from the constant-speed
+    initialisation, ``track_iter`` Adam steps on the current pose alone
+    against the frozen field, on ``track_sample`` pixels away from the
+    border; the lowest-loss iterate is kept (``track_best``).
   * volumes: the field's SDF and uncertainty on the planner's voxel grid,
     uncertainty zeroed off-surface.
 
 The JAX ``lax.scan`` is a Python loop and its ``lax.cond``s are Python
 ``if``s on the host-side iteration number. Every random draw is an
-argument: ``BADraws`` / ``FirstFrameDraws`` per iteration and one U[0, 1)
-score per pixel for a keyframe insertion; in a run they come from one
+argument: ``BADraws`` / ``FirstFrameDraws`` / ``TrackDraws`` per iteration
+and one U[0, 1) score per pixel for a keyframe insertion; in a run they come from one
 ``torch.Generator`` per draw site (utils/seeding.py), in the tests from
 replayed JAX key splits. The current-frame ray block is padded to one of
 ``CUR_BUCKETS`` and masked, as in the JAX package.
@@ -28,8 +36,8 @@ npz format) are as in the JAX package. With a ``Timer`` the online step
 times its stages as [Mapper] sections; like the JAX package's, a section
 around device work ends when the work is enqueued.
 
-Not ported yet: tracking and pose optimisation, the sharded BA, the lazy
-volume read-back (``LazyVolumes``) and full-state resume.
+Not ported yet: the sharded BA, the lazy volume read-back
+(``LazyVolumes``) and full-state resume.
 """
 from __future__ import annotations
 
@@ -49,6 +57,9 @@ from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
                                                 sample_global_rays)
 from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
                                              total_loss)
+from naruto_tpu_torch.mapping.pose_opt import (const_speed_init,
+                                               matrix_from_tensor,
+                                               pose_to_tensor)
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.ops.encoding import table_leaves
 from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
@@ -61,11 +72,15 @@ from naruto_tpu_torch.utils.timer import Timer
 CUR_BUCKETS = (512, 2048, 8192)
 
 EMBED_B1, EMBED_B2, EMBED_EPS = 0.9, 0.99, 1e-15
+# the pose Adam (optax.adam's defaults but b2): rotation and translation
+# groups with their own learning rates
+POSE_BETAS, POSE_EPS = (0.9, 0.99), 1e-8
 
 
 class FirstFrameDraws(NamedTuple):
     idx: torch.Tensor           # [sample] pixel indices in [0, H*W)
     z_noise: torch.Tensor       # [sample, S] U[0, 1)
+    importance_u: Optional[torch.Tensor] = None   # [sample, n_importance]
 
 
 class BADraws(NamedTuple):
@@ -74,6 +89,84 @@ class BADraws(NamedTuple):
     z_noise: torch.Tensor       # [n_rays, S] U[0, 1)
     smooth_offset: torch.Tensor  # [3] U[0, 1) lattice offset
     smooth_jitter: torch.Tensor  # [3] U[0, 1) lattice jitter
+    importance_u: Optional[torch.Tensor] = None   # [n_rays, n_importance]
+    smooth_base: Optional[torch.Tensor] = None    # [3, S, 3] pair bases
+    smooth_diffc: Optional[torch.Tensor] = None   # [3, S, 1] their axis
+
+
+class TrackDraws(NamedTuple):
+    us: torch.Tensor            # [track_sample] pixel columns
+    vs: torch.Tensor            # [track_sample] pixel rows
+    z_noise: torch.Tensor       # [track_sample, S] U[0, 1)
+    importance_u: Optional[torch.Tensor] = None   # [track_sample, n_imp]
+
+
+def _pose_adam(rot: List[torch.Tensor], trans: List[torch.Tensor],
+               lr_rot: float, lr_trans: float) -> torch.optim.Adam:
+    return torch.optim.Adam([{"params": rot, "lr": lr_rot},
+                             {"params": trans, "lr": lr_trans}],
+                            betas=POSE_BETAS, eps=POSE_EPS)
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().clone().requires_grad_(True)
+
+
+class BAPoses:
+    """The pose variables of one BA step with pose optimisation: every
+    keyframe slot's axis-angle and translation (slot 0 and the empty slots
+    masked: they keep their poses) and the current frame's, their Adam,
+    and the gradients accumulated since its last step."""
+
+    def __init__(self, poses: torch.Tensor, c2w: torch.Tensor, num_kf: int,
+                 kf_count: int, m):
+        dev = poses.device
+        self.ids = torch.arange(num_kf, device=dev) * m.keyframe_every
+        # slots past the pose table read its last row, as JAX's clamped
+        # gather does; they are masked and never written back
+        self.fixed = poses[torch.clamp(self.ids, max=poses.shape[0] - 1)]
+        slot = torch.arange(num_kf, device=dev)
+        self.slot_mask = ((slot > 0) & (slot < kf_count)).to(
+            torch.float32)[:, None]
+        self.c2w, self.optim_cur = c2w, m.optim_cur
+        self.rot, self.trans = map(_leaf, pose_to_tensor(self.fixed))
+        self.rot_c, self.trans_c = map(_leaf, pose_to_tensor(c2w))
+        self.leaves = [self.rot, self.trans, self.rot_c, self.trans_c]
+        self.opt = _pose_adam([self.rot, self.rot_c],
+                              [self.trans, self.trans_c], m.lr_rot,
+                              m.lr_trans)
+        self.accum = [torch.zeros_like(t) for t in self.leaves]
+
+    def kf_matrices(self) -> torch.Tensor:
+        mats = matrix_from_tensor(self.rot, self.trans)
+        return torch.where(self.slot_mask[..., None] > 0, mats, self.fixed)
+
+    def cur_matrix(self) -> torch.Tensor:
+        if self.optim_cur:
+            return matrix_from_tensor(self.rot_c[None], self.trans_c[None])[0]
+        return self.c2w
+
+    @torch.no_grad()
+    def accumulate(self, grads: Sequence[torch.Tensor]) -> None:
+        for a, g, mask in zip(self.accum, grads,
+                              (self.slot_mask, self.slot_mask, 1.0, 1.0)):
+            a += g * mask
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p, a in zip(self.leaves, self.accum):
+            p.grad = a.clone()
+            a.zero_()
+        self.opt.step()
+        for p in self.leaves:
+            p.grad = None
+
+    @torch.no_grad()
+    def write_back(self, poses: torch.Tensor, frame_id: int) -> None:
+        keep = self.ids < poses.shape[0]
+        poses[self.ids[keep]] = self.kf_matrices()[keep]
+        if self.optim_cur:
+            poses[frame_id] = self.cur_matrix()
 
 
 class BASetup(NamedTuple):
@@ -84,6 +177,7 @@ class BASetup(NamedTuple):
     valid_order: torch.Tensor   # valid current pixels first (stable)
     n_valid: int
     num_cur: int
+    pose: Optional[BAPoses] = None   # with tracking on
 
 
 class EmbedAdam:
@@ -130,6 +224,7 @@ def field_spec_from_config(cfg: MainConfig) -> FieldSpec:
         uncert_grid=cfg.decoder.uncert_grid,
         pred_uncert=cfg.decoder.pred_uncert,
         uncert_voxel_size=m.voxel_size,
+        diff_positions=m.tracking_enable,
     )
 
 
@@ -139,6 +234,16 @@ def _param_groups(params) -> Dict[str, List[torch.Tensor]]:
             "decoder": [*params["sdf_mlp"], *params["color_mlp"]],
             "uncert": ([params["uncert_grid"]] if "uncert_grid" in params
                        else [])}
+
+
+def _detached(tree):
+    """The params tree with every tensor cut from the graph (a frozen field:
+    no gradient reaches, or is computed for, its tensors)."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detached(v) for v in tree]
+    return tree.detach()
 
 
 def _transform_rays(rays: torch.Tensor, poses: torch.Tensor):
@@ -167,8 +272,6 @@ class Mapper:
         # where save_mesh writes (the engine sets the run's directory)
         self.result_dir: Optional[str] = None
         m, t, c = cfg.mapper, cfg.training, cfg.cam
-        if m.tracking_enable:
-            raise NotImplementedError("tracking is not ported yet")
         self.track_enabled = m.tracking_enable
         dev = self.device
 
@@ -265,30 +368,42 @@ class Mapper:
 
     # ------------------------------------------------------- loss + update
     def _loss_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
-                 z_noise, smooth=None, smooth_scale: float = 1.0):
-        """smooth: (offset_u, jitter) lattice draws, or None for no
-        smoothness term this iteration."""
+                 z_noise, smooth=None, smooth_scale: float = 1.0,
+                 importance_u=None, params=None):
+        """smooth: (offset_u, jitter, base, diffc) lattice draws (the last
+        two None unless smooth_sample), or None for no smoothness term this
+        iteration. params: the field (this mapper's by default)."""
         lw = (self.lw._replace(smooth=self.lw.smooth * smooth_scale)
               if smooth_scale != 1.0 else self.lw)
         with_smooth = smooth is not None
         extra = None
         if with_smooth and lw.smooth > 0:
             extra, _ = smoothness_points(self.spec, lw, *smooth)
-        rend = render_rays(self.params, self.spec, self.rc, rays_o, rays_d,
-                           target_d, z_noise, extra_pts01=extra)
+        rend = render_rays(self.params if params is None else params,
+                           self.spec, self.rc, rays_o, rays_d, target_d,
+                           z_noise, extra_pts01=extra,
+                           importance_u=importance_u)
         return total_loss(rend, target_rgb, target_d, ray_mask, lw,
                           with_smooth=with_smooth)
 
     def _grad_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
-                 z_noise, smooth=None, smooth_scale: float = 1.0):
-        """-> (aux, grads by group {"table", "decoder", "uncert"})."""
+                 z_noise, smooth=None, smooth_scale: float = 1.0,
+                 importance_u=None, pose_leaves: Sequence = ()):
+        """-> (aux, grads by group {"table", "decoder", "uncert"}, and
+        "pose" for `pose_leaves` when there are any: zeros where the loss
+        does not reach one))."""
         loss, aux = self._loss_fn(rays_o, rays_d, target_rgb, target_d,
-                                  ray_mask, z_noise, smooth, smooth_scale)
-        flat = torch.autograd.grad(loss, self._all_params())
+                                  ray_mask, z_noise, smooth, smooth_scale,
+                                  importance_u)
+        wrt = self._all_params() + list(pose_leaves)
+        flat = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            wrt, torch.autograd.grad(loss, wrt, allow_unused=True))]
         grads, i = {}, 0
         for k, g in self._groups.items():
             grads[k] = list(flat[i:i + len(g)])
             i += len(g)
+        if pose_leaves:
+            grads["pose"] = flat[i:]
         return {k: v.detach() for k, v in aux.items()}, grads
 
     @torch.no_grad()
@@ -316,13 +431,23 @@ class Mapper:
         self.uncert_accum = torch.zeros_like(grid)
 
     # -------------------------------------------------- first-frame mapping
+    def _draw_importance(self, n: int) -> Optional[torch.Tensor]:
+        """The importance draws of n rays, or None where the renderer takes
+        none (no importance samples, or evenly spaced ones)."""
+        rc = self.rc
+        if rc.n_importance <= 0 or rc.perturb == 0.0:
+            return None
+        return torch.rand((n, rc.n_importance), device=self.device,
+                          generator=self.gens["importance_u"])
+
     def _draw_first_frame(self) -> FirstFrameDraws:
         n, dev = self.cfg.mapper.sample, self.device
         return FirstFrameDraws(
             idx=torch.randint(0, self.H * self.W, (n,), device=dev,
                               generator=self.gens["first_frame_rays"]),
             z_noise=torch.rand((n, self.rc.n_samples), device=dev,
-                               generator=self.gens["z_noise"]))
+                               generator=self.gens["z_noise"]),
+            importance_u=self._draw_importance(n))
 
     def _first_frame_impl(self, frame_rays, c2w,
                           draws: Iterable[FirstFrameDraws]) -> List[Dict]:
@@ -335,7 +460,7 @@ class Mapper:
             rays_o, rays_d, rgb, dep = _transform_rays(frame_rays[d.idx],
                                                        pose)
             aux, grads = self._grad_fn(rays_o, rays_d, rgb, dep, mask,
-                                       d.z_noise)
+                                       d.z_noise, importance_u=d.importance_u)
             self._apply_map_update(grads)
             self._accum_uncert(grads)
             auxes.append(aux)
@@ -361,8 +486,10 @@ class Mapper:
         valid_order = torch.argsort((~valid).to(torch.uint8), stable=True)
         num_cur = min(max(self._n_os() // max(self.kf.count, 1),
                           self._min_cur()), cur_cap)
+        pose = (BAPoses(self.poses, c2w, self.num_kf, self.kf.count,
+                        self.cfg.mapper) if self.track_enabled else None)
         return BASetup(cur_cap, frame_rays, c2w, valid_order, n_valid,
-                       min(max(num_cur, 0), n_valid))
+                       min(max(num_cur, 0), n_valid), pose)
 
     def _ba_n_rays(self, cur_cap: int) -> int:
         m = self.cfg.mapper
@@ -373,30 +500,45 @@ class Mapper:
     def _draw_ba(self, setup: BASetup) -> BADraws:
         dev, g = self.device, self.gens
         total = max(self.kf.count * self.kf.rays_per_slot, 1)
+        n_rays = self._ba_n_rays(setup.cur_cap)
+        s, n = self.lw.smooth_sample, self.lw.smooth_pts - 1
+        pairs = {}
+        if s:
+            pairs = dict(
+                smooth_base=torch.randint(0, n, (3, s, 3), device=dev,
+                                          generator=g["smooth_pairs"]),
+                smooth_diffc=torch.randint(0, n - 1, (3, s, 1), device=dev,
+                                           generator=g["smooth_pairs"]))
         return BADraws(
             g_idx=torch.randint(0, total, (self._n_os(),), device=dev,
                                 generator=g["global_rays"]),
             cur_j=torch.randint(0, setup.n_valid, (setup.cur_cap,),
                                 device=dev, generator=g["current_rays"]),
-            z_noise=torch.rand((self._ba_n_rays(setup.cur_cap),
-                                self.rc.n_samples), device=dev,
+            z_noise=torch.rand((n_rays, self.rc.n_samples), device=dev,
                                generator=g["z_noise"]),
             smooth_offset=torch.rand((3,), device=dev,
                                      generator=g["smoothness"]),
             smooth_jitter=torch.rand((3,), device=dev,
-                                     generator=g["smoothness"]))
+                                     generator=g["smoothness"]),
+            importance_u=self._draw_importance(n_rays), **pairs)
 
-    @torch.no_grad()
     def _ba_batch(self, setup: BASetup, draws: BADraws):
         """The iteration's rays (rays_o, rays_d, rgb, depth, mask): keyframe
-        rays plus current rays, then the active-ray selection."""
+        rays plus current rays, then the active-ray selection. With pose
+        optimisation the rays are differentiable in the pose variables (the
+        selection itself is discrete)."""
         m = self.cfg.mapper
         cur_cap, num_cur = setup.cur_cap, setup.num_cur
         dev = self.device
         g_rays, g_slots = sample_global_rays(self.kf, draws.g_idx)
         c_rays = setup.frame_rays[setup.valid_order[draws.cur_j]]
-        g = _transform_rays(g_rays, self.poses[g_slots * m.keyframe_every])
-        c = _transform_rays(c_rays, setup.c2w.expand(cur_cap, 4, 4))
+        if setup.pose is None:
+            g_poses, c_pose = self.poses[g_slots * m.keyframe_every], setup.c2w
+        else:
+            g_poses = setup.pose.kf_matrices()[g_slots]
+            c_pose = setup.pose.cur_matrix()
+        g = _transform_rays(g_rays, g_poses)
+        c = _transform_rays(c_rays, c_pose.expand(cur_cap, 4, 4))
         if not m.active_ray:
             mask = torch.cat([torch.ones((self._n_os(),), device=dev),
                               (torch.arange(cur_cap, device=dev)
@@ -414,7 +556,7 @@ class Mapper:
         cand_valid = torch.cat([
             torch.ones((self._n_os() - base,), dtype=torch.bool, device=dev),
             torch.arange(cand_cap, device=dev) < num_cur - num_keep])
-        pts = cand_o + cand_d * cand_dep
+        pts = (cand_o + cand_d * cand_dep).detach()
         vi = torch.round((pts - self._bound_lo) * (1.0 / m.voxel_size)).long()
         vi = torch.minimum(torch.clamp(vi, min=0), self._vol_max)
         u = self.uncert_vol[vi[:, 0], vi[:, 1], vi[:, 2]]
@@ -437,32 +579,90 @@ class Mapper:
         Returns (aux, grads)."""
         m = self.cfg.mapper
         batch = self._ba_batch(setup, draws)
-        smooth = (draws.smooth_offset, draws.smooth_jitter)
+        smooth = (draws.smooth_offset, draws.smooth_jitter,
+                  draws.smooth_base, draws.smooth_diffc)
         smooth_every = max(int(self.cfg.training.smooth_every), 1)
-        if smooth_every == 1:
-            aux, grads = self._grad_fn(*batch, draws.z_noise, smooth)
-        elif it % smooth_every == 0:
-            # the fired iterations carry the whole call's smoothness weight
-            n_fired = -(-m.iters // smooth_every)
-            aux, grads = self._grad_fn(*batch, draws.z_noise, smooth,
-                                       m.iters / n_fired)
-        else:
-            aux, grads = self._grad_fn(*batch, draws.z_noise)
+        scale = 1.0
+        # with pose optimisation, as in the JAX package, the smoothness
+        # term rides every iteration
+        if setup.pose is None and smooth_every > 1:
+            if it % smooth_every == 0:
+                # the fired iterations carry the whole call's smoothness
+                # weight
+                scale = m.iters / -(-m.iters // smooth_every)
+            else:
+                smooth = None
+        aux, grads = self._grad_fn(
+            *batch, draws.z_noise, smooth, scale,
+            importance_u=draws.importance_u,
+            pose_leaves=setup.pose.leaves if setup.pose else ())
         self._apply_map_update(grads)
         self._accum_uncert(grads)
         if self.spec.uncert_grid and (it + 1) % m.uncert_accum_iters == 0:
             self._apply_uncert_update()
+        if setup.pose is not None:
+            setup.pose.accumulate(grads["pose"])
+            if (it + 1) % m.pose_accum_step == 0:
+                setup.pose.step()
         return aux, grads
 
     def _ba_impl(self, cur_cap: int, frame_rays, c2w, frame_id: int,
                  draws: Optional[Sequence[BADraws]] = None) -> List[Dict]:
-        """One global-BA mapping step; returns each iteration's losses."""
+        """One global-BA mapping step; returns each iteration's losses.
+        With pose optimisation the optimised poses are written back."""
         setup = self._ba_setup(cur_cap, frame_rays, c2w, frame_id)
         auxes = []
         for it in range(self.cfg.mapper.iters):
             d = draws[it] if draws is not None else self._draw_ba(setup)
             auxes.append(self._ba_iteration(setup, d, it)[0])
+        if setup.pose is not None:
+            setup.pose.write_back(self.poses, frame_id)
         return auxes
+
+    # ------------------------------------------------------------ tracking
+    def _draw_track(self) -> TrackDraws:
+        m, dev, g = self.cfg.mapper, self.device, self.gens
+        n = m.track_sample
+        iw, ih = m.track_ignore_edge_w, m.track_ignore_edge_h
+        return TrackDraws(
+            us=torch.randint(iw, self.W - iw, (n,), device=dev,
+                             generator=g["track_rays"]),
+            vs=torch.randint(ih, self.H - ih, (n,), device=dev,
+                             generator=g["track_rays"]),
+            z_noise=torch.rand((n, self.rc.n_samples), device=dev,
+                               generator=g["z_noise"]),
+            importance_u=self._draw_importance(n))
+
+    def _tracking_impl(self, frame_rays, init_c2w,
+                       draws: Iterable[TrackDraws]) -> torch.Tensor:
+        """Camera tracking: pose-only Adam steps against the frozen field
+        from init_c2w, one per draw; returns the estimated c2w (the
+        lowest-loss iterate with track_best, else the last)."""
+        m = self.cfg.mapper
+        params = _detached(self.params)
+        rot, trans = map(_leaf, pose_to_tensor(init_c2w))
+        opt = _pose_adam([rot], [trans], m.lr_rot, m.lr_trans)
+        best_loss = torch.tensor(float("inf"), device=self.device)
+        best_rot, best_trans = rot.detach().clone(), trans.detach().clone()
+        mask = torch.ones((m.track_sample,), device=self.device)
+        for d in draws:
+            rays = frame_rays[d.vs * self.W + d.us]
+            pose = matrix_from_tensor(rot[None], trans[None])
+            rays_o, rays_d, rgb, dep = _transform_rays(
+                rays, pose.expand(m.track_sample, 4, 4))
+            loss, _ = self._loss_fn(rays_o, rays_d, rgb, dep, mask,
+                                    d.z_noise, importance_u=d.importance_u,
+                                    params=params)
+            rot.grad, trans.grad = torch.autograd.grad(loss, (rot, trans))
+            with torch.no_grad():
+                better = loss < best_loss
+                best_rot = torch.where(better, rot, best_rot)
+                best_trans = torch.where(better, trans, best_trans)
+                best_loss = torch.minimum(best_loss, loss)
+            opt.step()
+        if m.track_best:
+            rot, trans = best_rot, best_trans
+        return matrix_from_tensor(rot.detach()[None], trans.detach()[None])[0]
 
     def _pick_bucket(self, kf_count: int) -> int:
         need = max(self._n_os() // max(kf_count, 1), self._min_cur())
@@ -567,6 +767,15 @@ class Mapper:
                     (self._draw_first_frame() for _ in range(m.first_iters)))
             self.add_keyframe(frame_rays, 0)
             return self.map_volumes()
+        if self.track_enabled:
+            # pose-only optimisation from the constant-speed model
+            prev, prev2 = self.poses[i - 1], self.poses[max(i - 2, 0)]
+            init = (const_speed_init(prev, prev2)
+                    if m.track_const_speed and i >= 2 else prev)
+            with self._t("tracking"):
+                c2w = self._tracking_impl(
+                    frame_rays, init,
+                    (self._draw_track() for _ in range(m.track_iter)))
         self.poses[i] = c2w
         if i % m.map_every == 0:
             bucket = self._pick_bucket(self.kf.count)

@@ -1,19 +1,23 @@
-"""Multi-resolution hash-grid encoding, cell and hybrid layouts
+"""Multi-resolution hash-grid encoding, vertex, cell and hybrid layouts
 (counterpart of naruto_tpu/ops/encoding.py).
 
-The table is a plain tensor [total_entries, 8F] in the "cell" layout (one
-row per grid cell holding its 8 corner features) or, in the "hybrid" layout,
-a dict {"hash": [hashed rows, 8F], "dense": [per dense level, a z-major
-(R+1, R+1, R+1, F) vertex grid]} whose dense levels' cell rows are derived
-from the vertex grids on every evaluation.
+The table is a plain tensor [total_entries, F] in the "vertex" layout (one
+row per grid vertex: tcnn's layout, configs/parity.yaml), [total_entries,
+8F] in the "cell" layout (one row per grid cell holding its 8 corner
+features) or, in the "hybrid" layout, a dict {"hash": [hashed rows, 8F],
+"dense": [per dense level, a z-major (R+1, R+1, R+1, F) vertex grid]} whose
+dense levels' cell rows are derived from the vertex grids on every
+evaluation.
 
-``hash_encode`` is a ``torch.autograd.Function``: the forward gathers one
-wide row per (point, level) (the ``gather_rows`` kernel of
-``ops/primitives.py`` on the card) and blends its 8 corners; the backward is the
-sort + prefix-scan segment sum of ``ops/segment.py`` (the hand-written
-kernels of ``ops/kernels.py``), never a scatter. Position gradients
-(needed only when poses are optimised) and the vertex layout are not
-ported yet.
+``hash_encode`` is a ``torch.autograd.Function``: the forward gathers the
+rows of every (point, level) (the ``gather_rows`` kernel of
+``ops/primitives.py`` on the card: one wide row per cell, or eight narrow
+vertex rows) and blends the 8 corners; the table's gradient is a sort-based
+segment sum of ``ops/segment.py`` (the hand-written kernels of
+``ops/kernels.py`` and ``ops/primitives.py``), never a scatter. The
+gradient with respect to the points (the pose's, when poses are optimised)
+is the product rule over the corner weights, on the features gathered
+again; each of the two runs only where an input asks for it.
 """
 from __future__ import annotations
 
@@ -47,9 +51,9 @@ class HashGridSpec:
     base_resolution: int = 16
     finest_resolution: int = 256
     gather_dtype: str = "float32"      # dtype of the rows the forward gathers
-    layout: str = "vertex"             # "cell" | "hybrid" ("vertex" not ported)
+    layout: str = "vertex"             # "vertex" | "cell" | "hybrid"
     hybrid_dense_slack: float = 1.25
-    sort_carry: str = "frac"
+    sort_carry: str = "frac"           # cell rows' backward: "frac" | "weights"
 
     @property
     def table_size(self) -> int:
@@ -123,21 +127,9 @@ class HashGridSpec:
         return cls(finest_resolution=max(int(max_side / voxel_sdf), 16), **kw)
 
 
-def _check_ported(spec: HashGridSpec) -> None:
-    if not spec.cell_rows:
-        raise NotImplementedError(
-            f"hash-grid layout {spec.layout!r} is not ported; use 'hybrid' "
-            f"or 'cell'")
-    if spec.sort_carry != "frac":
-        raise NotImplementedError(
-            f"sort_carry {spec.sort_carry!r} is not ported; use 'frac'")
-
-
 def init_hash_table(spec: HashGridSpec, generator: torch.Generator,
                     device="cpu"):
     """tcnn-style init, uniform in [-1e-4, 1e-4], in the layout's structure."""
-    _check_ported(spec)
-
     def uniform(*shape):
         u = torch.rand(shape, generator=generator, device=device)
         return u * 2e-4 - 1e-4
@@ -241,21 +233,45 @@ def _corner_weights(frac: torch.Tensor) -> torch.Tensor:
     return t[..., 0] * t[..., 1] * t[..., 2]
 
 
+def _level_slots(cx, cy, cz, stride: torch.Tensor,
+                 spec: HashGridSpec) -> torch.Tensor:
+    """Flat table rows of integer grid coordinates (int64, levels on dim 1):
+    dense levels index x + y*stride + z*stride^2, hashed levels take the
+    instant-ngp hash, in int64 with 32-bit wrap-around; plus each level's
+    offset. `stride` broadcasts against the coordinates."""
+    dev = cx.device
+    shape = (1, spec.n_levels) + (1,) * (cx.dim() - 2)
+    dense_idx = cx + cy * stride + cz * stride * stride
+    h = ((cx * _PRIMES[0]) & _U32) ^ ((cy * _PRIMES[1]) & _U32) \
+        ^ ((cz * _PRIMES[2]) & _U32)
+    hash_idx = h & (spec.table_size - 1)
+    dense = device_const(spec.dense_mask, torch.bool, dev).reshape(shape)
+    offsets = device_const(spec.level_offsets[:-1], torch.int64,
+                           dev).reshape(shape)
+    return torch.where(dense, dense_idx, hash_idx) + offsets
+
+
 def _cell_indices(x: torch.Tensor, spec: HashGridSpec):
-    """Flat table row per (point, level) -> (idx [N, L] int64,
-    w [N, L, 8] f32). Hashing runs in int64 with 32-bit wrap-around."""
+    """Cell rows: flat table row per (point, level) -> (idx [N, L] int64,
+    w [N, L, 8] f32)."""
+    i0, frac = _cell_pos(x, spec)
+    s = device_const(spec.resolutions, torch.int64, x.device)[None, :]
+    idx = _level_slots(i0[..., 0], i0[..., 1], i0[..., 2], s, spec)
+    return idx, _corner_weights(frac)
+
+
+def _corner_indices(x: torch.Tensor, spec: HashGridSpec):
+    """Vertex rows: the 8 corner vertices of every (point, level) ->
+    (idx [N, L*8] int64 in corner order, w [N, L, 8] f32). Dense levels
+    index x + y(R+1) + z(R+1)^2."""
+    n = x.shape[0]
     i0, frac = _cell_pos(x, spec)
     dev = x.device
-    s = device_const(spec.resolutions, torch.int64, dev)[None, :]
-    dense_idx = i0[..., 0] + i0[..., 1] * s + i0[..., 2] * s * s
-    h = ((i0[..., 0] * _PRIMES[0]) & _U32) \
-        ^ ((i0[..., 1] * _PRIMES[1]) & _U32) \
-        ^ ((i0[..., 2] * _PRIMES[2]) & _U32)
-    hash_idx = h & (spec.table_size - 1)
-    dense = device_const(spec.dense_mask, torch.bool, dev)[None, :]
-    offsets = device_const(spec.level_offsets[:-1], torch.int64, dev)[None, :]
-    idx = torch.where(dense, dense_idx, hash_idx) + offsets
-    return idx, _corner_weights(frac)
+    corners = device_const(_CORNERS, torch.int64, dev)               # [8, 3]
+    cx, cy, cz = (i0[..., a, None] + corners[:, a] for a in range(3))
+    s = device_const(spec.resolutions, torch.int64, dev)[None, :, None] + 1
+    idx = _level_slots(cx, cy, cz, s, spec)                       # [N, L, 8]
+    return idx.reshape(n, spec.n_levels * 8), _corner_weights(frac)
 
 
 def _blend(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -276,8 +292,10 @@ def _gather_table(table, spec: HashGridSpec) -> torch.Tensor:
 
 
 def _encode_impl(table, x: torch.Tensor, spec: HashGridSpec):
+    """-> (embedding [N, L*F] f32, the gathered rows' indices: [N, L] for
+    cell rows, [N, L*8] for vertex rows)."""
     n = x.shape[0]
-    idx, w = _cell_indices(x, spec)
+    idx, w = (_cell_indices if spec.cell_rows else _corner_indices)(x, spec)
     rows = primitives.gather_rows(_gather_table(table, spec),
                                   idx.reshape(-1))
     rows = rows.reshape(n, spec.n_levels, 8, spec.n_features)
@@ -287,17 +305,52 @@ def _encode_impl(table, x: torch.Tensor, spec: HashGridSpec):
 def encode_grads_from_gembed(spec: HashGridSpec, x: torch.Tensor,
                              idx: torch.Tensor, g: torch.Tensor):
     """Table cotangent (in the table's structure) from the embedding
-    cotangent g [N, L*F]: the frac-carry segment sum of
-    outer(corner weights, level cotangent) over the table slots."""
-    from naruto_tpu_torch.ops.segment import (
-        dense_segment_sum_outer_level_major_frac)
+    cotangent g [N, L*F]. Cell rows: the segment sum of outer(corner
+    weights, level cotangent) over the table's cell rows, the weights
+    carried through the sort as one packed-frac column ("frac") or as 8
+    bf16 weights ("weights"). Vertex rows: the segment sum of the
+    bf16-rounded updates g * w over the vertex rows."""
+    from naruto_tpu_torch.ops import segment
 
+    g = g.contiguous()
     _, frac = _cell_pos(x, spec)
-    d_full = dense_segment_sum_outer_level_major_frac(
-        idx, frac, g.contiguous(), spec.total_entries)
+    if not spec.cell_rows:
+        n, L, F = x.shape[0], spec.n_levels, spec.n_features
+        upd = g.reshape(n, L, 1, F) * _corner_weights(frac)[..., None]
+        return segment.dense_segment_sum(idx.reshape(-1), upd.reshape(-1, F),
+                                         spec.total_entries)
+    if spec.sort_carry == "frac":
+        d_full = segment.dense_segment_sum_outer_level_major_frac(
+            idx, frac, g, spec.total_entries)
+    else:
+        d_full = segment.dense_segment_sum_outer_level_major(
+            idx, _corner_weights(frac), g, spec.total_entries)
     if spec.layout == "hybrid":
         return split_table_grads(d_full, spec)
     return d_full
+
+
+def position_grads(spec: HashGridSpec, table, x: torch.Tensor,
+                   idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d embedding / d x contracted with g [N, L*F] -> [N, 3]: the product
+    rule over each corner weight's three factors, times the level's
+    resolution (frac = x * R - i0; the clamps pass no gradient). The
+    corner features are gathered again at full precision: the f32-derived
+    rows in the hybrid layout, the table itself in the others."""
+    n, L, F = x.shape[0], spec.n_levels, spec.n_features
+    flat = (derived_gather_table(table, spec, torch.float32)
+            if spec.layout == "hybrid" else table)
+    feats = primitives.gather_rows(flat, idx.reshape(-1)).reshape(n, L, 8, F)
+    _, frac = _cell_pos(x, spec)
+    sel = device_const(_CORNERS, torch.bool, x.device)               # [8, 3]
+    t = torch.where(sel[None, None], frac[:, :, None, :],
+                    1.0 - frac[:, :, None, :])                # [N, L, 8, 3]
+    sign = torch.where(sel, 1.0, -1.0)
+    p = torch.stack([t[..., 1] * t[..., 2], t[..., 0] * t[..., 2],
+                     t[..., 0] * t[..., 1]], dim=-1) * sign
+    gdotf = torch.sum(g.reshape(n, L, 1, F) * feats, dim=-1)  # [N, L, 8]
+    res = device_const(spec.resolutions, torch.float32, x.device)
+    return torch.einsum("nlc,nlca,l->na", gdotf, p, res)
 
 
 class _HashEncode(torch.autograd.Function):
@@ -305,22 +358,24 @@ class _HashEncode(torch.autograd.Function):
     def forward(ctx, x, spec, *leaves):
         out, idx = _encode_impl(_table_from_leaves(leaves, spec), x, spec)
         ctx.spec = spec
-        ctx.leaf_dtypes = [t.dtype for t in leaves]
-        ctx.save_for_backward(x, idx)
+        ctx.save_for_backward(x, idx, *leaves)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, idx = ctx.saved_tensors
-        d = encode_grads_from_gembed(ctx.spec, x, idx, g)
-        return (None, None, *(t.to(dt) for t, dt in
-                              zip(table_leaves(d), ctx.leaf_dtypes)))
+        x, idx, *leaves = ctx.saved_tensors
+        spec = ctx.spec
+        d_leaves = [None] * len(leaves)
+        if any(ctx.needs_input_grad[2:]):
+            d = encode_grads_from_gembed(spec, x, idx, g)
+            d_leaves = [t.to(leaf.dtype) for t, leaf in
+                        zip(table_leaves(d), leaves)]
+        d_x = (position_grads(spec, _table_from_leaves(leaves, spec), x,
+                              idx, g) if ctx.needs_input_grad[0] else None)
+        return (d_x, None, *d_leaves)
 
 
 def hash_encode(table, x: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
-    """Encode points x [N, 3] in [0, 1] -> [N, L*F] f32 features."""
-    _check_ported(spec)
-    if x.requires_grad:
-        raise NotImplementedError("position gradients of hash_encode are "
-                                  "not ported yet (tracking is off)")
+    """Encode points x [N, 3] in [0, 1] -> [N, L*F] f32 features;
+    differentiable in the table and in x."""
     return _HashEncode.apply(x, spec, *table_leaves(table))

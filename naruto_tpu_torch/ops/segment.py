@@ -1,19 +1,23 @@
 """Dense segment sums by sort (counterpart of naruto_tpu/ops/segment.py,
 the parts the mapper's backward calls).
 
-``dense_segment_sum_outer_level_major_frac`` is the hash-grid backward: the
-rank-1 updates outer(corner weights, level cotangent) are sorted by table
-slot (the weights travel as one packed-frac column and are rebuilt after the
-sort); the fused scan of ``ops/kernels.py`` writes, for every slot, the
-prefix sum through the slot's last update, and an adjacent difference turns
-those into per-slot sums.
+``dense_segment_sum_outer_level_major_frac`` and
+``dense_segment_sum_outer_level_major`` are the hash-grid backward of the
+cell-row layouts: the rank-1 updates outer(corner weights, level cotangent)
+are sorted by table slot, the weights travelling as one packed-frac column
+that is rebuilt into weights after the sort ("frac") or as the 8 bf16
+weights themselves ("weights"); the fused scan of ``ops/kernels.py``
+writes, for every slot, the prefix sum through the slot's last update, and
+an adjacent difference turns those into per-slot sums.
 
-``dense_segment_sum`` (the uncertainty grid's trilinear VJP) sorts the keys,
-gathers the value rows by the sort permutation and sums each run of equal
-keys directly with ``primitives.sorted_segment_sum``: no prefix sum, no rank
-search, no difference of running totals. It has the JAX function's
-signature and default: the values are rounded to bf16 before the f32 sums
-unless ``pack_bf16=False`` (the exact form the trilinear VJP uses).
+``dense_segment_sum`` (the vertex layout's hash-grid backward, and the
+uncertainty grid's trilinear VJP) sorts the keys, gathers the value rows by
+the sort permutation and sums each run of equal keys directly with
+``primitives.sorted_segment_sum``: no prefix sum, no rank search, no
+difference of running totals. It has the JAX function's signature and
+default: the values are rounded to bf16 before the f32 sums (by the segment
+sum, as it reads them) unless ``pack_bf16=False`` (the exact form the
+trilinear VJP uses).
 
 Every row gather here is ``primitives.gather_rows``: like the segment sum, a
 kernel on the card and its plain version on the CPU. Each index is in range
@@ -76,21 +80,56 @@ def dense_segment_sum_outer_level_major_frac(
     n, L = idx_nl.shape
     kb = b_nl.shape[-1] // L
     _check_even(8, kb)
-    dev = idx_nl.device
     pad = (-(n * L)) % kernels.SUB
-    key = torch.cat([idx_nl.to(torch.int32).t().reshape(-1),
-                     torch.full((pad,), INT32_MAX, dtype=torch.int32,
-                                device=dev)])
+    key = _level_major_keys(idx_nl, pad)
     qf = torch.cat([pack_frac(frac_nl).t().reshape(-1),
-                    torch.zeros((pad,), dtype=torch.int32, device=dev)])
-    b16 = torch.cat([_level_major(b_nl.to(torch.bfloat16), L),
-                     torch.zeros((pad, kb), dtype=torch.bfloat16,
-                                 device=dev)])
+                    torch.zeros((pad,), dtype=torch.int32,
+                                device=idx_nl.device)])
+    b16 = _level_major_bf16(b_nl, L, pad)
     si, perm = torch.sort(key, stable=True)
     sqf = primitives.gather_rows(qf[:, None], perm).reshape(-1)
     sa16 = corner_weights_from_packed(sqf).to(torch.bfloat16)
     sb16 = primitives.gather_rows(b16, perm)
     return _outer_from_sorted(si, sa16, sb16, size)
+
+
+def _level_major_keys(idx_nl: torch.Tensor, pad: int) -> torch.Tensor:
+    """[N, L] slot ids -> [L*N + pad] int32 level-major sort keys, the pads
+    INT32_MAX."""
+    return torch.cat([idx_nl.to(torch.int32).t().reshape(-1),
+                      torch.full((pad,), INT32_MAX, dtype=torch.int32,
+                                 device=idx_nl.device)])
+
+
+def _level_major_bf16(x2d: torch.Tensor, n_levels: int,
+                      pad: int) -> torch.Tensor:
+    """[N, L*K] -> [L*N + pad, K] bf16, level-major rows, the pads zero."""
+    x = _level_major(x2d.to(torch.bfloat16), n_levels)
+    return torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+
+
+def dense_segment_sum_outer_level_major(
+        idx_nl: torch.Tensor, a_nl: torch.Tensor, b_nl: torch.Tensor,
+        size: int) -> torch.Tensor:
+    """The weights carry: out[s] = sum over (point, level) with idx == s of
+    outer(a, b_level) with both factors rounded to bf16, flattened to
+    [size, A*B].
+
+    idx_nl: [N, L] slot ids; a_nl: [N, L, A] (the corner weights);
+    b_nl: [N, L*B]. As in the frac carry, the M = N*L level-major rows are
+    padded to a multiple of 512 before the sort with INT32_MAX keys and
+    zero factors; both factors are gathered by the sort permutation."""
+    n, L = idx_nl.shape
+    ka = a_nl.shape[-1]
+    kb = b_nl.shape[-1] // L
+    _check_even(ka, kb)
+    pad = (-(n * L)) % kernels.SUB
+    key = _level_major_keys(idx_nl, pad)
+    a16 = _level_major_bf16(a_nl.reshape(n, L * ka), L, pad)
+    b16 = _level_major_bf16(b_nl, L, pad)
+    si, perm = torch.sort(key, stable=True)
+    return _outer_from_sorted(si, primitives.gather_rows(a16, perm),
+                              primitives.gather_rows(b16, perm), size)
 
 
 def _outer_from_sorted(si: torch.Tensor, sa16: torch.Tensor,
@@ -109,12 +148,12 @@ def dense_segment_sum(indices: torch.Tensor, values: torch.Tensor,
     out[s] = sum of values where indices == s.
 
     pack_bf16 (and an even F): each value is rounded to bf16 before the f32
-    sums, as the JAX function's bf16-pair sort payload rounds it;
-    pack_bf16=False sums the values exactly in f32. Each slot's sum is taken
-    directly over its run of the sorted rows (the JAX function differences a
-    prefix sum, which also carries the running total's rounding)."""
-    if pack_bf16 and values.shape[1] % 2 == 0:
-        values = values.to(torch.bfloat16).to(values.dtype)
+    sums, as the JAX function's bf16-pair sort payload rounds it (the
+    segment sum rounds each row as it reads it); pack_bf16=False sums the
+    values exactly in f32. Each slot's sum is taken directly over its run
+    of the sorted rows (the JAX function differences a prefix sum, which
+    also carries the running total's rounding)."""
     si, perm = torch.sort(indices.to(torch.int32), stable=True)
     sv = primitives.gather_rows(values.contiguous(), perm)
-    return primitives.sorted_segment_sum(si, sv, size, round_bf16=False)
+    return primitives.sorted_segment_sum(
+        si, sv, size, round_bf16=pack_bf16 and values.shape[1] % 2 == 0)

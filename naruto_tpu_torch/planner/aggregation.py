@@ -35,6 +35,8 @@ from typing import Callable, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from naruto_tpu_torch.ops import unit_linspace
+
 
 class GoalSpace(NamedTuple):
     x_range: np.ndarray  # [Gx] voxel levels
@@ -65,15 +67,6 @@ def make_goal_space(vol_shape, voxel_size: float,
     gx, gy, gz = np.meshgrid(xr, yr, zr, indexing="ij")
     pts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
     return GoalSpace(xr, yr, zr, pts)
-
-
-def march_params(n: int) -> np.ndarray:
-    """jnp.linspace(0, 1, n) in float32 as XLA computes it: the iota times
-    the float32 reciprocal of n - 1, then the endpoint (np.linspace and
-    torch.linspace differ from it in the last bit at some points)."""
-    step = np.arange(n - 1, dtype=np.float32) * (np.float32(1.0)
-                                                 / np.float32(n - 1))
-    return np.concatenate([step, np.ones(1, np.float32)])
 
 
 class AggregationOutputs(NamedTuple):
@@ -140,7 +133,7 @@ class Aggregator:
         self.goal_real_c = chunks(goal_real)
         self.border_c = chunks(border)
         self.nb_flat_c = chunks(nb_flat)
-        self.t_vals = torch.from_numpy(march_params(n_vis_pts)).to(dev)
+        self.t_vals = torch.from_numpy(unit_linspace(n_vis_pts)).to(dev)
 
     def draw_subset(self, top_vals: torch.Tensor,
                     generator: torch.Generator) -> torch.Tensor:

@@ -18,6 +18,9 @@ analytic simulator. The engine refuses what is not ported yet.
 from __future__ import annotations
 
 import argparse
+import time
+
+import torch
 
 
 def parse_args(argv=None):
@@ -70,8 +73,24 @@ def main(argv=None):
     from naruto_tpu_torch.system.engine import Engine
 
     engine = Engine(cfg, device=args.device)
+    dev = engine.device
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
     engine.run()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
     engine.finalize()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB"
+            if on_card else "")
+    print(f"[run] wall: run() {t1 - t0:.2f} s, finalize() {t2 - t1:.2f} s"
+          f"{peak}", flush=True)
 
 
 if __name__ == "__main__":

@@ -13,11 +13,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-# the draw sites: the mapper's (see mapping/mapper.py), then the planner's
-# target subset (planner/naruto_planner.py). A site is seeded from its
-# index, so a new site goes at the end: the others keep their draws.
+# the draw sites: the mapper's (see mapping/mapper.py), the planner's
+# target subset (planner/naruto_planner.py), then the mapper's tracking
+# pixels, importance draws and Monte-Carlo smoothness pairs. A site is
+# seeded from its index, so a new site goes at the end: the others keep
+# their draws.
 SITES = ("init", "first_frame_rays", "global_rays", "current_rays",
-         "z_noise", "smoothness", "keyframe_scores", "planner_subset")
+         "z_noise", "smoothness", "keyframe_scores", "planner_subset",
+         "track_rays", "importance_u", "smooth_pairs")
 
 
 def make_generator(seed: int, site: str, device) -> torch.Generator:

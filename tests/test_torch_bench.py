@@ -101,3 +101,20 @@ def test_bench_refuses_the_host(capsys):
         bench.main(["--steps", "1"])
     assert e.value.code != 0
     assert capsys.readouterr().out == ""
+
+
+def test_measure_one_configuration_alone():
+    """With NARUTO_BENCH_CFG (bench.py's override) the row is that
+    configuration's and the turbo row is not timed: here the grid of
+    configs/parity.yaml (vertex layout, 16 levels of 2 features, f32)."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "parity.yaml")) as f:
+        grid = yaml.safe_load(f)["grid"]
+    cfg = make_config("Replica", "office0", num_iter=40, overrides={
+        **TINY, "grid": {**grid, "hash_size": 12}})
+    res = bench.measure(cfg, n_steps=1, windows=1, settle=0, device="cpu",
+                        turbo=False)
+    assert set(res) == {"parity", "peak_memory_gib"}
+    line = bench.bench_result(res, "host", "host, 0 W")
+    assert "turbo" not in line["extra"] and line["value"] > 0

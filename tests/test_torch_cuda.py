@@ -667,3 +667,108 @@ def test_aggregation_on_card_matches_host(cuda_device):
         sel = agg.draw_subset(vals, gen).cpu()
         assert sel.numel() == 300 == torch.unique(sel).numel()
         assert 0 <= int(sel.min()) and int(sel.max()) < 4000
+
+
+# ---------------------------------- the vertex layout, weights carry, d_x
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bf16", [True, False])
+@pytest.mark.parametrize("m,size", [(1, 300), (2049, 4000), (5000, 300),
+                                    (1_000_003, 814_897)])
+def test_sorted_segment_sum_two_columns_on_card(gen, cuda_device,
+                                                round_bf16, m, size):
+    """F = 2, the vertex backward's width (its one-column-a-thread path):
+    ragged M, empty slots, and the parity grid's 814,897 slots; against
+    index_add_ within SEGMENT_TOL, and two calls bit for bit."""
+    keys = gen.integers(0, size, m)
+    keys[-1] = size - 1
+    si = torch.tensor(np.sort(keys), dtype=torch.int32, device=cuda_device)
+    vals = torch.tensor(gen.normal(size=(m, 2)), dtype=torch.float32,
+                        device=cuda_device)
+    got = primitives.sorted_segment_sum(si, vals, size,
+                                        round_bf16=round_bf16)
+    ref = primitives.sorted_segment_sum_plain(si, vals, size,
+                                              round_bf16=round_bf16)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+    assert torch.equal(got, primitives.sorted_segment_sum(
+        si, vals, size, round_bf16=round_bf16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 2049, 1_000_003])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gather_rows_two_f32_columns_on_card(gen, cuda_device, m, idx_dtype):
+    """8-byte rows: the vertex table [814,897, 2] f32, bit-exact."""
+    tbl = torch.tensor(gen.normal(size=(814_897, 2)), dtype=torch.float32,
+                       device=cuda_device)
+    idx = torch.tensor(gen.integers(0, 814_897, m), dtype=idx_dtype,
+                       device=cuda_device)
+    assert torch.equal(primitives.gather_rows(tbl, idx),
+                       primitives.gather_rows_plain(tbl, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,per,kb", [(333, 4, 16, 4), (2000, 4, 4000, 8),
+                                        (1025, 2, 40, 2)])
+def test_weights_carry_on_card_matches_host(gen, cuda_device, n, L, per, kb):
+    """The weights carry's segment sum through the kernels on the card and
+    the plain versions on the host: identical sort and bf16 factors, f32
+    sums in another order, so 2e-6 of max|cumsum|."""
+    idx = (gen.integers(0, per, (n, L))
+           + np.arange(L)[None, :] * per).astype(np.int32)
+    w = gen.uniform(0, 1, (n, L, 8)).astype(np.float32)
+    b = gen.normal(size=(n, L * kb)).astype(np.float32)
+    args = (torch.tensor(idx), torch.tensor(w), torch.tensor(b))
+    ref = segment.dense_segment_sum_outer_level_major(*args, L * per)
+    n0 = kernels.launch_counts()["outer_scan_slots"]
+    got = segment.dense_segment_sum_outer_level_major(
+        *(a.to(cuda_device) for a in args), L * per).cpu()
+    assert kernels.launch_counts()["outer_scan_slots"] == n0 + 1
+    scale = float(torch.cumsum(ref, 0).abs().max())
+    assert float((got - ref).abs().max()) < 2e-6 * scale
+
+
+def _encode_case(gen, layout, n):
+    from naruto_tpu_torch.ops import encoding
+
+    spec = encoding.HashGridSpec(n_levels=4, n_features=2,
+                                 log2_table_size=12, base_resolution=8,
+                                 finest_resolution=120, layout=layout,
+                                 gather_dtype="float32")
+    table = encoding.init_hash_table(spec, torch.Generator().manual_seed(0))
+    table = {"hash": table["hash"] * 1e3,
+             "dense": [d * 1e3 for d in table["dense"]]} \
+        if isinstance(table, dict) else table * 1e3
+    x = torch.tensor(gen.uniform(0, 1, (n, 3)), dtype=torch.float32)
+    g = torch.tensor(gen.normal(size=(n, spec.output_dim)),
+                     dtype=torch.float32)
+    return encoding, spec, table, x, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vertex", "hybrid", "cell"])
+@pytest.mark.parametrize("n", [1, 3001])
+def test_encode_grads_on_card_match_host(gen, cuda_device, layout, n):
+    """hash_encode's table and position gradients through the kernels on
+    the card and the plain versions on the host, on the same inputs: d_x
+    (a gather of f32 rows, then the same f32 products) within rel 1e-5;
+    the table's (bf16-rounded terms summed in another order) within 2e-6
+    of max|cumsum|."""
+    encoding, spec, table, x, g = _encode_case(gen, layout, n)
+    out = []
+    for dev in ("cpu", cuda_device):
+        tbl = {"hash": table["hash"].to(dev).requires_grad_(True),
+               "dense": [d.to(dev).requires_grad_(True)
+                         for d in table["dense"]]} \
+            if isinstance(table, dict) else table.to(dev).requires_grad_(True)
+        xx = x.to(dev).requires_grad_(True)
+        leaves = encoding.table_leaves(tbl)
+        grads = torch.autograd.grad(encoding.hash_encode(tbl, xx, spec),
+                                    [xx, *leaves], g.to(dev))
+        out.append([t.cpu() for t in grads])
+    (dx_h, *dt_h), (dx_c, *dt_c) = out
+    assert _rel(dx_c, dx_h) <= 1e-5
+    for got, ref in zip(dt_c, dt_h):
+        scale = float(torch.cumsum(ref.reshape(-1, ref.shape[-1]), 0)
+                      .abs().max())
+        assert float((got - ref).abs().max()) <= 2e-6 * scale

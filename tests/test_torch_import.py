@@ -18,6 +18,7 @@ def test_package_imports_with_jax_blocked():
         if parts[-1] == "__init__":
             parts = parts[:-1]
         mods.append(".".join(("naruto_tpu_torch",) + parts))
+    assert "naruto_tpu_torch.mapping.pose_opt" in mods
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"

@@ -132,9 +132,26 @@ def test_derived_cell_rows_exact(rng):
         np.asarray(ref))
 
 
-def test_position_grad_not_ported():
+def test_position_grad_not_ported(rng):
+    """Position gradients are ported now (the name is the earlier test's):
+    on a zero table the embedding is flat, so d_x is exactly 0, and on a
+    random one it matches jax.vjp with respect to x (tests/
+    test_torch_vertex.py holds every layout)."""
     spec = tenc.HashGridSpec(n_levels=2, log2_table_size=8, base_resolution=4,
                              finest_resolution=8, layout="cell")
+    spec_j = jenc.HashGridSpec(n_levels=2, log2_table_size=8,
+                               base_resolution=4, finest_resolution=8,
+                               layout="cell")
+    x = torch.rand(4, 3, requires_grad=True)
     table = torch.zeros(spec.total_entries, spec.row_features)
-    with pytest.raises(NotImplementedError):
-        tenc.hash_encode(table, torch.rand(4, 3, requires_grad=True), spec)
+    (dx,) = torch.autograd.grad(tenc.hash_encode(table, x, spec).sum(), x)
+    assert torch.equal(dx, torch.zeros_like(dx))
+    table = rng.normal(size=(spec.total_entries, spec.row_features)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda xx: jenc.hash_encode(jnp.asarray(table), xx,
+                                                 spec_j),
+                     jnp.asarray(x.detach().numpy()))
+    (j_dx,) = vjp(jnp.ones((4, spec_j.output_dim), jnp.float32))
+    (dx,) = torch.autograd.grad(
+        tenc.hash_encode(_t(table), x, spec).sum(), x)
+    assert _rel_err(dx.numpy(), j_dx) < 1e-5

@@ -25,8 +25,8 @@ from naruto_tpu_torch.config import make_config
 from naruto_tpu_torch.config.schema import deep_update
 from naruto_tpu_torch.geometry import pose, voxel
 from naruto_tpu_torch.planner import NarutoPlanner, init_planner
-from naruto_tpu_torch.planner.aggregation import (Aggregator, make_goal_space,
-                                                  march_params)
+from naruto_tpu_torch.ops import unit_linspace
+from naruto_tpu_torch.planner.aggregation import Aggregator, make_goal_space
 from naruto_tpu_torch.planner.collision import (is_collision_free,
                                                 query_sdf_np)
 from naruto_tpu_torch.planner.rotation import rotation_planning
@@ -236,8 +236,10 @@ def test_rrt_reachable_mask_matches_jax(case):
 
 # ----------------------------------------------------------- aggregation
 def test_march_params_are_jax_linspace():
-    for n in (2, 7, 30, 31):
-        np.testing.assert_array_equal(march_params(n),
+    """The march's parameters (and the importance sampler's evenly spaced
+    draws): jnp.linspace(0, 1, n) bit for bit."""
+    for n in (1, 2, 7, 12, 30, 31):
+        np.testing.assert_array_equal(unit_linspace(n),
                                       np.asarray(jnp.linspace(0.0, 1.0, n)))
 
 
