@@ -78,6 +78,24 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      constant-speed path at half a tracking call's reach: the tracked
      translations within MAX_TRACK_RMSE_CM (RMSE) and MAX_TRACK_ERR_CM
      (worst frame) of the path's.
+ 10. the raycast run: office0's analytic room synthesised as a mesh at
+     mesh.voxel_eval (naruto_tpu_torch/scripts/make_scene_assets.py, to a
+     temporary directory), then phase 7's run on it through the raycast
+     simulator (the C++ BVH renderer on the host) at RAYCAST_SEED, with
+     phase 7's gates, launch check and replays; its ground truth is the
+     mesh. The row is printed beside the JAX package's raycast rows, with
+     the host's ms a frame, the wall, the peak memory; at the first
+     RENDER_CHECK_POSES rendered poses the renderer is held against the
+     analytic scene (median depth difference, the ERP probe's closest
+     distance) and against itself (two renders, bit for bit).
+ 11. resume: phase 6 writes its snapshot at PASSIVE_SNAPSHOT_STEP (its row
+     must stay the row without snapshots); a fresh Engine resumes from it
+     and must end with phase 6's poses bit for bit and its row digit for
+     digit. Phase 10 writes its snapshot at RAYCAST_SNAPSHOT_STEP; a fresh
+     Engine resumes from it until RESUME_STEPS_AFTER_RRT steps after the
+     RRT's first draw, with phase 10's poses bit for bit until that draw.
+     The snapshots' sizes and the seconds to write and to load them are
+     printed.
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -88,7 +106,8 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON
 (each kernel's launches on every path that drives it: the slice of phase
 4, the microbenchmarks of phase 5, the passive run of phase 6, the active
-run of phase 7, the parity run of phase 8, the settings run of phase 9).
+run of phase 7, the parity run of phase 8, the settings run of phase 9,
+the raycast run of phase 10, the two resumed runs of phase 11).
 """
 from __future__ import annotations
 
@@ -97,6 +116,7 @@ import importlib.abc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -220,6 +240,23 @@ FSM_STATES = ("staying", "planning", "rotationPlanningAtStart",
               "rotatingAtGoal")
 MIN_PLANS, MIN_TRAJ_M, MIN_ACTIVE_RATIO_PCT = 10, 15.0, 90.0
 MAX_ACTIVE_MAD_CM, MAX_ACTIVE_ACC_CM, MAX_ACTIVE_COMP_CM = 1.0, 2.5, 2.5
+# phase 10: the active run on office0's mesh through the raycast simulator,
+# with phase 7's gates; the JAX package's rows of the same protocol
+# (PERFORMANCE.md, raycast backend, five seeds)
+RAYCAST_SEED = ACTIVE_SEED
+JAX_RAYCAST_ROWS = "results/seeds_r3_raycast/Replica/office0/seed_{}/" \
+    "Replica/office0/eval_result.txt"
+RENDER_CHECK_POSES = 5     # rendered poses held against the analytic scene
+# phase 11: the snapshots the runs write (general.ckpt_freq) and resume from
+PASSIVE_SNAPSHOT_STEP = 500
+RAYCAST_SNAPSHOT_STEP = 1000
+RESUME_STEPS_AFTER_RRT = 5  # the resumed active run stops this many after
+# phase 6's row without snapshots (PERF.md section 2: the same digits in
+# every run on the card): a run that writes snapshots must not move it
+PORT_PASSIVE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307809,
+                    "completion_cm": 1.279369,
+                    "completion_ratio_pct": 99.6265,
+                    "fscore_pct": 99.495077, "mad_cm": 0.463325}
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of the host
 PROFILED_PLANS = 3         # aggregations traced by the profiler, at most
 SOURCE = {
@@ -1139,15 +1176,17 @@ def read_row(path: str) -> dict:
 
 def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                 over=None, num_iter=None, reference=REFERENCE_ROW,
-                want=None, check=None) -> tuple:
+                want=None, check=None, resume_from=None) -> tuple:
     """The passive run of PASSIVE_CFG through the port's Engine, with the
     overrides `over` and `num_iter` steps (the file's 1,000 by default);
     returns the launches of each kernel over run() and finalize(), and
     every (kernel, shape) of that run held against its plain version.
     `reference`: the JAX package's row the run's row is held to (None: the
     row must be finite only); `want`: the launches of a BA iteration;
-    `check(eng, row)`: further gates. With tracking on, every tracking
-    iteration must launch TRACK_LAUNCHES_PER_ITER."""
+    `check(eng, row)`: further gates, called before the run's directory
+    goes; `resume_from`: a full-state snapshot the run continues from.
+    With tracking on, every tracking iteration must launch
+    TRACK_LAUNCHES_PER_ITER."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -1209,18 +1248,26 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                 torch.cuda.reset_peak_memory_stats()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                eng.run()
+                eng.run(resume_from=resume_from)
                 torch.cuda.synchronize()
                 run_s = time.perf_counter() - t0
-                want_iters = sum(1 for i in range(1, cfg.general.num_iter)
+                # the first step this run made (a resumed run's: the
+                # snapshot's + 1)
+                first = max(1, cfg.general.num_iter
+                            - len(eng.timer.timings["SLAM"]))
+                if resume_from:
+                    log(f"[{tag}] resumed at step {first}: the snapshot "
+                        f"loaded in "
+                        f"{eng.timer.timings['full_state_load'][0]:.3f} s")
+                want_iters = sum(1 for i in range(first, cfg.general.num_iter)
                                  if i % m.map_every == 0) * m.iters
                 if len(per_iter) != want_iters:
                     fail(f"the run made {len(per_iter)} BA iterations, not "
                          f"{want_iters}")
                 check_ba_launches(per_iter, want)
-                log(f"[{tag}] run(): {cfg.general.num_iter} steps in "
-                    f"{run_s:.2f} s; every one of {len(per_iter)} BA "
-                    f"iterations launched {want}")
+                log(f"[{tag}] run(): {len(eng.timer.timings['SLAM'])} "
+                    f"steps in {run_s:.2f} s; every one of {len(per_iter)} "
+                    f"BA iterations launched {want}")
                 if m.tracking_enable:
                     if len(per_track) != cfg.general.num_iter - 1:
                         fail(f"{len(per_track)} tracking calls, not "
@@ -1417,10 +1464,17 @@ def track_path(torch, kernels) -> None:
 
 
 # ------------------------------------------------------------------ phase 7
-def run_active(torch, kernels, prims, root: str) -> tuple:
-    """The active 2,000-step run through the port's Engine; returns the
-    launches of each kernel over run() and finalize(), and every (kernel,
-    shape) of that run held against its plain version."""
+def run_active(torch, kernels, prims, root: str, tag: str = "active",
+               over=None, seed: int = ACTIVE_SEED,
+               jax_rows: str = JAX_ACTIVE_ROWS, hook=None,
+               check=None) -> tuple:
+    """The active 2,000-step run of ACTIVE_CFG (with the overrides `over`,
+    at `seed`) through the port's Engine; returns the launches of each
+    kernel over run() and finalize(), and every (kernel, shape) of that run
+    held against its plain version. `jax_rows`: the JAX package's rows of
+    JAX_ACTIVE_SEEDS printed beside the row; `hook(eng)`: called on the new
+    Engine before the run; `check(eng, row, summary)`: further gates,
+    called before the run's directory goes."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -1428,16 +1482,18 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
     from naruto_tpu_torch.scripts.trace_summary import device_profile
     from naruto_tpu_torch.system import engine as engine_mod
 
-    jax_rows = {seed: read_row(os.path.join(root, JAX_ACTIVE_ROWS.format(
-        seed))) for seed in JAX_ACTIVE_SEEDS}
+    jax_rows = {s: read_row(os.path.join(root, jax_rows.format(s)))
+                for s in JAX_ACTIVE_SEEDS}
     cfg = load_config(os.path.join(root, ACTIVE_CFG))
+    if over:
+        cfg = deep_update(cfg, over)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = deep_update(cfg, {"general": {"result_dir": tmp,
-                                            "seed": ACTIVE_SEED}})
+                                            "seed": seed}})
         m = cfg.mapper
         eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
         planner = eng.planner
-        log(f"[active] {ACTIVE_CFG}: {cfg.general.num_iter} steps, seed "
+        log(f"[{tag}] {ACTIVE_CFG}: {cfg.general.num_iter} steps, seed "
             f"{cfg.general.seed}, frames {cfg.cam.H}x{cfg.cam.W}, grid L"
             f"{cfg.grid.n_levels}F{cfg.grid.n_features_per_level} "
             f"{cfg.grid.layout}, map_every {m.map_every}, iters {m.iters}; "
@@ -1446,6 +1502,8 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
             f"goals, chunks of {planner.aggregate.chunk}), top-k "
             f"{planner.aggregate.k_eff}, subset {planner.aggregate.subset_eff}"
             f", RRT max_iter {planner.local_planner.max_iter}")
+        if hook is not None:
+            hook(eng)
         per_iter = []
         count_ba_launches(kernels, eng.mapper, per_iter)
         # per plan: each aggregation timed by CUDA events in the run (its
@@ -1490,6 +1548,7 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
         recorder = ShapeRecorder(torch, kernels, prims)
         with recorder:
             kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng.run()
@@ -1501,7 +1560,7 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
                 fail(f"the active run made {len(per_iter)} BA iterations, "
                      f"not {want_iters}")
             check_ba_launches(per_iter)
-            log(f"[active] run(): {cfg.general.num_iter} steps in "
+            log(f"[{tag}] run(): {cfg.general.num_iter} steps in "
                 f"{run_s:.2f} s; every one of {len(per_iter)} BA iterations "
                 f"launched {BA_LAUNCHES_PER_ITER}")
             t0 = time.perf_counter()
@@ -1513,10 +1572,14 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
         row = read_row(os.path.join(run_dir, "eval_result.txt"))
         with open(os.path.join(run_dir, "planner_stats.json")) as f:
             stats = json.load(f)
+        if check is not None:
+            check(eng, row, stats["summary"])
     summary, events = stats["summary"], stats["events"]
-    log(f"[active] wall: run {run_s:.2f} s + finalize {fin_s:.2f} s = "
-        f"{run_s + fin_s:.2f} s (the timer sections: the table above)")
-    log(f"[active] stats_summary(): {json.dumps(summary)}")
+    log(f"[{tag}] wall: run {run_s:.2f} s + finalize {fin_s:.2f} s = "
+        f"{run_s + fin_s:.2f} s (the timer sections: the table above); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    log(f"[{tag}] stats_summary(): {json.dumps(summary)}")
 
     # per plan: the aggregation's device time on the run's own inputs,
     # after the run (the port's kernels are not among its launches): by
@@ -1540,7 +1603,7 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
     for k, ev in enumerate(events):
         mine = [a for a in aggs if a["step"] == ev["step"]]
         rrt = {r["kind"]: r["s"] for r in rrts if r["step"] == ev["step"]}
-        log(f"[active] plan {k} at step {ev['step']}: goal {ev['goal_vxl']}"
+        log(f"[{tag}] plan {k} at step {ev['step']}: goal {ev['goal_vxl']}"
             f" from {ev['pos_vxl']}, reachable {ev['reachable']}, path "
             f"{ev['path_len']} nodes; aggregation "
             + ", ".join(f"events {a['ms']:.3f} ms, device "
@@ -1563,7 +1626,7 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
                 f"{min(vals):.3f}, max {max(vals):.3f}, total "
                 f"{sum(vals):.3f})")
 
-    log(f"[active] {len(events)} plans, {len(aggs)} aggregations: events "
+    log(f"[{tag}] {len(events)} plans, {len(aggs)} aggregations: events "
         f"in the run {spread([a['ms'] for a in aggs], 'ms')}; device "
         f"{spread([a['device_ms'] for a in aggs], 'ms')}; profiler "
         f"{spread([a['profiled_ms'] for a in aggs], 'ms')}, launches "
@@ -1571,13 +1634,13 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
         f"{spread([r['s'] for r in rrts if r['kind'] == 'path'], 'ms', 1e3)}"
         f"; traversability masks "
         f"{spread([r['s'] for r in rrts if r['kind'] == 'mask'], 'ms', 1e3)}")
-    log(f"[active] {'metric':22s} {'port (this run)':>16s} "
+    log(f"[{tag}] {'metric':22s} {'port (this run)':>16s} "
         f"{'JAX, 5 seeds: min-max':>23s} {'mean':>10s}")
     for k in row:
         ref = [r[k] for r in jax_rows.values() if k in r]
         band = f"{min(ref):.6f}-{max(ref):.6f}" if ref else "not recorded"
         mean = f"{sum(ref) / len(ref):10.6f}" if ref else ""
-        log(f"[active] {k:22s} {row[k]:16.6f} {band:>23s} {mean}")
+        log(f"[{tag}] {k:22s} {row[k]:16.6f} {band:>23s} {mean}")
 
     if not all(math.isfinite(v) for v in row.values()):
         fail(f"a metric of the active run is not finite: {row}")
@@ -1600,11 +1663,200 @@ def run_active(torch, kernels, prims, root: str) -> tuple:
          f"completion_cm {row['completion_cm']} > {MAX_ACTIVE_COMP_CM}"))
     for ok, msg in checks:
         if not ok:
-            fail(f"active run: {msg}")
-    log(f"[active] {len(recorder.seen)} distinct (kernel, shape) in run() "
+            fail(f"{tag} run: {msg}")
+    log(f"[{tag}] {len(recorder.seen)} distinct (kernel, shape) in run() "
         f"and finalize(); each against its plain version on the inputs of "
         f"its first call:")
-    return counts, recorder.replay("active")
+    return counts, recorder.replay(tag)
+
+
+# -------------------------------------------------------------- phase 10
+def check_renderer(torch, cfg, sim, poses) -> None:
+    """The raycast renderer on the mesh against the analytic scene the mesh
+    was made from, at `poses`: the median |depth difference| over pixels
+    valid in both within half of mesh.voxel_eval, the ERP probe's closest
+    distance within mesh.voxel_eval, and two renders of a pose equal bit for
+    bit (OpenMP's schedule changes no pixel)."""
+    import numpy as np
+
+    from naruto_tpu_torch.sim.analytic import AnalyticSimulator
+
+    analytic = AnalyticSimulator(cfg, "cuda")
+    vs = cfg.mesh.voxel_eval
+    for k, c2w in enumerate(poses):
+        color, depth = sim.render_host(c2w)
+        again = sim.render_host(c2w)
+        if not (np.array_equal(color, again[0])
+                and np.array_equal(depth, again[1])):
+            fail(f"two raycast renders of pose {k} differ")
+        ref = analytic.simulate(c2w)[1].cpu().numpy()
+        both = (depth > 0) & (ref > 0)
+        if not both.any():
+            fail(f"pose {k}: no pixel valid in both renders")
+        diff = np.abs(depth - ref)[both]
+        med, p99 = float(np.median(diff)), float(np.percentile(diff, 99))
+        t0 = time.perf_counter()
+        probe = sim.probe_erp_dist(c2w)
+        probe_ms = 1e3 * (time.perf_counter() - t0)
+        ref_probe = analytic.probe_erp_dist(c2w).cpu().numpy()
+        dmin = abs(float(probe.min()) - float(ref_probe.min()))
+        log(f"[raycast] pose {k}: depth |mesh - analytic| over "
+            f"{100 * both.mean():.2f}% of pixels valid in both: median "
+            f"{100 * med:.4f} cm, 99th percentile {100 * p99:.4f} cm; ERP "
+            f"probe {probe.shape[0]}x{probe.shape[1]} closest "
+            f"{probe.min():.4f} m (analytic {ref_probe.min():.4f} m, "
+            f"|diff| {100 * dmin:.4f} cm), invalid share "
+            f"{(probe > 1e6).mean():.4f} (analytic "
+            f"{(ref_probe > 1e6).mean():.4f}), probe {probe_ms:.2f} ms on "
+            f"the host; two renders equal bit for bit")
+        if med > vs / 2:
+            fail(f"pose {k}: median depth difference {med:.4f} m > "
+                 f"{vs / 2} m (half of mesh.voxel_eval)")
+        if dmin > vs:
+            fail(f"pose {k}: probe's closest distance differs by "
+                 f"{dmin:.4f} m > {vs} m")
+
+
+def run_raycast(torch, kernels, prims, root: str, keep_dir: str) -> tuple:
+    """Phase 10: office0's analytic room synthesised as a mesh at
+    mesh.voxel_eval (the port's scripts/make_scene_assets.py), then phase
+    7's run on it through the raycast simulator, writing its snapshot at
+    RAYCAST_SNAPSHOT_STEP (kept in keep_dir for phase 11). Returns the
+    launches, the replayed cases and what phase 11 needs."""
+    import numpy as np
+
+    from naruto_tpu_torch.config import load_config
+    from naruto_tpu_torch.scripts.make_scene_assets import (make_scene_mesh,
+                                                            write_scene_mesh)
+
+    cfg = load_config(os.path.join(root, ACTIVE_CFG))
+    vs = cfg.mesh.voxel_eval
+    t0 = time.perf_counter()
+    verts, faces, colors = make_scene_mesh(cfg.general.dataset,
+                                           cfg.general.scene, vs, "cuda")
+    mesh = os.path.join(keep_dir, f"{cfg.general.scene}_mesh.ply")
+    write_scene_mesh(mesh, verts, faces, colors)
+    log(f"[raycast] scene: {cfg.general.dataset}/{cfg.general.scene}'s "
+        f"analytic room as a mesh at {vs} m "
+        f"(naruto_tpu_torch/scripts/make_scene_assets.py): {len(verts)} "
+        f"vertices, {len(faces)} faces, "
+        f"{os.path.getsize(mesh) / 2 ** 20:.2f} MiB, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rendered, info = [], {}
+
+    def hook(eng):
+        frame = eng.sim.frame
+
+        def recorded(c2w):
+            if len(rendered) < RENDER_CHECK_POSES:
+                rendered.append(np.array(c2w, np.float32))
+            return frame(c2w)
+
+        eng.sim.frame = recorded
+        log(f"[raycast] {type(eng.sim).__name__}: a BVH over "
+            f"{eng.sim.n_faces} faces on the host, OpenMP on "
+            f"{os.cpu_count()} cores; the ground truth at finalize(): the "
+            f"scene_path mesh (not the analytic surface)")
+
+    def check(eng, row, summary):
+        t = eng.timer.timings
+        renders = t["Simulation"]
+        H, W = eng.cfg.sim.pinhole_hw
+        log(f"[raycast] frames: {len(renders)} renders of {H}x{W}, "
+            f"{1e3 * sum(renders) / len(renders):.2f} ms a frame on the "
+            f"host (median {1e3 * float(np.median(renders)):.2f} ms, quantized "
+            f"there and copied as uint8); the Simulation section "
+            f"{sum(renders):.2f} s; ERP probes {summary['n_probes']} "
+            f"({summary['probe_wall_s']} s)")
+        check_renderer(torch, eng.cfg, eng.sim, rendered)
+        snap = os.path.join(keep_dir, "raycast_full_state.pkl")
+        shutil.copyfile(eng.snapshot_path(), snap)
+        info.update(snapshot=snap, cfg=eng.cfg,
+                    poses=eng.mapper.poses.cpu().clone(),
+                    save_s=t["full_state_save"])
+
+    over = {"sim": {"method": "raycast", "scene_path": mesh},
+            "general": {"ckpt_freq": RAYCAST_SNAPSHOT_STEP}}
+    counts, cases = run_active(torch, kernels, prims, root, "raycast", over,
+                               RAYCAST_SEED, JAX_RAYCAST_ROWS, hook, check)
+    log(f"[raycast] snapshot at step {RAYCAST_SNAPSHOT_STEP}: "
+        f"{os.path.getsize(info['snapshot']) / 2 ** 20:.1f} MiB written in "
+        f"{info['save_s'][0]:.3f} s")
+    return counts, cases, info
+
+
+# -------------------------------------------------------------- phase 11
+class StopRun(Exception):
+    """Ends a resumed run early (raised from a wrapped planner step)."""
+
+
+def run_resumed_active(torch, kernels, prims, info: dict) -> tuple:
+    """Phase 11, active: a fresh Engine on phase 10's configuration resumes
+    from its mid-run snapshot and runs until RESUME_STEPS_AFTER_RRT steps
+    after the RRT first draws from its host rng (which no snapshot
+    restores). Its poses must be phase 10's, bit for bit, up to that draw;
+    the step where the two part is printed. Returns the launches and the
+    replayed cases."""
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.system import engine as engine_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = deep_update(info["cfg"], {"general": {"result_dir": tmp,
+                                                    "ckpt_freq": 0}})
+        eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
+        planner = eng.planner
+        per_iter, first_rrt = [], []
+        count_ba_launches(kernels, eng.mapper, per_iter)
+        for name in ("run", "run_full"):
+            fn = getattr(planner.local_planner, name)
+
+            def drawn(*a, _fn=fn, **kw):
+                first_rrt.append(planner.step)
+                return _fn(*a, **kw)
+
+            setattr(planner.local_planner, name, drawn)
+        step = planner.main
+
+        def stepped(vols, c2w, new_vols):
+            out = step(vols, c2w, new_vols)
+            if first_rrt and planner.step >= first_rrt[0] + \
+                    RESUME_STEPS_AFTER_RRT:
+                raise StopRun
+            return out
+
+        planner.main = stepped
+        recorder = ShapeRecorder(torch, kernels, prims)
+        with recorder:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                eng.run(resume_from=info["snapshot"])
+            except StopRun:
+                pass
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    start, last = RAYCAST_SNAPSHOT_STEP + 1, eng.mapper.step
+    check_ba_launches(per_iter)
+    got = eng.mapper.poses[:last + 1].cpu()
+    want = info["poses"][:last + 1]
+    parted = [i for i in range(last + 1) if not torch.equal(got[i], want[i])]
+    upto = first_rrt[0] if first_rrt else last
+    log(f"[resumed] active: resumed at step {start} (snapshot loaded in "
+        f"{eng.timer.timings['full_state_load'][0]:.3f} s), steps "
+        f"{start}-{last} in {run_s:.2f} s, {len(per_iter)} BA iterations "
+        f"each launching {BA_LAUNCHES_PER_ITER}; the RRT first drew at step "
+        + (f"{first_rrt[0]}" if first_rrt else "- (never)")
+        + "; poses equal to phase 10's bit for bit "
+        + (f"up to step {parted[0] - 1}, parting at step {parted[0]}"
+           if parted else f"through step {last}"))
+    if parted and parted[0] <= upto:
+        fail(f"the resumed active run parted from phase 10's at step "
+             f"{parted[0]}, before the RRT's first draw (step {upto})")
+    if not per_iter:
+        fail("the resumed active run made no BA iteration")
+    return counts, recorder.replay("resumed")
 
 
 def main() -> None:
@@ -1655,7 +1907,31 @@ def main() -> None:
     pres = check_primitives(torch, primitives, dev)
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
-    passive, passive_cases = run_passive(torch, kernels, primitives, root)
+    # the snapshots phases 6 and 10 write, for phase 11 (hundreds of MB:
+    # in a temporary directory outside the checkout)
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    passive_keep = {}
+
+    def keep_passive(eng, row):
+        moved = {k: (row[k], v) for k, v in PORT_PASSIVE_ROW.items()
+                 if row[k] != v}
+        if moved:
+            fail(f"phase 6's row with snapshots differs from its row "
+                 f"without them (PORT_PASSIVE_ROW): {moved}")
+        snap = os.path.join(keep.name, "passive_full_state.pkl")
+        shutil.copyfile(eng.snapshot_path(), snap)
+        passive_keep.update(snapshot=snap, row=row,
+                            poses=eng.mapper.poses.cpu().clone())
+        log(f"[passive] the snapshot of step {PASSIVE_SNAPSHOT_STEP} "
+            f"(general.ckpt_freq {PASSIVE_SNAPSHOT_STEP}): "
+            f"{os.path.getsize(snap) / 2 ** 20:.1f} MiB written in "
+            f"{eng.timer.timings['full_state_save'][0]:.3f} s; the row is "
+            f"the row without snapshots, digit for digit")
+
+    passive, passive_cases = run_passive(
+        torch, kernels, primitives, root,
+        over={"general": {"ckpt_freq": PASSIVE_SNAPSHOT_STEP}},
+        check=keep_passive)
     active, active_cases = run_active(torch, kernels, primitives, root)
     import yaml
 
@@ -1670,10 +1946,39 @@ def main() -> None:
         num_iter=SETTINGS_STEPS, reference=None,
         want=SETTINGS_LAUNCHES_PER_ITER, check=check_tracking())
     track_path(torch, kernels)
+    raycast, raycast_cases, raycast_info = run_raycast(
+        torch, kernels, primitives, root, keep.name)
+
+    def same_as_phase6(eng, row):
+        if not torch.equal(eng.mapper.poses.cpu(), passive_keep["poses"]):
+            fail("the resumed passive run's poses differ from phase 6's")
+        if row != passive_keep["row"]:
+            fail(f"the resumed passive run's row {row} differs from phase "
+                 f"6's {passive_keep['row']}")
+        log("[resumed] passive: every pose bit for bit phase 6's, the row "
+            "phase 6's digit for digit")
+
+    resumed_p, resumed_p_cases = run_passive(
+        torch, kernels, primitives, root, "resumed",
+        over={"general": {"ckpt_freq": PASSIVE_SNAPSHOT_STEP}},
+        check=same_as_phase6, resume_from=passive_keep["snapshot"])
+    resumed_a, resumed_a_cases = run_resumed_active(torch, kernels,
+                                                    primitives, raycast_info)
+    keep.cleanup()
+    resumed = {k: resumed_p[k] + resumed_a[k] for k in resumed_p}
+    resumed_cases = {k: resumed_p_cases[k] + resumed_a_cases[k]
+                     for k in resumed_p_cases}
+    for path, counts in (("raycast", raycast), ("resumed", resumed)):
+        idle = [k for k in BA_LAUNCHES_PER_ITER
+                if BA_LAUNCHES_PER_ITER[k] and not counts[k]]
+        if idle:
+            fail(f"the {path} path never launched {idle}")
     runs = (("passive", passive, passive_cases),
             ("active", active, active_cases),
             ("parity", parity, parity_cases),
-            ("settings", settings, settings_cases))
+            ("settings", settings, settings_cases),
+            ("raycast", raycast, raycast_cases),
+            ("resumed", resumed, resumed_cases))
 
     def summary(case: dict) -> dict:
         return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",

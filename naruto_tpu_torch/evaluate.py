@@ -20,8 +20,10 @@ import torch
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--rec", required=True, help="reconstructed mesh (ply)")
-    p.add_argument("--gt", required=True, help="ground-truth mesh (ply)")
+    p.add_argument("--rec", required=True,
+                   help="reconstructed mesh (ply, glb or gltf)")
+    p.add_argument("--gt", required=True,
+                   help="ground-truth mesh (ply, glb or gltf)")
     p.add_argument("--ckpt", default=None, help="mapper checkpoint (pkl)")
     p.add_argument("--dataset", default="Replica")
     p.add_argument("--scene", default="office0")
@@ -42,19 +44,12 @@ def main(argv=None):
     from naruto_tpu_torch.evaluation import (
         cull_mesh, eval_mad, eval_mesh, eval_traj_length,
     )
-    from naruto_tpu_torch.mesh.ply import read_ply
+    from naruto_tpu_torch.mesh.ply import read_mesh
     from naruto_tpu_torch.utils.results import update_results_file
 
-    def _load_mesh(path):
-        if path.lower().endswith((".glb", ".gltf")):
-            raise NotImplementedError(
-                f"{path}: the glTF loader is not ported yet (ROADMAP queue "
-                f"1, item 5); pass a .ply mesh")
-        return read_ply(path)
-
     cfg = make_config(args.dataset, args.scene)
-    rec_v, rec_f, _ = _load_mesh(args.rec)
-    gt_v, gt_f, _ = _load_mesh(args.gt)
+    rec_v, rec_f, _ = read_mesh(args.rec)
+    gt_v, gt_f, _ = read_mesh(args.gt)
 
     results = {}
     mapper = None

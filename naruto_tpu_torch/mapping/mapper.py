@@ -36,8 +36,16 @@ npz format) are as in the JAX package. With a ``Timer`` the online step
 times its stages as [Mapper] sections; like the JAX package's, a section
 around device work ends when the work is enqueued.
 
-Not ported yet: the sharded BA, the lazy volume read-back
-(``LazyVolumes``) and full-state resume.
+Volumes: a mapping step hands back a ``LazyVolumes`` view, whose host copy
+is made only when a consumer reads it (timed as ``volumes_wait``), and the
+next BA first waits for the previous step's volumes on the device
+(``ba_drain``): one mapping step in flight at most.
+
+Full state (``save_full_state`` / ``load_full_state``): the JAX package's
+``MapperState`` tree in its npz format, either package's file loading in
+the other, with the draw sites' generator states in the header.
+
+Not ported yet: the sharded BA.
 """
 from __future__ import annotations
 
@@ -63,18 +71,85 @@ from naruto_tpu_torch.mapping.pose_opt import (const_speed_init,
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.ops.encoding import table_leaves
 from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
+from naruto_tpu_torch.sim.base import quantize_color
 from naruto_tpu_torch.utils import ckpt_io
 from naruto_tpu_torch.utils.printer import InfoPrinter
-from naruto_tpu_torch.utils.seeding import make_generators
+from naruto_tpu_torch.utils.seeding import (generator_states,
+                                            make_generators,
+                                            set_generator_states)
 from naruto_tpu_torch.utils.timer import Timer
 
 # padded current-ray block sizes, as in the JAX package
 CUR_BUCKETS = (512, 2048, 8192)
 
 EMBED_B1, EMBED_B2, EMBED_EPS = 0.9, 0.99, 1e-15
+# the full-state header's key of the port's generator states (the JAX
+# package keeps its threefry key under "rng_key", which the port never
+# writes)
+GENERATORS_KEY = "torch_generator_states"
 # the pose Adam (optax.adam's defaults but b2): rotation and translation
 # groups with their own learning rates
 POSE_BETAS, POSE_EPS = (0.9, 0.99), 1e-8
+
+
+class LazyVolumes:
+    """(uncert_vol, sdf_vol) of one mapping step. Indexing and iteration
+    give the device tensors (the planner's aggregation reads them there);
+    ``host(i)`` gives volume i as host numpy, copied on its first read into
+    pinned memory on a side stream behind the event recorded when the
+    volumes were enqueued, and timed as [Mapper] ``volumes_wait``. A step
+    whose consumers never read a host copy never waits for the device, and
+    a volume no one reads on the host is never copied. ``ready()`` waits
+    for the volumes on the device, no copy. The values are those of an
+    eager pull."""
+
+    def __init__(self, u: torch.Tensor, s: torch.Tensor,
+                 timer: Optional[Timer] = None, stream=None):
+        self._dev = (u, s)
+        self._np: List[Optional[np.ndarray]] = [None, None]
+        self._timer = timer
+        self._event = None
+        if u.is_cuda:
+            self._stream = stream or torch.cuda.Stream(u.device)
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def ready(self) -> "LazyVolumes":
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    def _pull(self, t: torch.Tensor) -> np.ndarray:
+        if self._event is None:
+            return t.cpu().numpy()
+        stream = self._stream
+        stream.wait_event(self._event)
+        with torch.cuda.stream(stream):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            # the copy reads t on the side stream: keep its memory from
+            # reuse until the copy is done
+            t.record_stream(stream)
+            done = torch.cuda.Event()
+            done.record(stream)
+        done.synchronize()
+        return host.numpy()
+
+    def host(self, i: int) -> np.ndarray:
+        if self._np[i] is None:
+            with (self._timer.time("volumes_wait", "Mapper") if self._timer
+                  else contextlib.nullcontext()):
+                self._np[i] = self._pull(self._dev[i])
+        return self._np[i]
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self._dev[i]
+
+    def __iter__(self):
+        return iter(self._dev)
+
+    def __len__(self) -> int:
+        return 2
 
 
 class FirstFrameDraws(NamedTuple):
@@ -228,6 +303,51 @@ def field_spec_from_config(cfg: MainConfig) -> FieldSpec:
     )
 
 
+def _like_table(table, leaves: Sequence):
+    """The table's tree shape ({"hash", "dense"} or one tensor) over
+    `leaves` given in table_leaves order."""
+    if isinstance(table, dict):
+        return {"hash": leaves[0], "dense": list(leaves[1:])}
+    return leaves[0]
+
+
+def _i32(n) -> np.ndarray:
+    return np.asarray(int(n), np.int32)
+
+
+def _adam_state(opt: Optional[torch.optim.Adam], params: Sequence):
+    """(count, exp_avg list, exp_avg_sq list) of a torch Adam over
+    `params` (zeros before its first step, and for no optimizer)."""
+    st = [opt.state.get(p, {}) if opt is not None else {} for p in params]
+    count = int(st[0]["step"]) if st and st[0] else 0
+    mu = [x["exp_avg"] if x else torch.zeros_like(p)
+          for x, p in zip(st, params)]
+    nu = [x["exp_avg_sq"] if x else torch.zeros_like(p)
+          for x, p in zip(st, params)]
+    return count, mu, nu
+
+
+@torch.no_grad()
+def _set_adam_state(opt: torch.optim.Adam, params: Sequence, count: int,
+                    mu: Sequence, nu: Sequence) -> None:
+    for p, m, v in zip(params, mu, nu):
+        opt.state.pop(p, None)
+        if count > 0:
+            opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(np.array(m)).to(p.device),
+                "exp_avg_sq": torch.from_numpy(np.array(v)).to(p.device)}
+
+
+def _copy_into(dst: torch.Tensor, src) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"snapshot leaf shape {tuple(src.shape)} != "
+                         f"configured {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(src.astype(np.float32, copy=False)
+                               if dst.is_floating_point() else src))
+
+
 def _param_groups(params) -> Dict[str, List[torch.Tensor]]:
     """The optimiser groups: hash table, decoders, uncertainty grid."""
     return {"table": table_leaves(params["table"]),
@@ -329,6 +449,10 @@ class Mapper:
         self.step = 0
         # per-iteration losses (device scalars) of the last mapping call
         self.last_aux: List[Dict] = []
+        # the last mapping step's volumes, drained before the next BA
+        self._pending_vols: Optional[LazyVolumes] = None
+        self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                             else None)
 
     def _all_params(self) -> List[torch.Tensor]:
         return [p for g in self._groups.values() for p in g]
@@ -356,7 +480,7 @@ class Mapper:
         rays on the device. Host float colour is quantized to uint8 as in
         the JAX package; device tensors pass through."""
         if isinstance(color, np.ndarray) and color.dtype != np.uint8:
-            color = (np.clip(color, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+            color = quantize_color(color)
         color = torch.as_tensor(color, device=self.device)
         if color.dtype == torch.uint8:
             color = color.reshape(-1, 3).to(torch.float32) * (1.0 / 255.0)
@@ -702,6 +826,11 @@ class Mapper:
     def get_map_volumes(self):
         return tuple(v.cpu().numpy() for v in self.map_volumes())
 
+    def get_map_volumes_lazy(self) -> LazyVolumes:
+        """map_volumes() as a LazyVolumes view (host copy on first read)."""
+        return LazyVolumes(*self.map_volumes(), timer=self.timer,
+                           stream=self._copy_stream)
+
     # --------------------------------------------------------------- meshes
     def _save_mesh(self, kind: str, step: int, voxel_size: float,
                    suffix: str, color_mode: str) -> Optional[str]:
@@ -743,9 +872,9 @@ class Mapper:
                 or i % m.map_every == 0 or i % m.keyframe_every == 0)
 
     def online_recon_step(self, i: int, color, depth, c2w):
-        """One mapping step. Returns (uncert_vol, sdf_vol) device tensors on
-        mapping steps (step 0 and every map_every), else None. color/depth
-        may be None when needs_frame(i) is False."""
+        """One mapping step. Returns the (uncert_vol, sdf_vol) LazyVolumes
+        on mapping steps (step 0 and every map_every), else None.
+        color/depth may be None when needs_frame(i) is False."""
         m = self.cfg.mapper
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.device)
         frame_rays = None
@@ -766,7 +895,8 @@ class Mapper:
                     frame_rays, c2w,
                     (self._draw_first_frame() for _ in range(m.first_iters)))
             self.add_keyframe(frame_rays, 0)
-            return self.map_volumes()
+            self._pending_vols = self.get_map_volumes_lazy()
+            return self._pending_vols
         if self.track_enabled:
             # pose-only optimisation from the constant-speed model
             prev, prev2 = self.poses[i - 1], self.poses[max(i - 2, 0)]
@@ -780,10 +910,15 @@ class Mapper:
         if i % m.map_every == 0:
             bucket = self._pick_bucket(self.kf.count)
             self.printer(f"Global BA (bucket={bucket})", i, "Mapper")
+            # at most one mapping step in flight: the previous step's
+            # volumes exist on the device before this BA is enqueued
+            if self._pending_vols is not None:
+                with self._t("ba_drain"):
+                    self._pending_vols.ready()
             with self._t("ba_dispatch"):
                 self.last_aux = self._ba_impl(bucket, frame_rays, c2w, i)
             with self._t("volumes_dispatch"):
-                vols = self.map_volumes()
+                vols = self._pending_vols = self.get_map_volumes_lazy()
         if i % m.keyframe_every == 0:
             with self._t("keyframe_add"):
                 self.add_keyframe(frame_rays, i)
@@ -843,3 +978,112 @@ class Mapper:
         self.poses = torch.from_numpy(
             np.asarray(blob["poses"], np.float32)).to(self.device)
         self.step = int(meta.get("step", 0))
+
+    # ---------------------------------------------------- full-state resume
+    def _full_state_tree(self) -> Dict:
+        """The mapper's state as the JAX package's MapperState tree (a dict
+        of its fields), under its leaf names: the decoder's torch Adam as
+        optax's (add_decayed_weights, scale_by_adam, scale) chain state,
+        the table's EmbedAdam as EmbedAdamState, the uncertainty grid's
+        Adam as (scale_by_adam, scale); scalars where there is no
+        uncertainty grid, as the JAX package keeps them."""
+        node = ckpt_io.named_node
+        table = self.params["table"]
+        dec = self._groups["decoder"]
+        n_sdf = len(self.params["sdf_mlp"])
+        d_count, d_mu, d_nu = _adam_state(self.decoder_opt, dec)
+
+        def dec_tree(leaves):
+            return {"sdf_mlp": leaves[:n_sdf], "color_mlp": leaves[n_sdf:]}
+
+        if self.spec.uncert_grid:
+            u_count, (u_mu,), (u_nu,) = _adam_state(self.uncert_opt,
+                                                    self._groups["uncert"])
+            u_accum = self.uncert_accum
+        else:
+            u_count = 0
+            u_mu = u_nu = u_accum = np.zeros((), np.float32)
+        return {
+            "params": self.params,
+            "map_opt_state": {
+                "embed": node("EmbedAdamState",
+                              count=_i32(self.embed_opt.count),
+                              mu=_like_table(table, self.embed_opt.mu),
+                              nu=_like_table(table, self.embed_opt.nu)),
+                "decoder": (node("EmptyState"),
+                            node("ScaleByAdamState", count=_i32(d_count),
+                                 mu=dec_tree(d_mu), nu=dec_tree(d_nu)),
+                            node("EmptyState"))},
+            "uncert_opt_state": (node("ScaleByAdamState",
+                                      count=_i32(u_count), mu=u_mu,
+                                      nu=u_nu),
+                                 node("EmptyState")),
+            "uncert_accum": u_accum,
+            "kf": node("KeyframeDB", rays=self.kf.rays,
+                       frame_ids=self.kf.frame_ids,
+                       count=_i32(self.kf.count)),
+            "poses": self.poses,
+            "uncert_vol": self.uncert_vol,
+        }
+
+    def save_full_state(self, path: str, extra: Optional[Dict] = None,
+                        generators: Optional[Dict] = None) -> None:
+        """The full state as the JAX package's npz snapshot: its MapperState
+        tree, and a header with step, grid_layout, `extra` (a small
+        JSON-able dict: the pose, the planner's state) and, under
+        GENERATORS_KEY, the state of every draw site's generator and of
+        `generators` (others' draw sites, e.g. the planner's). The JAX
+        package's load_full_state reads it (and ignores the generators)."""
+        meta = {"kind": "full_state", "step": int(self.step),
+                "grid_layout": self.cfg.grid.layout,
+                GENERATORS_KEY: generator_states(
+                    {**self.gens, **(generators or {})})}
+        if extra:
+            meta["extra"] = extra
+        ckpt_io.save_tree(path, self._full_state_tree(), meta=meta)
+
+    @torch.no_grad()
+    def load_full_state(self, path: str,
+                        generators: Optional[Dict] = None) -> Dict:
+        """Restore a full-state snapshot of either package; returns the
+        header's `extra`. The generators (this mapper's and `generators`)
+        take the states of GENERATORS_KEY; a JAX snapshot has none (its
+        threefry key is no torch generator state), so after one the draws
+        continue from this mapper's seed. The JAX package's older pickle
+        snapshots are refused."""
+        if ckpt_io.is_legacy_pickle(path):
+            raise ValueError(
+                f"{path} is a pickle snapshot (the JAX package's format "
+                "before its npz checkpoints); the port reads only the npz "
+                "format of utils/ckpt_io.py: re-save it with the JAX "
+                "package's save_full_state")
+        blob, meta = ckpt_io.load_tree(path, self._full_state_tree())
+        self.load_weights(blob["params"])
+        emb = blob["map_opt_state"]["embed"]
+        self.embed_opt.count = int(emb.count)
+        for dst, src in zip(self.embed_opt.mu + self.embed_opt.nu,
+                            table_leaves(emb.mu) + table_leaves(emb.nu)):
+            _copy_into(dst, src)
+        dec = blob["map_opt_state"]["decoder"][1]
+        _set_adam_state(self.decoder_opt, self._groups["decoder"],
+                        int(dec.count),
+                        [*dec.mu["sdf_mlp"], *dec.mu["color_mlp"]],
+                        [*dec.nu["sdf_mlp"], *dec.nu["color_mlp"]])
+        if self.spec.uncert_grid:
+            un = blob["uncert_opt_state"][0]
+            _set_adam_state(self.uncert_opt, self._groups["uncert"],
+                            int(un.count), [un.mu], [un.nu])
+            _copy_into(self.uncert_accum, blob["uncert_accum"])
+        kf = blob["kf"]
+        _copy_into(self.kf.rays, kf.rays)
+        _copy_into(self.kf.frame_ids, kf.frame_ids)
+        self.kf.count = int(kf.count)
+        _copy_into(self.poses, blob["poses"])
+        _copy_into(self.uncert_vol, blob["uncert_vol"])
+        self.step = int(meta.get("step", 0))
+        self._pending_vols = None
+        states = meta.get(GENERATORS_KEY)
+        if states:
+            set_generator_states({**self.gens, **(generators or {})},
+                                 states)
+        return meta.get("extra", {})

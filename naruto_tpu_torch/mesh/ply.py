@@ -127,3 +127,13 @@ def read_ply(path: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
     farr = np.frombuffer(body, dtype=fdtype, count=n_face, offset=off)
     faces = farr["idx"].astype(np.int32)
     return verts, faces, colors
+
+
+def read_mesh(path: str):
+    """(verts, faces, colors) of a .ply mesh (read_ply, u8 colours) or a
+    .glb/.gltf one (load_gltf, f32 colours in [0, 1])."""
+    if path.lower().endswith((".glb", ".gltf")):
+        from naruto_tpu_torch.mesh.gltf import load_gltf
+
+        return load_gltf(path, quiet=True)
+    return read_ply(path)

@@ -1,1 +1,2 @@
-"""native (PyTorch port): the C++ marching-tets core and its g++ build."""
+"""native (PyTorch port): the C++ marching-tets and raycaster cores and
+their g++ build."""

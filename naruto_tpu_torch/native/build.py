@@ -1,6 +1,7 @@
-"""Build the port's native C++ extension with g++ (plain C ABI, bound with
+"""Build the port's native C++ extensions with g++ (plain C ABI, bound with
 ctypes): the port's own copy of naruto_tpu/native/build.py, for
-``marching_tets.cpp`` only.
+``marching_tets.cpp`` (mesh extraction) and ``raycaster.cpp`` (the raycast
+simulator's BVH renderer, a copy of the JAX package's).
 
 The library goes into ``naruto_tpu_torch/_build/`` under a name keyed by a
 hash of the source and the flags, so a changed source or flag builds anew
@@ -16,12 +17,15 @@ from pathlib import Path
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
 
-SOURCES = {"marching_tets": ["marching_tets.cpp"]}
+SOURCES = {"marching_tets": ["marching_tets.cpp"],
+           "raycaster": ["raycaster.cpp"]}
 
 CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
             "-fopenmp",
             # strict IEEE mul/add (no FMA contraction), as the JAX
-            # package's build: both packages' meshes agree bit for bit
+            # package's build: both packages' meshes and renders agree bit
+            # for bit, and the raycaster's packet, SIMD and scalar paths
+            # agree with each other
             "-ffp-contract=off"]
 
 

@@ -16,15 +16,16 @@ path node, orients the camera at the current look-at target, and runs
 collision detection (SDF line check + simulated ERP distance, combination
 depending on dataset — ref :512-594).
 
-Where it runs: the volumes arrive as the mapper's device tensors. The
-aggregation runs on the device; the RRT, the rotations and the FSM run on
-the host in numpy. The SDF volume is copied to the host only by the states
-that read it (planning: RRT and traversability mask, except at step 0, whose
-plan takes the SDF as all free; movingToGoal: the collision line check),
-once per volume, timed as the [Mapper] ``volumes_wait`` section as the JAX
-package's LazyVolumes times it; the rotating states never touch the device.
-The filtered uncertainty is a new tensor: the mapper's own volume, which its
-active-ray selection reads, is never written.
+Where it runs: the volumes arrive as the mapper's LazyVolumes view of its
+device tensors (or as a plain pair of tensors). The aggregation runs on the
+device; the RRT, the rotations and the FSM run on the host in numpy. The
+SDF volume is copied to the host only by the states that read it
+(planning: RRT and traversability mask, except at step 0, whose plan takes
+the SDF as all free; movingToGoal: the collision line check), once per
+volume, through the view, timed as the [Mapper] ``volumes_wait`` section;
+the rotating states never touch the device. The filtered uncertainty is a
+new tensor: the mapper's own volume, which its active-ray selection reads,
+is never written.
 
 Draws: the RRT's from a numpy Generator seeded with general.seed, as in the
 JAX package (the same SDF volumes grow the same trees); the aggregation's
@@ -32,8 +33,12 @@ target subset from the "planner_subset" torch.Generator of
 utils/seeding.py, through ``_draw_subset`` (tests replace it with the JAX
 package's draws).
 
-Not ported: ``export_state``/``restore_state``, which serve only the
-full-state resume (ROADMAP queue 1, item 5).
+``export_state``/``restore_state`` carry the FSM and the goal-repeat
+counters through a full-state snapshot, under the JAX package's JSON keys
+but its ``agg_key``: the subset draw's generator rides the snapshot's
+generator states (``generators()``). The RRT's numpy rng is not restored,
+as in the JAX package: a resumed run's trees diverge from the unbroken
+run's at the next plan.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 from naruto_tpu_torch.config.schema import MainConfig
 from naruto_tpu_torch.geometry.pose import lookat_rotation
 from naruto_tpu_torch.geometry.voxel import loc2vox, volume_shape, vox2loc
+from naruto_tpu_torch.mapping.mapper import LazyVolumes
 from naruto_tpu_torch.planner.aggregation import (AggregationOutputs,
                                                   Aggregator, make_goal_space)
 from naruto_tpu_torch.planner.collision import is_collision_free
@@ -93,13 +99,57 @@ class NarutoPlanner:
                             "mask_decays": 0}
         self._goal_visits: Dict = {}    # goal-space index -> times chosen
         self._last_goal_gi = None       # goal-space index of current plan
-        # the last SDF volume copied to the host, and its source tensor
-        self._sdf_src = None
-        self._sdf_np = None
+        # the view over plain (uncert, sdf) tensors handed in, if any
+        self._lazy: Optional[LazyVolumes] = None
 
     # -------------------------------------------------------------- wiring
     def update_step(self, step: int) -> None:
         self.step = step
+
+    # ---------------------------------------------------- state for resume
+    def export_state(self) -> Dict:
+        """The goal-repeat counters and the FSM as JSON (the JAX package's
+        keys, without agg_key)."""
+        return {"goal_visits": {",".join(str(int(i)) for i in k): int(v)
+                                for k, v in self._goal_visits.items()},
+                "last_goal_gi": (None if self._last_goal_gi is None
+                                 else [int(i) for i in self._last_goal_gi]),
+                "fsm": {
+                    "state": self.state,
+                    "path": [[float(v) for v in np.asarray(p)]
+                             for p in self.path],
+                    "lookat_tgts": [[float(v) for v in np.asarray(t)]
+                                    for t in self.lookat_tgts],
+                    "rots": [np.asarray(r).reshape(-1).tolist()
+                             for r in self.rots],
+                    "is_goal_reachable": bool(self.is_goal_reachable),
+                }}
+
+    def restore_state(self, blob: Dict) -> None:
+        """export_state's JSON (or the JAX package's: its agg_key, a
+        threefry key, is ignored). The path and the look-at targets come
+        back as float64 and the rotations as float32, the dtypes the live
+        FSM holds (the JAX package makes all three float32), so a resumed
+        run moves exactly as the unbroken one."""
+        self._goal_visits = {
+            tuple(int(i) for i in k.split(",")): int(v)
+            for k, v in blob.get("goal_visits", {}).items()}
+        gi = blob.get("last_goal_gi")
+        self._last_goal_gi = None if gi is None else tuple(
+            int(i) for i in gi)
+        fsm = blob.get("fsm")
+        if fsm:
+            self.state = fsm["state"]
+            self.path = [np.asarray(p, np.float64) for p in fsm["path"]]
+            self.lookat_tgts = [np.asarray(t, np.float64)
+                                for t in fsm["lookat_tgts"]]
+            self.rots = [np.asarray(r, np.float32).reshape(3, 3)
+                         for r in fsm["rots"]]
+            self.is_goal_reachable = bool(fsm["is_goal_reachable"])
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        """The planner's draw sites, for a snapshot's generator states."""
+        return {"planner.planner_subset": self.subset_gen}
 
     def update_sim(self, sim) -> None:
         self.sim = sim
@@ -140,18 +190,20 @@ class NarutoPlanner:
     def loc2vox(self, loc):
         return loc2vox(loc, self.bbox, self.voxel_size)
 
-    def _host_sdf(self, sdf_vol: torch.Tensor) -> np.ndarray:
-        """The SDF volume on the host, copied once per volume."""
-        if sdf_vol is not self._sdf_src:
-            with self.timer.time("volumes_wait", "Mapper"):
-                self._sdf_np = sdf_vol.cpu().numpy()
-            self._sdf_src = sdf_vol
-        return self._sdf_np
+    def _host_sdf(self, vols) -> np.ndarray:
+        """The SDF volume on the host, copied once per volume through its
+        LazyVolumes view (made here for a plain pair of tensors)."""
+        if not isinstance(vols, LazyVolumes):
+            if self._lazy is None or self._lazy[1] is not vols[1]:
+                self._lazy = LazyVolumes(vols[0], vols[1], self.timer)
+            vols = self._lazy
+        return vols.host(1)
 
     # ----------------------------------------------------------------- API
     def main(self, uncert_sdf_vols, cur_pose: np.ndarray,
              is_new_vols: bool) -> np.ndarray:
-        """uncert_sdf_vols: (uncert_vol, sdf_vol) [X, Y, Z] device tensors;
+        """uncert_sdf_vols: the (uncert_vol, sdf_vol) [X, Y, Z] device
+        tensors, as the mapper's LazyVolumes or a plain pair;
         cur_pose: the host [4, 4] c2w; returns the next pose (host)."""
         self.update_state(uncert_sdf_vols, cur_pose, is_new_vols)
         self.printer(f"Current state: {self.state}", self.step, "Planner")
@@ -175,7 +227,7 @@ class NarutoPlanner:
                 self.state = "rotationPlanningAtGoal"
             else:
                 next_loc = self.vox2loc(self.path[-1])
-                if self.detect_collision(self._host_sdf(uncert_sdf_vols[1]),
+                if self.detect_collision(self._host_sdf(uncert_sdf_vols),
                                          cur_pose, next_loc):
                     self.state = "staying"
                     self.stats["collisions"] += 1
@@ -259,7 +311,7 @@ class NarutoPlanner:
                          self.step, "Planner")
             self.stats["mask_refilters"] += 1
             self.traversability_mask = self.compute_traversability_mask(
-                self._host_sdf(sdf_vol), cur_pose)
+                self._host_sdf(uncert_sdf_vols), cur_pose)
             uncert_vol = uncert_vol * self._mask_on_device()
             valid, agg = self._aggregate(uncert_vol, sdf_vol)
 
@@ -272,7 +324,8 @@ class NarutoPlanner:
         })
 
         # at step 0 the map is unknown and path_planning takes it as free
-        sdf_host = None if self.step == 0 else self._host_sdf(sdf_vol)
+        sdf_host = (None if self.step == 0
+                    else self._host_sdf(uncert_sdf_vols))
         if self.pcfg.enable_eval:
             self.timer.start("path_planning", "Planner")
         path, reachable, trav_mask = self.path_planning(sdf_host, cur_pose,

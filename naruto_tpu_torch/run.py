@@ -3,21 +3,29 @@
 
 Surface parity with the reference entry (src/naruto/cfg_loader.py:57-76 /
 src/naruto/main.py): `--cfg` YAML experiment file (or `--dataset --scene`
-preset), `--seed`, `--result_dir`, `--num_iter`. The JAX CLI's `--platform`
-is `--device` here (default cuda; `--device cpu` runs on the host). Its
-`--enable_vis` (the artifact saver, ROADMAP queue 1 item 8) and `--sim`
-(other simulators, item 9) come with what they select.
+preset), `--seed`, `--result_dir`, `--num_iter`, and the JAX CLI's `--sim`,
+`--scene_path` and `--resume`. The JAX CLI's `--platform` is `--device`
+here (default cuda; `--device cpu` runs on the host). Its `--enable_vis`
+(the artifact saver, ROADMAP queue 1 item 8) comes with what it selects.
 
     python -m naruto_tpu_torch.run --cfg configs/Replica/office0/naruto.yaml
     python -m naruto_tpu_torch.run --cfg configs/ab/passive_traj_ab.yaml
+    python -m naruto_tpu_torch.run --sim raycast --scene_path mesh.ply
+    python -m naruto_tpu_torch.run --cfg ... --resume auto
 
 The first is the active loop (simulate -> map -> plan, the default), the
-second the passive protocol over a recorded trajectory; both on the
-analytic simulator. The engine refuses what is not ported yet.
+second the passive protocol over a recorded trajectory, both on the
+analytic simulator; the third the active loop on a scene mesh through the
+raycast simulator (make one with `python -m
+naruto_tpu_torch.scripts.make_scene_assets`); the fourth continues a run
+from the full-state snapshot its `general.ckpt_freq` wrote in the run
+directory (`auto`; or give a snapshot's path), or starts fresh when there
+is none. The engine refuses what is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -33,14 +41,17 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--result_dir", type=str, default=None)
     p.add_argument("--num_iter", type=int, default=None)
+    p.add_argument("--sim", type=str, default=None,
+                   help="simulator backend override (analytic|raycast)")
     p.add_argument("--scene_path", type=str, default=None,
                    help="scene asset path (sim.scene_path)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run (default cuda; cpu runs on "
                         "the host)")
     p.add_argument("--resume", type=str, default=None,
-                   help="full-state snapshot to resume from (not ported "
-                        "yet: raises)")
+                   help="full-state snapshot to resume from ('auto' = the "
+                        "run dir's full_state_latest.pkl; requires "
+                        "general.ckpt_freq > 0 to have written one)")
     return p.parse_args(argv)
 
 
@@ -58,27 +69,40 @@ def build_config(args):
         over["general"]["num_iter"] = args.num_iter
     if args.result_dir:
         over["general"]["result_dir"] = args.result_dir
+    if args.sim:
+        over["sim"] = {"method": args.sim}
     if args.scene_path:
-        over["sim"] = {"scene_path": args.scene_path}
+        over.setdefault("sim", {})["scene_path"] = args.scene_path
     return deep_update(cfg, over)
+
+
+def resume_path(args, run_dir: str):
+    """The snapshot --resume names ('auto': the run directory's, when there
+    is one), or None."""
+    if args.resume != "auto":
+        return args.resume
+    from naruto_tpu_torch.system.engine import SNAPSHOT_NAME
+
+    path = os.path.join(run_dir, SNAPSHOT_NAME)
+    if os.path.exists(path):
+        return path
+    print(f"[resume] no snapshot at {path}; starting fresh", flush=True)
+    return None
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.resume:
-        raise NotImplementedError(
-            "--resume needs full-state snapshots, which are not ported yet "
-            "(ROADMAP queue 1, item 5)")
     cfg = build_config(args)
     from naruto_tpu_torch.system.engine import Engine
 
     engine = Engine(cfg, device=args.device)
+    resume = resume_path(args, engine.run_dir) if args.resume else None
     dev = engine.device
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    engine.run()
+    engine.run(resume_from=resume)
     if on_card:
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()

@@ -4,15 +4,33 @@ from naruto_tpu_torch.sim.base import Simulator
 
 
 def init_simulator(cfg, device="cuda", printer=None):
-    """Simulator factory (counterpart of naruto_tpu/sim/__init__.py); the
-    port has the analytic backend so far."""
+    """Simulator factory (counterpart of naruto_tpu/sim/__init__.py): the
+    analytic scenes and the raycast renderer over a scene mesh. The replay
+    of recorded frames is not ported yet."""
     method = cfg.sim.method
     if method == "analytic":
         return AnalyticSimulator(cfg, device, printer)
-    if method in ("replay", "raycast"):
+    if method == "raycast":
+        from naruto_tpu_torch.sim.raycast import RaycastSimulator
+
+        return RaycastSimulator(cfg, device, printer)
+    if method == "replay":
+        # config-time guard, as in the JAX package: recorded data carries
+        # no ERP sensor, and MP3D/NARUTO active planning probes the sim's
+        # ERP for collisions
+        if (cfg.enable_active_planning
+                and cfg.general.dataset in ("MP3D", "NARUTO")):
+            raise ValueError(
+                f"sim.method='replay' cannot serve {cfg.general.dataset} "
+                "active planning: its collision rule probes the simulator's "
+                "ERP sensor and replay data has none. Use sim.method="
+                "'raycast' (or 'analytic'), or disable active planning "
+                "(passive replay).")
         raise NotImplementedError(
-            f"sim.method={method!r} is not ported yet (ROADMAP queue 1, "
-            f"item 9); the port has sim.method='analytic'")
+            "sim.method='replay' reads JPEG/PNG frames, and the image codecs "
+            "it needs are not ported yet (ROADMAP queue 1, item 8: replay, "
+            "scripted capture and the artifact saver); the port has "
+            "sim.method='analytic' and 'raycast'")
     raise ValueError(f"unknown simulator method: {method}")
 
 

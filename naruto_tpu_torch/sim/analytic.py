@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from naruto_tpu_torch.config import MainConfig
+from naruto_tpu_torch.geometry.erp import erp_ray_dirs
 from naruto_tpu_torch.geometry.rays import get_camera_rays
 from naruto_tpu_torch.geometry.voxel import world_grid
 from naruto_tpu_torch.sim.base import Simulator
@@ -83,20 +84,6 @@ def _trace(sdf, origins, dirs_unit, max_t: float):
     return t, hit
 
 
-def erp_ray_dirs(H: int, W: int) -> np.ndarray:
-    """[H, W, 3] unit equirectangular ray directions in the RDF frame."""
-    v = (np.arange(H, dtype=np.float32) + 0.5) / H
-    u = (np.arange(W, dtype=np.float32) + 0.5) / W
-    theta = np.pi * (0.5 - v)               # latitude, +pi/2 at top
-    phi = 2 * np.pi * (u - 0.5)             # longitude, 0 = forward
-    ct, st = np.cos(theta), np.sin(theta)
-    cp, sp = np.cos(phi), np.sin(phi)
-    x = ct[:, None] * sp[None, :]
-    y = -st[:, None] * np.ones_like(cp)[None, :]
-    z = ct[:, None] * cp[None, :]
-    return np.stack([x, y, z], axis=-1).astype(np.float32)
-
-
 class AnalyticSimulator(Simulator):
     def __init__(self, cfg: MainConfig, device="cuda",
                  printer: Optional[InfoPrinter] = None):
@@ -113,8 +100,7 @@ class AnalyticSimulator(Simulator):
             H, W, c.fx, c.fy, c.cx, c.cy).reshape(-1, 3)).to(self.device)
         self._pin_hw = (H, W)
         He, We = cfg.sim.erp_hw
-        self._erp_dirs = torch.from_numpy(
-            erp_ray_dirs(He, We).reshape(-1, 3)).to(self.device)
+        self._erp_dirs = erp_ray_dirs(He, We, self.device).reshape(-1, 3)
         self._erp_hw = (He, We)
         self.invalid = cfg.sim.invalid_depth_value
 

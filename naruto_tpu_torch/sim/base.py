@@ -6,13 +6,30 @@ simulate(c2w, return_erp=False) ->
      distance, invalid -> sim.invalid_depth_value).
 c2w is the mapper's RDF camera-to-world pose. The port's simulators return
 tensors on their device.
+
+frame(c2w) -> (uint8 colour [H, W, 3], depth [H, W]) on the device: the
+frame as the engine hands it to the mapper. The colour is quantized where
+the renderer's output lies (on the device for the analytic simulator, on
+the host before the copy for the raycast one) by the same expression.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from naruto_tpu_torch.config import MainConfig
 from naruto_tpu_torch.utils.printer import InfoPrinter
+
+
+def quantize_color(color):
+    """Float colour in [0, 1] -> uint8 (the mapper's frame_to_rays
+    dequantizes it): a tensor on its device, or a host numpy array by the
+    same f32 expression (the JAX package's host quantization)."""
+    if isinstance(color, np.ndarray):
+        return (np.clip(color, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
 class Simulator:
@@ -28,6 +45,11 @@ class Simulator:
 
     def simulate(self, c2w, return_erp: bool = False):
         raise NotImplementedError
+
+    def frame(self, c2w):
+        """The engine's frame: (uint8 colour, depth) on the device."""
+        color, depth = self.simulate(c2w)[:2]
+        return quantize_color(color), depth
 
     def probe_erp_dist(self, c2w):
         """ERP distance map only (what collision probes consume)."""

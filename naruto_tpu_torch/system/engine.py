@@ -7,14 +7,21 @@ on the main thread when the mapper consumes it (``needs_frame``), run one
 mapping step, and in the active mode let the planner emit the next pose
 from the volumes of the last mapping step. At the end, ``finalize`` writes
 the final mesh, the checkpoint, the trajectory length, the planner's
-statistics (``planner_stats.json``, active mode), the analytic scene's
-ground-truth mesh and the metric row (accuracy, completion, ratio, F-score,
-MAD) to ``eval_result.txt``, and prints the timing breakdown.
+statistics (``planner_stats.json``, active mode), the ground truth and the
+metric row (accuracy, completion, ratio, F-score, MAD) to
+``eval_result.txt``, and prints the timing breakdown. The ground truth is,
+in the JAX package's order, the analytic scene's exact mesh (a simulator
+with ``gt_occupancy_volume``), else the ``sim.scene_path`` mesh (``.ply``,
+``.glb``, ``.gltf``, or ``mesh.ply``/``mesh.glb`` in a scene directory);
+without one there is no metric row. A failed evaluation fails the run.
+
+With ``general.ckpt_freq`` > 0 every ckpt_freq-th step (but step 0) writes
+``<result_dir>/<dataset>/<scene>/full_state_latest.pkl``: the mapper's
+full state, the pose and the planner's state. ``run(resume_from=...)``
+continues from such a snapshot (of either package) at its step + 1.
 
 Not ported yet, and refused: the artifact saver of ``vis.enable_all_vis``
-(ROADMAP queue 1, item 8), mid-run full-state checkpoints
-(``general.ckpt_freq``) and resuming from them (item 5). A failed
-evaluation fails the run.
+(ROADMAP queue 1, item 8, with the image codecs it needs).
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from naruto_tpu_torch.evaluation import eval_mad, eval_mesh, eval_traj_length
 from naruto_tpu_torch.mapping.mapper import Mapper
 from naruto_tpu_torch.mesh.extract import save_mesh
 from naruto_tpu_torch.mesh.marching import marching_cubes
-from naruto_tpu_torch.mesh.ply import read_ply, write_ply
+from naruto_tpu_torch.mesh.ply import read_mesh, read_ply, write_ply
 from naruto_tpu_torch.planner import init_planner
 from naruto_tpu_torch.sim import init_simulator
 from naruto_tpu_torch.system.pose_loader import PoseLoader
@@ -39,24 +46,15 @@ from naruto_tpu_torch.utils.results import update_results_file
 from naruto_tpu_torch.utils.timer import Timer
 
 
+SNAPSHOT_NAME = "full_state_latest.pkl"
+
+
 def _refuse_unported(cfg: MainConfig) -> None:
     if cfg.vis.enable_all_vis:
         raise NotImplementedError(
             "vis.enable_all_vis needs the artifact saver, which is not "
-            "ported yet (ROADMAP queue 1, item 8)")
-    if cfg.general.ckpt_freq:
-        raise NotImplementedError(
-            "general.ckpt_freq > 0 writes full-state snapshots, which are "
-            "not ported yet (ROADMAP queue 1, item 5)")
-
-
-def quantize_color(color: torch.Tensor) -> torch.Tensor:
-    """Float colour in [0, 1] -> uint8 (the mapper's frame_to_rays
-    dequantizes it), in both modes: the JAX package's passive runs quantize
-    a frame for its host-to-device hop, so the two packages' passive frames
-    are equal; its active loop hands the mapper the analytic simulator's
-    device colour unquantized (half a step of 1/255 apart at most)."""
-    return (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+            "ported yet (ROADMAP queue 1, item 8, with the image codecs it "
+            "needs)")
 
 
 class Engine:
@@ -111,14 +109,60 @@ class Engine:
             c2w[:3, 3] = self.cfg.mapper.bound_np.mean(axis=1)
         return c2w
 
-    def run(self, num_iter: Optional[int] = None) -> np.ndarray:
-        """The first `num_iter` steps (general.num_iter by default); returns
-        the last pose (host [4, 4])."""
+    def _generators(self) -> dict:
+        """The draw sites outside the mapper whose states ride a snapshot."""
+        if self.cfg.enable_active_planning:
+            return self.planner.generators()
+        return {}
+
+    def snapshot_path(self) -> str:
+        return os.path.join(self.run_dir, SNAPSHOT_NAME)
+
+    def save_snapshot(self, c2w) -> None:
+        """The full state at the current step, with the pose the next step
+        starts from and the planner's state."""
+        extra = {"c2w": np.asarray(c2w, np.float32).tolist()}
+        if self.cfg.enable_active_planning:
+            extra["planner"] = self.planner.export_state()
+        with self.timer.time("full_state_save", "General"):
+            self.mapper.save_full_state(self.snapshot_path(), extra=extra,
+                                        generators=self._generators())
+
+    def resume(self, path: str, c2w: np.ndarray) -> np.ndarray:
+        """Restore a snapshot; returns the pose to continue from."""
+        with self.timer.time("full_state_load", "General"):
+            extra = self.mapper.load_full_state(
+                path, generators=self._generators())
+        if extra.get("c2w") is not None:
+            c2w = np.asarray(extra["c2w"], np.float32)
+        if self.cfg.enable_active_planning:
+            if extra.get("planner"):
+                self.planner.restore_state(extra["planner"])
+            # the restored FSM may be mid-plan, and its collision checks
+            # read the volumes before the next mapping step: recompute them
+            # from the restored field (a pure function of it)
+            self.uncert_sdf = self.mapper.get_map_volumes_lazy()
+        self.printer(f"Resumed from {path} at step {self.mapper.step + 1}",
+                     self.mapper.step + 1, "Engine")
+        return c2w
+
+    def run(self, num_iter: Optional[int] = None,
+            resume_from: Optional[str] = None) -> np.ndarray:
+        """Steps up to `num_iter` (general.num_iter by default), from step 0
+        or, with `resume_from` (a full-state snapshot), from its step + 1
+        at its pose; returns the last pose (host [4, 4]). A resumed run
+        draws as the unbroken one would (the generators ride the
+        snapshot), but for the RRT's host rng, which is not restored: the
+        two part at the next plan."""
         cfg = self.cfg
         n = num_iter if num_iter is not None else cfg.general.num_iter
         active = cfg.enable_active_planning
         c2w = self._init_pose()
-        for i in range(n):
+        start = 0
+        if resume_from:
+            c2w = self.resume(resume_from, c2w)
+            start = self.mapper.step + 1
+        for i in range(start, n):
             for mod in ((self.sim, self.mapper, self.planner) if active
                         else (self.sim, self.mapper)):
                 mod.update_step(i)
@@ -127,8 +171,7 @@ class Engine:
             # a frame nothing consumes is not rendered, and not timed
             if self.mapper.needs_frame(i):
                 with self.timer.time("Simulation", "General"):
-                    color, depth = self.sim.simulate(c2w)[:2]
-                    color = quantize_color(color)
+                    color, depth = self.sim.frame(c2w)
             with self.timer.time("SLAM", "General"):
                 new_vols = self.mapper.online_recon_step(i, color, depth,
                                                          c2w)
@@ -138,6 +181,9 @@ class Engine:
                         self.uncert_sdf = new_vols
                     c2w = self.planner.main(self.uncert_sdf, c2w,
                                             new_vols is not None)
+            freq = cfg.general.ckpt_freq
+            if freq and i > 0 and i % freq == 0:
+                self.save_snapshot(c2w)
             if (i + 1) % 250 == 0:
                 print(f"[Engine] step {i + 1} timers:\n"
                       f"{self.timer.summary()}", flush=True)
@@ -174,22 +220,18 @@ class Engine:
                            "events": self.planner.stats["events"]}, f,
                           indent=1)
 
-        # the analytic scene's exact GT mesh: the recon metrics need no
-        # external data
-        vs = cfg.mesh.voxel_eval
         with section("gt_mesh"):
-            gt_v, gt_f = marching_cubes(self.sim.gt_occupancy_volume(vs),
-                                        truncation=1e9)
-            gt_path = os.path.join(out, "gt_mesh.ply")
-            write_ply(gt_path, gt_v * vs + cfg.mapper.bound_np[:, 0], gt_f)
+            gt_path = self._ground_truth(out)
 
         # the full metric row next to traj_length (ref eval_replica.sh +
         # update_results_file, src/utils/general_utils.py:163-188)
         # (the JAX package's finalize swallows a failed evaluation; here it
         # fails the run)
-        if cfg.general.final_eval:
+        if cfg.general.final_eval and gt_path is not None:
+            self.printer(f"Eval against the ground truth {gt_path}",
+                         cfg.general.num_iter, "Eval")
             rec_v, rec_f, _ = read_ply(mesh_path)
-            gt_v, gt_f, _ = read_ply(gt_path)
+            gt_v, gt_f, _ = read_mesh(gt_path)
             with section("eval_mesh"):
                 row = eval_mesh(rec_v, rec_f, gt_v, gt_f)
             with section("eval_mad"):
@@ -199,3 +241,26 @@ class Engine:
                 "Eval: " + " ".join(f"{k}={v:.3f}" for k, v in row.items()),
                 cfg.general.num_iter, "Eval")
         self.timer.time_analysis()
+
+    def _ground_truth(self, out: str) -> Optional[str]:
+        """The ground-truth mesh's path, in the JAX package's order: the
+        analytic scene's exact mesh (written to out/gt_mesh.ply), else the
+        scene_path mesh, else mesh.ply / mesh.glb in the scene directory;
+        None without one."""
+        cfg = self.cfg
+        if hasattr(self.sim, "gt_occupancy_volume"):
+            vs = cfg.mesh.voxel_eval
+            gt_v, gt_f = marching_cubes(self.sim.gt_occupancy_volume(vs),
+                                        truncation=1e9)
+            gt_path = os.path.join(out, "gt_mesh.ply")
+            write_ply(gt_path, gt_v * vs + cfg.mapper.bound_np[:, 0], gt_f)
+            return gt_path
+        scene = cfg.sim.scene_path
+        if scene.lower().endswith((".ply", ".glb", ".gltf")) \
+                and os.path.exists(scene):
+            return scene
+        for name in ("mesh.ply", "mesh.glb"):
+            cand = os.path.join(scene, name)
+            if os.path.isfile(cand):
+                return cand
+        return None

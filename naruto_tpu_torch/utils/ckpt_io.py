@@ -6,11 +6,16 @@ A checkpoint is a plain .npz zip: one array per tree leaf, keyed by its tree
 path (``leaf:['params']['sdf_mlp'][0]``, jax's ``keystr``), plus a
 ``__meta__`` JSON string with ``format_version``, the tree's structure
 string and caller metadata (step, grid layout). Trees are nested dicts,
-lists and tuples of tensors or arrays. The structure string is the one
-``str(jax.tree_util.tree_structure(tree))`` gives for such a tree, e.g.
-``PyTreeDef({'params': {'sdf_mlp': [*, *], 'table': {'hash': *}}, 'poses':
-*})``: dict keys sorted, lists ``[...]``, tuples ``(...)``, leaves ``*``.
-Leaves are flattened in that order too.
+lists, tuples and NamedTuples (``named_node``) of tensors or arrays. The
+structure string is the one ``str(jax.tree_util.tree_structure(tree))``
+gives for such a tree, e.g. ``PyTreeDef({'params': {'sdf_mlp': [*, *],
+'table': {'hash': *}}, 'poses': *})``: dict keys sorted, lists ``[...]``,
+tuples ``(...)``, a NamedTuple ``CustomNode(namedtuple[Name], [...])``
+with its fields in declaration order (path pieces ``.field``), leaves
+``*``. Leaves are flattened in that order too. The full-state snapshot's
+tree is the JAX package's ``MapperState``, whose optimizer states and
+keyframe store are NamedTuples (``EmbedAdamState``, optax's
+``ScaleByAdamState`` and ``EmptyState``, ``KeyframeDB``).
 
 Loading never unpickles: ``load_tree`` re-attaches the leaves to a live
 template after checking the structure string and the leaf set, so layout
@@ -18,6 +23,7 @@ drift is a clear error.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -27,6 +33,22 @@ import torch
 
 FORMAT_VERSION = 1
 _LEAF = "leaf:"
+_ZIP_MAGIC = b"PK\x03\x04"
+_NAMED: Dict[Tuple[str, Tuple[str, ...]], type] = {}
+
+
+def named_node(name: str, **fields) -> tuple:
+    """A NamedTuple tree node of class `name` with `fields` in order: it
+    flattens and fingerprints as the JAX package's NamedTuple of that name
+    does."""
+    key = (name, tuple(fields))
+    if key not in _NAMED:
+        _NAMED[key] = collections.namedtuple(name, key[1])
+    return _NAMED[key](**fields)
+
+
+def _is_named(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
 def _children(node) -> Optional[List[Tuple[str, Any]]]:
@@ -34,6 +56,8 @@ def _children(node) -> Optional[List[Tuple[str, Any]]]:
     leaf."""
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_named(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
         return [(f"[{i}]", v) for i, v in enumerate(node)]
     return None
@@ -54,6 +78,9 @@ def _structure(node) -> str:
                                for k in sorted(node)) + "}"
     if isinstance(node, list):
         return "[" + ", ".join(_structure(v) for v in node) + "]"
+    if _is_named(node):
+        inner = ", ".join(_structure(v) for v in node)
+        return f"CustomNode(namedtuple[{type(node).__name__}], [{inner}])"
     if isinstance(node, tuple):
         inner = ", ".join(_structure(v) for v in node)
         return f"({inner},)" if len(node) == 1 else f"({inner})"
@@ -89,6 +116,13 @@ def save_tree(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     os.replace(tmp, path)
 
 
+def is_legacy_pickle(path: str) -> bool:
+    """True for a file that is no npz (the JAX package's pre-npz pickle
+    snapshots, which this package never unpickles)."""
+    with open(path, "rb") as f:
+        return f.read(4) != _ZIP_MAGIC
+
+
 def _read_meta(z) -> Dict:
     header = json.loads(bytes(z["__meta__"].tobytes()).decode())
     if header.get("format_version", 0) > FORMAT_VERSION:
@@ -104,6 +138,8 @@ def _unflatten(template: Any, leaves: List[np.ndarray]) -> Any:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if _is_named(node):
+            return type(node)(*(build(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return next(it)

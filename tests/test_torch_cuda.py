@@ -772,3 +772,77 @@ def test_encode_grads_on_card_match_host(gen, cuda_device, layout, n):
         scale = float(torch.cumsum(ref.reshape(-1, ref.shape[-1]), 0)
                       .abs().max())
         assert float((got - ref).abs().max()) <= 2e-6 * scale
+
+
+# ------------------------------------------- mesh scenes, snapshots, volumes
+@pytest.mark.cuda
+def test_raycast_frames_land_on_card_with_host_values(cuda_device):
+    """The raycast simulator renders on the host; its frames reach the card
+    with the host's values: simulate's float frames, and frame()'s colour
+    quantized on the host before the copy, equal to quantize_color of the
+    float colour on the card."""
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.sim.base import quantize_color
+    from naruto_tpu_torch.sim.raycast import RaycastSimulator
+
+    cfg = make_config("Replica", "office0", overrides={
+        "cam": {"H": 24, "W": 32, "fx": 16.0, "fy": 16.0, "cx": 15.5,
+                "cy": 11.5},
+        "sim": {"method": "raycast", "pinhole_hw": (24, 32),
+                "erp_hw": (16, 32)}})
+    rng = np.random.default_rng(0)
+    verts = rng.uniform(-3, 3, (900, 3)).astype(np.float32)
+    faces = rng.integers(0, 900, (300, 3)).astype(np.int32)
+    colors = rng.uniform(0, 1, (900, 3)).astype(np.float32)
+    sim = RaycastSimulator(cfg, cuda_device, verts=verts, faces=faces,
+                           colors=colors)
+    c2w = np.eye(4, dtype=np.float32)
+    host = sim.render_host(c2w, return_erp=True)
+    card = sim.simulate(c2w, return_erp=True)
+    assert (host[1] > 0).any()
+    for h, c in zip(host, card):
+        assert c.is_cuda
+        np.testing.assert_array_equal(c.cpu().numpy(), h)
+    color, depth = sim.frame(c2w)
+    assert color.is_cuda and color.dtype == torch.uint8
+    assert torch.equal(color, quantize_color(card[0]))
+    assert torch.equal(depth, card[1])
+
+
+@pytest.mark.cuda
+def test_card_generator_states_round_trip_through_a_snapshot(cuda_device,
+                                                             tmp_path):
+    """The card's Philox generators (seed and offset) ride the snapshot's
+    header: a mapper restored from it draws what the writer draws next."""
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    cfg = make_config("Replica", "office0", num_iter=10, overrides=MESH_TINY)
+    a = Mapper(cfg, device=cuda_device)
+    for g in a.gens.values():
+        assert g.device.type == "cuda"
+        torch.rand(7, device=cuda_device, generator=g)
+    path = str(tmp_path / "s.pkl")
+    a.save_full_state(path)
+    b = Mapper(cfg, device=cuda_device)
+    b.load_full_state(path)
+    for k in a.gens:
+        want = torch.rand(5, device=cuda_device, generator=a.gens[k])
+        got = torch.rand(5, device=cuda_device, generator=b.gens[k])
+        assert torch.equal(got, want), k
+
+
+@pytest.mark.cuda
+def test_lazy_volumes_on_card_match_an_eager_pull(mapper_pair):
+    """LazyVolumes' side-stream copy into pinned memory gives the eager
+    pull's values bit for bit, once per volume."""
+    from naruto_tpu_torch.utils.timer import Timer
+
+    _, card = mapper_pair
+    card.timer = Timer()
+    vols = card.get_map_volumes_lazy()
+    eager = [v.cpu().numpy() for v in card.map_volumes()]
+    assert vols.ready() is vols
+    for i in (1, 0, 1):
+        np.testing.assert_array_equal(vols.host(i), eager[i])
+    assert len(card.timer.timings["volumes_wait"]) == 2

@@ -179,35 +179,68 @@ def test_gt_occupancy_volume_matches_jax():
 @pytest.mark.parametrize("over,match", [
     ({"enable_active_planning": True}, None),
     ({"vis": {"enable_all_vis": True}}, "item 8"),
-    ({"general": {"ckpt_freq": 10}}, "item 5"),
-])
+    ({"general": {"ckpt_freq": 10}}, None),
+], ids=["over0-None", "over1-item 8", "over2-item 5"])
 def test_engine_refuses_what_is_not_ported(tmp_path, over, match):
-    """The artifact saver and full-state snapshots raise; active planning,
-    ported, builds the planner on the engine's device."""
+    """The artifact saver raises; active planning, ported, builds the
+    planner on the engine's device; ckpt_freq, ported, writes the run's
+    full-state snapshot every ckpt_freq steps but step 0."""
     cfg = deep_update(passive_cfg(tmp_path), over)
-    if match is None:
-        eng = Engine(cfg, device="cpu", quiet=True)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Engine(cfg, device="cpu")
+        return
+    eng = Engine(cfg, device="cpu", quiet=True)
+    if cfg.enable_active_planning:
         assert eng.planner.aggregate.device == eng.device
         assert eng.planner.sim is eng.sim and eng.pose_loader.traj is None
         return
-    with pytest.raises(NotImplementedError, match=match):
-        Engine(cfg, device="cpu")
+    snaps = []
+    eng.save_snapshot = lambda c2w: snaps.append(eng.mapper.step)
+    eng.run(num_iter=21)
+    assert snaps == [10, 20]
 
 
 @pytest.mark.parametrize("method", ["replay", "raycast"])
 def test_other_simulators_refused(tmp_path, method):
-    cfg = deep_update(passive_cfg(tmp_path), {"sim": {"method": method}})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        init_simulator(cfg, "cpu")
+    """replay (image codecs, item 8) still raises; raycast, ported, builds
+    the port's RaycastSimulator over the scene_path mesh."""
+    from naruto_tpu_torch.mesh.ply import write_ply
+    from naruto_tpu_torch.sim.raycast import RaycastSimulator
+
+    mesh = str(tmp_path / "tri.ply")
+    write_ply(mesh, np.array([[0, 0, 2], [1, 0, 2], [0, 1, 2]], np.float32),
+              np.array([[0, 1, 2]], np.int32))
+    cfg = deep_update(passive_cfg(tmp_path), {"sim": {"method": method,
+                                                      "scene_path": mesh}})
+    if method == "raycast":
+        sim = init_simulator(cfg, "cpu")
+        assert isinstance(sim, RaycastSimulator) and sim.n_faces == 1
+        depth = sim.simulate(np.eye(4, dtype=np.float32))[1]
+        assert depth.shape == (24, 32) and float(depth.max()) == 2.0
+    else:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            init_simulator(cfg, "cpu")
     with pytest.raises(ValueError, match="unknown simulator"):
         init_simulator(deep_update(cfg, {"sim": {"method": "nope"}}), "cpu")
 
 
-def test_run_cli_refuses_resume(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trun.main(["--cfg", os.path.join(ROOT, "configs", "ab",
-                                         "passive_traj_ab.yaml"),
-                   "--resume", "auto", "--device", "cpu"])
+def test_run_cli_refuses_resume(tmp_path, capsys):
+    """--resume, ported: 'auto' with no snapshot in the run directory
+    starts fresh and says so; a path that does not exist fails."""
+    args = trun.parse_args(["--cfg", os.path.join(
+        ROOT, "configs", "ab", "passive_traj_ab.yaml"), "--resume", "auto",
+        "--result_dir", str(tmp_path), "--device", "cpu"])
+    assert trun.resume_path(args, str(tmp_path)) is None
+    assert "starting fresh" in capsys.readouterr().out
+    (tmp_path / "full_state_latest.pkl").write_bytes(b"")
+    assert trun.resume_path(args, str(tmp_path)) == str(
+        tmp_path / "full_state_latest.pkl")
+    args.resume = str(tmp_path / "elsewhere.pkl")
+    assert trun.resume_path(args, str(tmp_path)) == args.resume
+    eng = Engine(passive_cfg(tmp_path), device="cpu", quiet=True)
+    with pytest.raises(FileNotFoundError):
+        eng.run(resume_from=args.resume)
 
 
 def test_no_quiet_fallback_to_the_host(tmp_path):

@@ -161,7 +161,17 @@ def test_evaluate_cli(tmp_path):
     jcli.main(args + ["--out", str(tmp_path / "j.txt"), "--platform", "cpu"])
     assert (tmp_path / "t.txt").read_text() == \
         (tmp_path / "j.txt").read_text()
-    with pytest.raises(NotImplementedError, match="glTF"):
-        tcli.main(["--rec", rec, "--gt", str(tmp_path / "gt.glb"),
-                   "--device", "cpu"])
+    # a .glb ground truth, ported: the JAX CLI's row for it
+    from naruto_tpu.mesh.gltf import write_glb
+
+    glb = str(tmp_path / "gt.glb")
+    write_glb(glb, gv, gf)
+    args = ["--rec", rec, "--gt", glb, "--n_samples", "5000"]
+    tcli.main(args + ["--out", str(tmp_path / "tg.txt"), "--device", "cpu"])
+    jcli.main(args + ["--out", str(tmp_path / "jg.txt"), "--platform",
+                      "cpu"])
+    assert (tmp_path / "tg.txt").read_text() == \
+        (tmp_path / "jg.txt").read_text()
+    assert (tmp_path / "tg.txt").read_text() == \
+        (tmp_path / "t.txt").read_text()
 

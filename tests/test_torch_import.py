@@ -19,6 +19,9 @@ def test_package_imports_with_jax_blocked():
             parts = parts[:-1]
         mods.append(".".join(("naruto_tpu_torch",) + parts))
     assert "naruto_tpu_torch.mapping.pose_opt" in mods
+    for new in ("sim.raycast", "sim.rigs", "mesh.gltf", "geometry.erp",
+                "geometry.projection", "scripts.make_scene_assets"):
+        assert f"naruto_tpu_torch.{new}" in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
