@@ -96,6 +96,32 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      RRT's first draw, with phase 10's poses bit for bit until that draw.
      The snapshots' sizes and the seconds to write and to load them are
      printed.
+ 12. replay: the image codec (utils/image_io.py, native/image_codec.cpp)
+     held to its contracts at 680x1200 (PNG uint8 and uint16 round trips
+     exact, a JPEG round trip of an analytic frame at >= CODEC_MIN_PSNR_DB,
+     jet equal to matplotlib's values pinned in JET_PINNED), with its
+     decode and encode ms; then the first REPLAY_STEPS poses of
+     data/traj_ab/traj.txt captured from the analytic office0 room by
+     sim/scripted.py (frame JPEGs, 16-bit depth PNGs, traj.txt) into a
+     temporary directory, and phase 6's run cut to REPLAY_STEPS steps
+     twice: on the analytic simulator, then over sim.method replay of the
+     capture (with the analytic run's gt_mesh.ply beside it as mesh.ply).
+     The replayed trajectory must be the analytic one within TRAJ_TOL, its
+     ratio within REPLAY_RATIO_PTS points and its MAD within REPLAY_MAD_CM
+     of the analytic run's; the replays of phase 6 on both runs. The ms a
+     frame to capture (render + encode) and to replay (decode + copy), and
+     both runs' walls, are printed.
+ 13. --enable_vis: phase 7's run (ACTIVE_SEED, its configuration) for
+     VIS_STEPS steps with vis.enable_all_vis and vis.vis_rgbd, then every
+     mode of visualization/offline.py on its visualization/ directory
+     (traj, mesh_evo on both mesh kinds, video, replay at stride
+     VIS_REPLAY_STRIDE with its AVI) and export_pose on the run's
+     checkpoint. VIS_STEPS files in each per-step directory and
+     VIS_STEPS / save_mesh_freq in each mesh directory; every PNG and AVI
+     frame decodes to its shape; the uncertainty meshes' colours lie on
+     the jet table; export_pose's array equals the run's poses, and the
+     VIS_STEPS poses equal phase 7's first VIS_STEPS bit for bit (the
+     saver only renders frames and reads the field).
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -107,7 +133,8 @@ card's name and power limit, and the line before that the kernels' JSON
 (each kernel's launches on every path that drives it: the slice of phase
 4, the microbenchmarks of phase 5, the passive run of phase 6, the active
 run of phase 7, the parity run of phase 8, the settings run of phase 9,
-the raycast run of phase 10, the two resumed runs of phase 11).
+the raycast run of phase 10, the two resumed runs of phase 11, the
+replayed run of phase 12, the --enable_vis run of phase 13).
 """
 from __future__ import annotations
 
@@ -257,6 +284,26 @@ PORT_PASSIVE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307809,
                     "completion_cm": 1.279369,
                     "completion_ratio_pct": 99.6265,
                     "fscore_pct": 99.495077, "mad_cm": 0.463325}
+# phase 12: the codec, the capture and the replayed passive run
+REPLAY_STEPS = 200
+REPLAY_RATIO_PTS = 0.5     # |replayed - analytic| completion ratio, points
+REPLAY_MAD_CM = 0.05       # |replayed - analytic| MAD
+CODEC_MIN_PSNR_DB = 40.0   # quality 95, 4:2:0, a 680x1200 frame (43-51 dB)
+CODEC_REPS = 5
+# matplotlib.cm.jet(i)[:3] (matplotlib 3.10) at these table indices
+JET_PINNED = {
+    0: (0.0, 0.0, 0.5),
+    32: (0.0, 0.00196078431372549, 1.0),
+    64: (0.0, 0.503921568627451, 1.0),
+    96: (0.08538899430740036, 1.0, 0.8823529411764706),
+    128: (0.4901960784313725, 1.0, 0.4775458570524984),
+    160: (0.8950031625553446, 1.0, 0.07273877292852626),
+    192: (1.0, 0.5816993464052289, 0.0),
+    224: (1.0, 0.11692084241103862, 0.0),
+    255: (0.5, 0.0, 0.0)}
+# phase 13: the --enable_vis run and the offline tools
+VIS_STEPS = 60
+VIS_REPLAY_STRIDE = 5
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of the host
 PROFILED_PLANS = 3         # aggregations traced by the profiler, at most
 SOURCE = {
@@ -1553,7 +1600,7 @@ def run_active(torch, kernels, prims, root: str, tag: str = "active",
             t0 = time.perf_counter()
             eng.run()
             torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
+            run_s = eng.run_seconds = time.perf_counter() - t0
             want_iters = sum(1 for i in range(1, cfg.general.num_iter)
                              if i % m.map_every == 0) * m.iters
             if len(per_iter) != want_iters:
@@ -1859,6 +1906,306 @@ def run_resumed_active(torch, kernels, prims, info: dict) -> tuple:
     return counts, recorder.replay("resumed")
 
 
+# -------------------------------------------------------------- phase 12
+def _median_ms(fn, reps: int = CODEC_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def check_codec(torch, frame, depth_trunc: float) -> dict:
+    """The codec's contracts at the frame's size (the card machine has no
+    cv2 to compare with): PNG round trips exact, a JPEG round trip within
+    CODEC_MIN_PSNR_DB, jet equal to matplotlib's pinned values; returns
+    the codec's ms (host medians of CODEC_REPS calls), the saver's rgbd
+    panel of this frame (RGB | jet depth) among them."""
+    import numpy as np
+
+    from naruto_tpu_torch.native import build
+    from naruto_tpu_torch.sim.base import truncate_color
+    from naruto_tpu_torch.utils import image_io
+    from naruto_tpu_torch.visualization import raster
+    from naruto_tpu_torch.visualization.saver import rgbd_panel
+
+    lib = build.lib_path("image_codec")
+    how = "found" if lib.exists() else "built with g++"
+    t0 = time.perf_counter()
+    image_io._lib()
+    log(f"[codec] {lib.name} {how} and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    color, depth = (x.cpu().numpy() for x in frame)
+    rgb = truncate_color(color)
+    d16 = np.clip(depth * 6553.5, 0, 65535).astype(np.uint16)
+    png8, png16 = image_io.encode_png(rgb), image_io.encode_png(d16)
+    if not np.array_equal(image_io.decode_png(png8), rgb):
+        fail("the uint8 PNG round trip is not exact")
+    if not np.array_equal(image_io.decode_png(png16), d16):
+        fail("the uint16 PNG round trip is not exact")
+    jpg = image_io.encode_jpeg(rgb)
+    back = image_io.decode_jpeg(jpg)
+    if back.shape != rgb.shape:
+        fail(f"the JPEG round trip gave {back.shape}, not {rgb.shape}")
+    mse = float(np.mean((back.astype(np.float64) - rgb) ** 2))
+    psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    if psnr < CODEC_MIN_PSNR_DB:
+        fail(f"JPEG round trip at {psnr:.2f} dB < {CODEC_MIN_PSNR_DB}")
+    for i, want in JET_PINNED.items():
+        got = tuple(float(v) for v in raster.JET_LUT[i])
+        if got != want:
+            fail(f"jet[{i}] = {got}, matplotlib's is {want}")
+    panel = rgbd_panel(color, depth, depth_trunc)
+    png_panel = image_io.encode_png(panel)
+    if not np.array_equal(image_io.decode_png(png_panel), panel):
+        fail("the rgbd panel's PNG round trip is not exact")
+    ms = {"jpeg_decode": _median_ms(lambda: image_io.decode_jpeg(jpg)),
+          "jpeg_encode": _median_ms(lambda: image_io.encode_jpeg(rgb)),
+          "png16_decode": _median_ms(lambda: image_io.decode_png(png16)),
+          "png16_encode": _median_ms(lambda: image_io.encode_png(d16)),
+          "rgbd_panel": _median_ms(
+              lambda: rgbd_panel(color, depth, depth_trunc), 3),
+          "panel_png_encode": _median_ms(lambda: image_io.encode_png(panel),
+                                         3)}
+    h, w = rgb.shape[:2]
+    log(f"[codec] {h}x{w}: PNG uint8 ({len(png8)} B) and uint16 "
+        f"({len(png16)} B) round trips exact; JPEG q95 4:2:0 {len(jpg)} B "
+        f"at {psnr:.2f} dB PSNR (>= {CODEC_MIN_PSNR_DB}); jet equals "
+        f"matplotlib's {len(JET_PINNED)} pinned entries")
+    log("[codec] host ms (median of "
+        f"{CODEC_REPS}): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f" (the saver's rgbd panel, {h}x{2 * w} RGB | jet depth, "
+        f"{len(png_panel)} B as a PNG)")
+    return ms
+
+
+def run_replay(torch, kernels, prims, root: str) -> tuple:
+    """Phase 12: the codec's contracts, the capture of REPLAY_STEPS poses,
+    and the passive run on the analytic simulator and over their replay.
+    Returns the replayed run's launches and cases."""
+    import numpy as np
+
+    from naruto_tpu_torch.config import load_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.sim.analytic import AnalyticSimulator
+    from naruto_tpu_torch.sim.replay import ReplaySimulator
+    from naruto_tpu_torch.sim.scripted import run_scripted_simulation
+    from naruto_tpu_torch.system.pose_loader import load_traj_file
+
+    cfg = load_config(os.path.join(root, PASSIVE_CFG))
+    traj = os.path.join(root, cfg.sim.scene_path, "traj.txt")
+    poses = load_traj_file(traj, cfg.general.dataset)[:REPLAY_STEPS]
+    sim = AnalyticSimulator(cfg, "cuda")
+    codec_ms = check_codec(torch, sim.simulate(poses[0]),
+                           cfg.cam.depth_trunc)
+    with tempfile.TemporaryDirectory(prefix="replay_") as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_scripted_simulation(sim, poses, cap,
+                                depth_scale=cfg.cam.png_depth_scale)
+        capture_s = time.perf_counter() - t0
+        res = os.path.join(cap, "results")
+        size = sum(os.path.getsize(os.path.join(res, f))
+                   for f in os.listdir(res))
+        # a render alone, for the split of the capture's time
+        render_ms = _median_ms(lambda: [x.cpu() for x in sim.simulate(
+            poses[1])])
+        cfg_r = deep_update(cfg, {"sim": {"method": "replay",
+                                          "scene_path": cap}})
+        replay_sim = ReplaySimulator(cfg_r, "cuda")
+
+        def replay_frame():
+            replay_sim.update_step(1)
+            replay_sim.frame(poses[1])
+            torch.cuda.synchronize()
+
+        replay_ms = _median_ms(replay_frame)
+        log(f"[replay] captured {len(poses)} poses of {traj} at "
+            f"{cfg.cam.H}x{cfg.cam.W}: {1e3 * capture_s / len(poses):.2f} "
+            f"ms a frame (render {render_ms:.2f} ms + encode and write), "
+            f"{size / 2 ** 20:.1f} MiB; a replayed frame (decode + copy to "
+            f"the card) {replay_ms:.2f} ms")
+        ref = {}
+
+        def keep_analytic(eng, row):
+            run_dir = os.path.join(eng.cfg.general.result_dir,
+                                   eng.cfg.general.dataset,
+                                   eng.cfg.general.scene)
+            shutil.copyfile(os.path.join(run_dir, "gt_mesh.ply"),
+                            os.path.join(cap, "mesh.ply"))
+            ref.update(row=row, poses=eng.mapper.poses[:REPLAY_STEPS].cpu(),
+                       wall=sum(eng.timer.timings["SLAM"]))
+
+        t0 = time.perf_counter()
+        run_passive(torch, kernels, prims, root, "replay-analytic",
+                    num_iter=REPLAY_STEPS, reference=None,
+                    check=keep_analytic)
+        analytic_s = time.perf_counter() - t0
+
+        def same_as_analytic(eng, row):
+            poses_r = eng.mapper.poses[:REPLAY_STEPS].cpu()
+            err = float((poses_r - ref["poses"]).abs().max())
+            if err > TRAJ_TOL:
+                fail(f"the replayed poses are {err} from the analytic "
+                     f"run's (> {TRAJ_TOL})")
+            d_ratio = abs(row["completion_ratio_pct"]
+                          - ref["row"]["completion_ratio_pct"])
+            d_mad = abs(row["mad_cm"] - ref["row"]["mad_cm"])
+            log(f"[replay] {'metric':22s} {'replayed':>12s} "
+                f"{'analytic':>12s}")
+            for k, v in row.items():
+                log(f"[replay] {k:22s} {v:12.6f} {ref['row'][k]:12.6f}")
+            if d_ratio > REPLAY_RATIO_PTS:
+                fail(f"the replayed ratio is {d_ratio:.4f} points from the "
+                     f"analytic run's (> {REPLAY_RATIO_PTS})")
+            if d_mad > REPLAY_MAD_CM:
+                fail(f"the replayed MAD is {d_mad:.4f} cm from the analytic "
+                     f"run's (> {REPLAY_MAD_CM})")
+            log(f"[replay] poses within {err:.3g} m of the analytic run's "
+                f"(<= {TRAJ_TOL}); ratio {d_ratio:.4f} points (<= "
+                f"{REPLAY_RATIO_PTS}) and MAD {d_mad:.4f} cm (<= "
+                f"{REPLAY_MAD_CM}) from it")
+
+        t0 = time.perf_counter()
+        counts, cases = run_passive(
+            torch, kernels, prims, root, "replay",
+            over={"sim": {"method": "replay", "scene_path": cap}},
+            num_iter=REPLAY_STEPS, reference=None, check=same_as_analytic)
+        replay_s = time.perf_counter() - t0
+    log(f"[replay] wall (run, finalize and replays): analytic "
+        f"{analytic_s:.2f} s, replayed {replay_s:.2f} s; capture "
+        f"{capture_s:.2f} s")
+    return counts, cases, {"codec_ms": codec_ms,
+                           "capture_ms": 1e3 * capture_s / len(poses),
+                           "render_ms": render_ms, "replay_ms": replay_ms}
+
+
+# -------------------------------------------------------------- phase 13
+def run_vis(torch, kernels, prims, root: str, phase7: dict) -> tuple:
+    """Phase 13: phase 7's run for VIS_STEPS steps with the artifact saver,
+    the offline tools on its artifacts and export_pose on its checkpoint.
+    Returns the launches and the replayed cases."""
+    import glob
+
+    import numpy as np
+
+    from naruto_tpu_torch import export_pose
+    from naruto_tpu_torch.config import load_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.mesh.ply import read_ply
+    from naruto_tpu_torch.system import engine as engine_mod
+    from naruto_tpu_torch.utils.image_io import read_avi_frames, read_png
+    from naruto_tpu_torch.visualization import offline, raster
+
+    cfg = load_config(os.path.join(root, ACTIVE_CFG))
+    with tempfile.TemporaryDirectory(prefix="vis_") as tmp:
+        cfg = deep_update(cfg, {
+            "general": {"result_dir": tmp, "seed": ACTIVE_SEED},
+            "vis": {"enable_all_vis": True, "vis_rgbd": True}})
+        v = cfg.vis
+        n_mesh = len(range(0, VIS_STEPS, v.save_mesh_freq))
+        eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
+        recorder = ShapeRecorder(torch, kernels, prims)
+        with recorder:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(num_iter=VIS_STEPS)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        tm = eng.timer.timings
+        log(f"[vis] {ACTIVE_CFG} seed {ACTIVE_SEED}, {VIS_STEPS} steps with "
+            f"the saver: {run_s:.2f} s (phase 7's pace for {VIS_STEPS} "
+            f"steps: {phase7['run_s'] * VIS_STEPS / phase7['steps']:.2f} s); "
+            f"saver {sum(tm['Visualization']):.2f} s, simulation "
+            f"{sum(tm['Simulation']):.2f} s over {len(tm['Simulation'])} "
+            f"renders")
+        poses = eng.mapper.poses[:VIS_STEPS].cpu()
+        if not torch.equal(poses, phase7["poses"][:VIS_STEPS]):
+            bad = [i for i in range(VIS_STEPS)
+                   if not torch.equal(poses[i], phase7["poses"][i])]
+            fail(f"the --enable_vis run's poses differ from phase 7's from "
+                 f"step {bad[0]} ({len(bad)} of {VIS_STEPS})")
+        log(f"[vis] the {VIS_STEPS} poses equal phase 7's bit for bit")
+        ckpt = os.path.join(tmp, "ckpt_vis.pkl")
+        eng.mapper.save_ckpt(ckpt)
+        vis = eng.visualizer.root
+        for sub in ("rgbd", "pose", "planning_path", "lookat_tgts", "state",
+                    "color_mesh", "uncert_mesh"):
+            n = len(os.listdir(os.path.join(vis, sub)))
+            want = n_mesh if sub.endswith("_mesh") else VIS_STEPS
+            if n != want:
+                fail(f"visualization/{sub} holds {n} files, not {want}")
+        panel_hw = (cfg.cam.H, 2 * cfg.cam.W, 3)
+        for path in sorted(glob.glob(os.path.join(vis, "rgbd", "*.png"))):
+            if read_png(path).shape != panel_hw:
+                fail(f"{path} does not decode to {panel_hw}")
+        on_lut = {tuple(c) for c in np.clip(
+            raster.JET_LUT.astype(np.float32) * 255.0, 0, 255).astype(
+            np.uint8)}
+        for path in sorted(glob.glob(os.path.join(vis, "uncert_mesh",
+                                                  "*.ply"))):
+            cols = read_ply(path)[2]
+            off = {tuple(c) for c in np.unique(cols, axis=0)} - on_lut
+            if off:
+                fail(f"{path}: {len(off)} colours off the jet table")
+        log(f"[vis] {VIS_STEPS} files in each per-step directory, {n_mesh} "
+            f"in each mesh directory; every rgbd panel decodes to "
+            f"{panel_hw}; the uncertainty meshes' colours lie on the jet "
+            f"table")
+        out = os.path.join(tmp, "offline")
+        walls = {}
+
+        def tool(name, argv, shape, pattern=None, n=None, avi=None):
+            t0 = time.perf_counter()
+            offline.main(argv)
+            walls[name] = time.perf_counter() - t0
+            files = sorted(glob.glob(pattern)) if pattern else []
+            if n is not None and len(files) != n:
+                fail(f"offline {name} wrote {len(files)} images, not {n}")
+            for f in files:
+                if read_png(f).shape != shape:
+                    fail(f"offline {name}: {f} does not decode to {shape}")
+            if avi:
+                frames = read_avi_frames(avi[0])
+                if len(frames) != avi[1] or any(
+                        fr.shape != avi[2] for fr in frames):
+                    fail(f"offline {name}: {avi[0]} holds "
+                         f"{len(frames)} frames of "
+                         f"{frames[0].shape if frames else None}, not "
+                         f"{avi[1]} of {avi[2]}")
+
+        tool("traj", ["traj", "--run", vis, "--out", f"{out}_traj.png"],
+             (600, 1200, 3), f"{out}_traj.png", 1)
+        for kind in ("color_mesh", "uncert_mesh"):
+            tool(f"mesh_evo {kind}", ["mesh_evo", "--run", vis, "--out",
+                                      f"{out}_{kind}", "--kind", kind],
+                 (480, 480, 3), f"{out}_{kind}/*.png", n_mesh)
+        tool("video", ["video", "--run", vis, "--out", f"{out}_video.avi"],
+             None, avi=(f"{out}_video.avi", VIS_STEPS, panel_hw))
+        n_replay = len(range(0, VIS_STEPS, VIS_REPLAY_STRIDE))
+        tool("replay", ["replay", "--run", vis, "--out", f"{out}_replay",
+                        "--stride", str(VIS_REPLAY_STRIDE), "--video",
+                        f"{out}_replay.avi"], (480, 640, 3),
+             f"{out}_replay/*.png", n_replay,
+             avi=(f"{out}_replay.avi", n_replay, (480, 640, 3)))
+        t0 = time.perf_counter()
+        export_pose.main(["--ckpt", ckpt, "--out", f"{out}_poses.npy"])
+        walls["export_pose"] = time.perf_counter() - t0
+        exported = np.load(f"{out}_poses.npy")
+        if not np.array_equal(exported, eng.mapper.poses.cpu().numpy()):
+            fail("export_pose's array differs from the run's poses")
+        log("[vis] offline tools: " + ", ".join(
+            f"{k} {s:.2f} s" for k, s in walls.items())
+            + f"; every image and AVI frame decodes to its shape; "
+            f"export_pose's {exported.shape} array equals the run's poses")
+    log(f"[vis] {len(recorder.seen)} distinct (kernel, shape) in run(); "
+        f"each against its plain version on the inputs of its first call:")
+    return counts, recorder.replay("vis")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1932,7 +2279,14 @@ def main() -> None:
         torch, kernels, primitives, root,
         over={"general": {"ckpt_freq": PASSIVE_SNAPSHOT_STEP}},
         check=keep_passive)
-    active, active_cases = run_active(torch, kernels, primitives, root)
+    phase7 = {}
+
+    def keep_active(eng, row, summary):
+        phase7.update(poses=eng.mapper.poses.cpu().clone(),
+                      run_s=eng.run_seconds, steps=eng.cfg.general.num_iter)
+
+    active, active_cases = run_active(torch, kernels, primitives, root,
+                                      check=keep_active)
     import yaml
 
     with open(os.path.join(root, PARITY_CFG)) as f:
@@ -1968,7 +2322,10 @@ def main() -> None:
     resumed = {k: resumed_p[k] + resumed_a[k] for k in resumed_p}
     resumed_cases = {k: resumed_p_cases[k] + resumed_a_cases[k]
                      for k in resumed_p_cases}
-    for path, counts in (("raycast", raycast), ("resumed", resumed)):
+    replay, replay_cases, _ = run_replay(torch, kernels, primitives, root)
+    vis, vis_cases = run_vis(torch, kernels, primitives, root, phase7)
+    for path, counts in (("raycast", raycast), ("resumed", resumed),
+                         ("replay", replay), ("vis", vis)):
         idle = [k for k in BA_LAUNCHES_PER_ITER
                 if BA_LAUNCHES_PER_ITER[k] and not counts[k]]
         if idle:
@@ -1978,7 +2335,9 @@ def main() -> None:
             ("parity", parity, parity_cases),
             ("settings", settings, settings_cases),
             ("raycast", raycast, raycast_cases),
-            ("resumed", resumed, resumed_cases))
+            ("resumed", resumed, resumed_cases),
+            ("replay", replay, replay_cases),
+            ("vis", vis, vis_cases))
 
     def summary(case: dict) -> dict:
         return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",

@@ -96,14 +96,14 @@ def extract_mesh(mapper, voxel_size: float = 0.05,
         with mapper._t("mesh_colors"):
             colors = _query_colors(mapper, verts)
     elif color_mode == "uncert":
-        import matplotlib.cm as cm
+        from naruto_tpu_torch.visualization.raster import jet
 
         # softplus + floor, jet colormap — ref coslam_utils.py:186-205
         uv = trilinear_interpolation_np(np.log1p(np.exp(uncert)) + 0.01,
                                         verts_vox).astype(np.float32)
         lo, hi = uv.min(), uv.max()
         norm = (uv - lo) / (hi - lo + 1e-9)
-        colors = cm.jet(norm)[:, :3].astype(np.float32)
+        colors = jet(norm).astype(np.float32)
     return verts, faces, colors
 
 

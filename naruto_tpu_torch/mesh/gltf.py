@@ -1,5 +1,6 @@
 """Minimal glTF 2.0 / GLB mesh reader — no external dependencies (the
-port's own copy of naruto_tpu/mesh/gltf.py, numpy and zlib).
+port's own copy of naruto_tpu/mesh/gltf.py, numpy and the port's image
+codec).
 
 MP3D and the custom NARUTO scenes ship as .glb in the reference's habitat
 pipeline (the reference's src/simulator/habitat_utils.py:182-215,
@@ -13,11 +14,11 @@ raycaster (sim/raycast.py) as merged (verts, faces, per-vertex colors):
   * textured materials: the base-color texture is sampled at each vertex's
     TEXCOORD_0 and baked to per-vertex colors (the raycaster interpolates
     vertex colors across triangles — adequate for rgb-loss supervision);
-    PNG textures are decoded with a built-in zlib-based decoder; JPEG (and
-    other formats) decode through PIL/OpenCV when present, else fall back
-    to the material baseColorFactor with a warning. Where neither is
-    installed a JPEG-textured mesh gets no texture colour, exactly as in
-    the JAX package there
+    PNG and baseline JPEG textures decode through the port's own codec
+    (utils/image_io.py; ``decode_png`` is its PNG reader), so no imaging
+    library is needed. A format the codec does not read (progressive
+    JPEG, WebP, ...) falls back to the material baseColorFactor with a
+    warning, as the JAX package does for what it cannot decode
   * sparse accessors, byte-stride interleaving
 """
 from __future__ import annotations
@@ -31,6 +32,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from naruto_tpu_torch.utils import image_io
+
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16,
     5123: np.uint16, 5125: np.uint32, 5126: np.float32,
@@ -39,78 +42,18 @@ _TYPE_COUNTS = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4,
                 "MAT2": 4, "MAT3": 9, "MAT4": 16}
 
 
-# --------------------------------------------------------------------- PNG
+# ---------------------------------------------------------------- textures
+def _rgb_float(img: np.ndarray) -> np.ndarray:
+    """A decoded image -> [H, W, 3] float32 in [0, 1] (gray replicated,
+    alpha dropped)."""
+    scale = 65535.0 if img.dtype == np.uint16 else 255.0
+    return image_io.as_rgb(img).astype(np.float32) / np.float32(scale)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """Decode an 8-bit non-interlaced PNG (gray/RGB/RGBA/palette) to
-    [H, W, 3] float32 in [0, 1]."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("not a PNG")
-    pos = 8
-    idat = b""
-    w = h = bit_depth = color_type = None
-    palette = None
-    while pos < len(data):
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
-        chunk = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if ctype == b"IHDR":
-            w, h, bit_depth, color_type, _, _, interlace = struct.unpack(
-                ">IIBBBBB", chunk)
-            if bit_depth != 8 or interlace != 0:
-                raise ValueError(
-                    f"unsupported PNG (bit_depth={bit_depth}, "
-                    f"interlace={interlace})")
-        elif ctype == b"PLTE":
-            palette = np.frombuffer(chunk, np.uint8).reshape(-1, 3)
-        elif ctype == b"IDAT":
-            idat += chunk
-        elif ctype == b"IEND":
-            break
-    raw = zlib.decompress(idat)
-    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
-    stride = w * channels
-    img = np.empty((h, stride), dtype=np.uint8)
-    prev = np.zeros(stride, dtype=np.uint8)
-    pos = 0
-    for y in range(h):
-        ftype = raw[pos]
-        line = np.frombuffer(raw[pos + 1:pos + 1 + stride],
-                             np.uint8).copy()
-        pos += 1 + stride
-        if ftype == 0:
-            pass
-        elif ftype == 1:      # Sub
-            for i in range(channels, stride):
-                line[i] = (line[i] + line[i - channels]) & 0xFF
-        elif ftype == 2:      # Up
-            line = (line.astype(np.int32) + prev).astype(np.uint8)
-        elif ftype == 3:      # Average
-            for i in range(stride):
-                a = line[i - channels] if i >= channels else 0
-                line[i] = (line[i] + ((int(a) + int(prev[i])) >> 1)) & 0xFF
-        elif ftype == 4:      # Paeth
-            for i in range(stride):
-                a = int(line[i - channels]) if i >= channels else 0
-                b = int(prev[i])
-                c = int(prev[i - channels]) if i >= channels else 0
-                p = a + b - c
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                line[i] = (line[i] + pred) & 0xFF
-        else:
-            raise ValueError(f"bad PNG filter {ftype}")
-        img[y] = line
-        prev = line
-    img = img.reshape(h, w, channels)
-    if color_type == 3:       # palette
-        img = palette[img[..., 0]]
-    elif channels == 1:
-        img = np.repeat(img, 3, axis=-1)
-    elif channels == 2:       # gray+alpha
-        img = np.repeat(img[..., :1], 3, axis=-1)
-    elif channels == 4:
-        img = img[..., :3]
-    return img.astype(np.float32) / 255.0
+    """Decode a PNG (the codec's reader: gray/RGB/RGBA/palette, 8 or 16
+    bits) to [H, W, 3] float32 in [0, 1]."""
+    return _rgb_float(image_io.decode_png(data))
 
 
 # -------------------------------------------------------------------- glTF
@@ -195,6 +138,9 @@ def _node_transform(node: Dict) -> np.ndarray:
 
 def _texture_image(gltf: Dict, buffers: List[bytes], base_dir: str,
                    tex_index: int) -> Optional[np.ndarray]:
+    """The base-colour texture decoded, or None where the glTF's reference
+    to it is broken or the codec does not read its format (the caller
+    falls back). A codec library that fails to build or load raises."""
     try:
         tex = gltf["textures"][tex_index]
         img = gltf["images"][tex["source"]]
@@ -208,34 +154,12 @@ def _texture_image(gltf: Dict, buffers: List[bytes], base_dir: str,
         else:
             with open(os.path.join(base_dir, img["uri"]), "rb") as f:
                 blob = f.read()
-        if blob[:8] == b"\x89PNG\r\n\x1a\n":
-            return decode_png(blob)
-        return _decode_image_external(blob)
-    except Exception:
-        return None      # unsupported or malformed — caller falls back
-
-
-def _decode_image_external(blob: bytes) -> Optional[np.ndarray]:
-    """Decode non-PNG textures (JPEG is common in MP3D glbs) via PIL or
-    OpenCV when available -> [H, W, 3] float32 in [0, 1]; None otherwise."""
+    except (KeyError, IndexError, ValueError, OSError):
+        return None      # a broken image reference
     try:
-        import io
-
-        from PIL import Image
-
-        arr = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
-        return arr.astype(np.float32) / 255.0
-    except Exception:
-        pass
-    try:
-        import cv2
-
-        bgr = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
-        if bgr is None:
-            return None
-        return bgr[..., ::-1].astype(np.float32) / 255.0
-    except Exception:
-        return None
+        return _rgb_float(image_io.read_image(blob))
+    except (ValueError, IndexError, struct.error, zlib.error):
+        return None      # a format the codec does not read, or malformed
 
 
 def stage_rotation(up, front) -> np.ndarray:
@@ -345,8 +269,8 @@ def load_gltf(path: str, quiet: bool = False, up=None, front=None
                 else:
                     if tex_info is not None and not quiet:
                         print(f"| [gltf] | {os.path.basename(path)}: "
-                              "texture not decodable (JPEG?) — using "
-                              "baseColorFactor")
+                              "texture not decodable (not PNG or baseline "
+                              "JPEG) — using baseColorFactor")
                     col = np.tile(factor, (len(v), 1))
             if col is not None:
                 any_color = True

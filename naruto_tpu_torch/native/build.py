@@ -1,7 +1,9 @@
 """Build the port's native C++ extensions with g++ (plain C ABI, bound with
 ctypes): the port's own copy of naruto_tpu/native/build.py, for
-``marching_tets.cpp`` (mesh extraction) and ``raycaster.cpp`` (the raycast
-simulator's BVH renderer, a copy of the JAX package's).
+``marching_tets.cpp`` (mesh extraction), ``raycaster.cpp`` (the raycast
+simulator's BVH renderer, a copy of the JAX package's) and
+``image_codec.cpp`` (the serial stages of utils/image_io.py: PNG filters,
+JPEG Huffman coding and libjpeg's integer transforms).
 
 The library goes into ``naruto_tpu_torch/_build/`` under a name keyed by a
 hash of the source and the flags, so a changed source or flag builds anew
@@ -18,7 +20,8 @@ NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
 
 SOURCES = {"marching_tets": ["marching_tets.cpp"],
-           "raycaster": ["raycaster.cpp"]}
+           "raycaster": ["raycaster.cpp"],
+           "image_codec": ["image_codec.cpp"]}
 
 CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
             "-fopenmp",

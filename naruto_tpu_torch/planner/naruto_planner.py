@@ -59,13 +59,10 @@ from naruto_tpu_torch.planner.aggregation import (AggregationOutputs,
 from naruto_tpu_torch.planner.collision import is_collision_free
 from naruto_tpu_torch.planner.rotation import rotation_planning
 from naruto_tpu_torch.planner.rrt import RRTPlanner
+from naruto_tpu_torch.sim.base import to_host
 from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.seeding import make_generator
 from naruto_tpu_torch.utils.timer import Timer
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class NarutoPlanner:
@@ -389,7 +386,7 @@ class NarutoPlanner:
     def goal_search(self, agg: AggregationOutputs):
         """Argmax goal + top-k uncertain visible targets from it
         (ref goal_search_v2, naruto_planner.py:462-510)."""
-        gs_aggre = _host(agg.gs_aggre)
+        gs_aggre = to_host(agg.gs_aggre)
 
         pen = self.pcfg.goal_repeat_penalty
         if pen > 0.0 and self._goal_visits:
@@ -411,8 +408,8 @@ class NarutoPlanner:
 
         # only the chosen goal's row of the [G, K] collections leaves the
         # device
-        per_goal = _host(agg.collections[flat_idx])
-        topk_vxl = _host(agg.topk_vxl)
+        per_goal = to_host(agg.collections[flat_idx])
+        topk_vxl = to_host(agg.topk_vxl)
         k = min(self.pcfg.obs_per_goal, per_goal.shape[0])
         order = np.argsort(-per_goal)[:k]
         n_pos = max(int((per_goal[order] > 0).sum()), 1)
@@ -455,7 +452,7 @@ class NarutoPlanner:
         next_pose = cur_pose.copy()
         next_pose[:3, 3] = next_pt_loc
         t0 = time.time()
-        erp_dist = _host(self.sim.probe_erp_dist(next_pose))
+        erp_dist = to_host(self.sim.probe_erp_dist(next_pose))
         self.stats["probe_wall_s"] = (
             self.stats.get("probe_wall_s", 0.0) + time.time() - t0)
         self.stats["n_probes"] = self.stats.get("n_probes", 0) + 1

@@ -3,15 +3,16 @@
 
 Surface parity with the reference entry (src/naruto/cfg_loader.py:57-76 /
 src/naruto/main.py): `--cfg` YAML experiment file (or `--dataset --scene`
-preset), `--seed`, `--result_dir`, `--num_iter`, and the JAX CLI's `--sim`,
-`--scene_path` and `--resume`. The JAX CLI's `--platform` is `--device`
-here (default cuda; `--device cpu` runs on the host). Its `--enable_vis`
-(the artifact saver, ROADMAP queue 1 item 8) comes with what it selects.
+preset), `--seed`, `--result_dir`, `--num_iter`, `--enable_vis`, and the
+JAX CLI's `--sim`, `--scene_path` and `--resume`. The JAX CLI's
+`--platform` is `--device` here (default cuda; `--device cpu` runs on the
+host).
 
     python -m naruto_tpu_torch.run --cfg configs/Replica/office0/naruto.yaml
     python -m naruto_tpu_torch.run --cfg configs/ab/passive_traj_ab.yaml
     python -m naruto_tpu_torch.run --sim raycast --scene_path mesh.ply
     python -m naruto_tpu_torch.run --cfg ... --resume auto
+    python -m naruto_tpu_torch.run --cfg ... --enable_vis 1
 
 The first is the active loop (simulate -> map -> plan, the default), the
 second the passive protocol over a recorded trajectory, both on the
@@ -20,7 +21,11 @@ raycast simulator (make one with `python -m
 naruto_tpu_torch.scripts.make_scene_assets`); the fourth continues a run
 from the full-state snapshot its `general.ckpt_freq` wrote in the run
 directory (`auto`; or give a snapshot's path), or starts fresh when there
-is none. The engine refuses what is not ported yet.
+is none; the fifth also writes every step's artifacts (rgbd panels, poses,
+planner state, periodic meshes) under the run's `visualization/`, which
+`python -m naruto_tpu_torch.visualization.offline` turns into plots,
+stills and videos. `--sim replay --scene_path DIR` replays recorded frames
+(`python -m naruto_tpu_torch.sim.scripted` writes them).
 """
 from __future__ import annotations
 
@@ -41,8 +46,12 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--result_dir", type=str, default=None)
     p.add_argument("--num_iter", type=int, default=None)
+    p.add_argument("--enable_vis", type=int, default=0,
+                   help="save the per-step artifacts (vis.enable_all_vis "
+                        "and vis.vis_rgbd)")
     p.add_argument("--sim", type=str, default=None,
-                   help="simulator backend override (analytic|raycast)")
+                   help="simulator backend override (analytic|replay|"
+                        "raycast)")
     p.add_argument("--scene_path", type=str, default=None,
                    help="scene asset path (sim.scene_path)")
     p.add_argument("--device", type=str, default="cuda",
@@ -69,6 +78,10 @@ def build_config(args):
         over["general"]["num_iter"] = args.num_iter
     if args.result_dir:
         over["general"]["result_dir"] = args.result_dir
+    if args.enable_vis:
+        # mirrors the reference --enable_vis: artifact saving plus the live
+        # rgbd window, which the port does not open (visualization/saver.py)
+        over["vis"] = {"enable_all_vis": True, "vis_rgbd": True}
     if args.sim:
         over["sim"] = {"method": args.sim}
     if args.scene_path:

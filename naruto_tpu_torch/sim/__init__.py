@@ -5,8 +5,8 @@ from naruto_tpu_torch.sim.base import Simulator
 
 def init_simulator(cfg, device="cuda", printer=None):
     """Simulator factory (counterpart of naruto_tpu/sim/__init__.py): the
-    analytic scenes and the raycast renderer over a scene mesh. The replay
-    of recorded frames is not ported yet."""
+    analytic scenes, the raycast renderer over a scene mesh and the replay
+    of recorded frames."""
     method = cfg.sim.method
     if method == "analytic":
         return AnalyticSimulator(cfg, device, printer)
@@ -26,11 +26,9 @@ def init_simulator(cfg, device="cuda", printer=None):
                 "ERP sensor and replay data has none. Use sim.method="
                 "'raycast' (or 'analytic'), or disable active planning "
                 "(passive replay).")
-        raise NotImplementedError(
-            "sim.method='replay' reads JPEG/PNG frames, and the image codecs "
-            "it needs are not ported yet (ROADMAP queue 1, item 8: replay, "
-            "scripted capture and the artifact saver); the port has "
-            "sim.method='analytic' and 'raycast'")
+        from naruto_tpu_torch.sim.replay import ReplaySimulator
+
+        return ReplaySimulator(cfg, device, printer)
     raise ValueError(f"unknown simulator method: {method}")
 
 

@@ -32,6 +32,20 @@ def quantize_color(color):
     return (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
+def truncate_color(color: np.ndarray) -> np.ndarray:
+    """Float colour in [0, 1] -> uint8 by truncation, as the JAX package's
+    saver, capture and offline renders write images (``quantize_color``
+    rounds)."""
+    return (np.clip(color, 0, 1) * 255).astype(np.uint8)
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or anything array-like -> a numpy array on
+    the host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
 class Simulator:
     def __init__(self, cfg: MainConfig,
                  printer: Optional[InfoPrinter] = None):

@@ -20,8 +20,11 @@ With ``general.ckpt_freq`` > 0 every ckpt_freq-th step (but step 0) writes
 full state, the pose and the planner's state. ``run(resume_from=...)``
 continues from such a snapshot (of either package) at its step + 1.
 
-Not ported yet, and refused: the artifact saver of ``vis.enable_all_vis``
-(ROADMAP queue 1, item 8, with the image codecs it needs).
+With ``vis.enable_all_vis`` the artifact saver (visualization/saver.py)
+writes every step's artifacts under ``<run dir>/visualization/``. While it
+saves or shows the rgbd panel, every frame renders (``vis_needs_rgbd``):
+the saver gets the simulator's float colour, the mapper the uint8 frame on
+the steps that consume one, as without the saver.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from naruto_tpu_torch.mesh.marching import marching_cubes
 from naruto_tpu_torch.mesh.ply import read_mesh, read_ply, write_ply
 from naruto_tpu_torch.planner import init_planner
 from naruto_tpu_torch.sim import init_simulator
+from naruto_tpu_torch.sim.base import quantize_color
 from naruto_tpu_torch.system.pose_loader import PoseLoader
 from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.results import update_results_file
@@ -49,17 +53,8 @@ from naruto_tpu_torch.utils.timer import Timer
 SNAPSHOT_NAME = "full_state_latest.pkl"
 
 
-def _refuse_unported(cfg: MainConfig) -> None:
-    if cfg.vis.enable_all_vis:
-        raise NotImplementedError(
-            "vis.enable_all_vis needs the artifact saver, which is not "
-            "ported yet (ROADMAP queue 1, item 8, with the image codecs it "
-            "needs)")
-
-
 class Engine:
     def __init__(self, cfg: MainConfig, device="cuda", quiet: bool = False):
-        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -98,6 +93,11 @@ class Engine:
         os.makedirs(self.run_dir, exist_ok=True)
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             json.dump(cfg.to_dict(), f, indent=1, default=str)
+        self.visualizer = None
+        if cfg.vis.enable_all_vis:
+            from naruto_tpu_torch.visualization.saver import ArtifactSaver
+
+            self.visualizer = ArtifactSaver(cfg, self.printer)
 
     def _init_pose(self) -> np.ndarray:
         c2w = self.pose_loader.load_init_pose()
@@ -162,19 +162,35 @@ class Engine:
         if resume_from:
             c2w = self.resume(resume_from, c2w)
             start = self.mapper.step + 1
+        vis = self.visualizer
+        # the rgbd panel consumes every frame
+        vis_needs_rgbd = vis is not None and (cfg.vis.save_rgbd
+                                              or cfg.vis.vis_rgbd)
         for i in range(start, n):
             for mod in ((self.sim, self.mapper, self.planner) if active
                         else (self.sim, self.mapper)):
                 mod.update_step(i)
+            if vis is not None:
+                vis.update_step(i)
             c2w = self.pose_loader.update_pose(c2w, i)
-            color = depth = None
+            color = depth = vis_color = vis_depth = None
             # a frame nothing consumes is not rendered, and not timed
-            if self.mapper.needs_frame(i):
+            needs = self.mapper.needs_frame(i)
+            if vis_needs_rgbd:
+                with self.timer.time("Simulation", "General"):
+                    vis_color, vis_depth = self.sim.simulate(c2w)[:2]
+                    if needs:
+                        color, depth = quantize_color(vis_color), vis_depth
+            elif needs:
                 with self.timer.time("Simulation", "General"):
                     color, depth = self.sim.frame(c2w)
             with self.timer.time("SLAM", "General"):
                 new_vols = self.mapper.online_recon_step(i, color, depth,
                                                          c2w)
+            if vis is not None:
+                with self.timer.time("Visualization", "General"):
+                    vis.main(self.mapper, self.planner if active else None,
+                             vis_color, vis_depth, c2w)
             if active:
                 with self.timer.time("Planning", "General"):
                     if new_vols is not None:

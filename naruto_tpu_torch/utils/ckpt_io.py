@@ -173,6 +173,14 @@ def load_tree(path: str, template: Any) -> Tuple[Any, Dict]:
     return _unflatten(template, leaves), header
 
 
+def load_arrays(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Template-free read: ({tree path: array}, header)."""
+    with np.load(path, allow_pickle=False) as z:
+        header = _read_meta(z)
+        out = {k[len(_LEAF):]: z[k] for k in z.files if k.startswith(_LEAF)}
+    return out, header
+
+
 def to_torch(tree: Any, device="cpu") -> Any:
     """The same tree with every leaf an f32 tensor on `device`."""
     kids = _children(tree)

@@ -846,3 +846,71 @@ def test_lazy_volumes_on_card_match_an_eager_pull(mapper_pair):
     for i in (1, 0, 1):
         np.testing.assert_array_equal(vols.host(i), eager[i])
     assert len(card.timer.timings["volumes_wait"]) == 2
+
+
+# ------------------------------------------------------ images (host code)
+@pytest.mark.cuda
+def test_codec_builds_and_round_trips_on_card_machine(cuda_device):
+    """The codec's library builds where the card is (no cv2 there): PNG
+    round trips exact, a JPEG round trip close, jet equal to matplotlib's
+    values at its ends and middle."""
+    from naruto_tpu_torch.utils import image_io
+    from naruto_tpu_torch.visualization import raster
+
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:68, 0:120]
+    rgb = np.stack([x * 2, y * 3, (x + y) % 256], -1).astype(np.uint8)
+    d16 = rng.integers(0, 65536, (68, 120), dtype=np.uint16)
+    np.testing.assert_array_equal(
+        image_io.decode_png(image_io.encode_png(rgb)), rgb)
+    np.testing.assert_array_equal(
+        image_io.decode_png(image_io.encode_png(d16)), d16)
+    back = image_io.decode_jpeg(image_io.encode_jpeg(rgb))
+    assert np.abs(back.astype(int) - rgb).mean() < 2.0
+    assert tuple(raster.JET_LUT[0]) == (0.0, 0.0, 0.5)
+    assert tuple(raster.JET_LUT[255]) == (0.5, 0.0, 0.0)
+    assert tuple(raster.JET_LUT[128]) == (0.4901960784313725, 1.0,
+                                          0.4775458570524984)
+
+
+@pytest.mark.cuda
+def test_replayed_frame_on_device(cuda_device, tmp_path):
+    """A capture of the analytic room rendered on the card replays as
+    tensors on the card, equal to the host replay of the same files."""
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.sim import init_simulator
+    from naruto_tpu_torch.sim.scripted import run_scripted_simulation
+
+    cfg = make_config("Replica", "office0", overrides={
+        "cam": {"H": 24, "W": 32, "fx": 16.0, "fy": 16.0, "cx": 15.5,
+                "cy": 11.5},
+        "sim": {"pinhole_hw": (24, 32), "erp_hw": (16, 32)}})
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = cfg.mapper.bound_np.mean(axis=1)
+    run_scripted_simulation(init_simulator(cfg, "cuda"), [c2w, c2w],
+                            str(tmp_path))
+    rep = deep_update(cfg, {"sim": {"method": "replay",
+                                    "scene_path": str(tmp_path)}})
+    card, host = init_simulator(rep, "cuda"), init_simulator(rep, "cpu")
+    for sim in (card, host):
+        sim.update_step(1)
+    (cc, cd), (hc, hd) = card.frame(c2w), host.frame(c2w)
+    assert cc.is_cuda and cd.is_cuda and cc.dtype == torch.uint8
+    assert torch.equal(cc.cpu(), hc) and torch.equal(cd.cpu(), hd)
+
+
+@pytest.mark.cuda
+def test_device_trace_on_cuda(cuda_device, tmp_path):
+    """device_trace records the card's kernels into the Chrome trace."""
+    import json
+
+    from naruto_tpu_torch.utils import profiling
+
+    x = torch.randn(256, 256, device=cuda_device)
+    with profiling.device_trace(str(tmp_path)):
+        (x @ x).sum()
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert profiling.time_call(torch.mm, x, x, iters=3) > 0

@@ -176,21 +176,29 @@ def test_gt_occupancy_volume_matches_jax():
 
 
 # ----------------------------------------------------------------- refusals
-@pytest.mark.parametrize("over,match", [
-    ({"enable_active_planning": True}, None),
-    ({"vis": {"enable_all_vis": True}}, "item 8"),
-    ({"general": {"ckpt_freq": 10}}, None),
+@pytest.mark.parametrize("over", [
+    {"enable_active_planning": True},
+    {"vis": {"enable_all_vis": True}},
+    {"general": {"ckpt_freq": 10}},
 ], ids=["over0-None", "over1-item 8", "over2-item 5"])
-def test_engine_refuses_what_is_not_ported(tmp_path, over, match):
-    """The artifact saver raises; active planning, ported, builds the
-    planner on the engine's device; ckpt_freq, ported, writes the run's
-    full-state snapshot every ckpt_freq steps but step 0."""
+def test_engine_refuses_what_is_not_ported(tmp_path, over):
+    """Nothing is refused any more. Active planning builds the planner on
+    the engine's device; the artifact saver (item 8) writes its contract
+    for every step; ckpt_freq writes the run's full-state snapshot every
+    ckpt_freq steps but step 0."""
     cfg = deep_update(passive_cfg(tmp_path), over)
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            Engine(cfg, device="cpu")
-        return
     eng = Engine(cfg, device="cpu", quiet=True)
+    if cfg.vis.enable_all_vis:
+        eng.run(num_iter=6)
+        root = tmp_path / "Replica" / "office0" / "visualization"
+        assert (root / "README.txt").exists()
+        for sub in ("rgbd", "pose", "planning_path", "lookat_tgts",
+                    "state"):
+            assert len(os.listdir(root / sub)) == 6, sub
+        for sub in ("color_mesh", "uncert_mesh"):
+            assert sorted(os.listdir(root / sub)) == ["0000.ply",
+                                                      "0005.ply"], sub
+        return
     if cfg.enable_active_planning:
         assert eng.planner.aggregate.device == eng.device
         assert eng.planner.sim is eng.sim and eng.pose_loader.traj is None
@@ -203,8 +211,9 @@ def test_engine_refuses_what_is_not_ported(tmp_path, over, match):
 
 @pytest.mark.parametrize("method", ["replay", "raycast"])
 def test_other_simulators_refused(tmp_path, method):
-    """replay (image codecs, item 8) still raises; raycast, ported, builds
-    the port's RaycastSimulator over the scene_path mesh."""
+    """Neither is refused any more: raycast builds the port's
+    RaycastSimulator over the scene_path mesh, replay (item 8) the port's
+    ReplaySimulator over a recorded directory."""
     from naruto_tpu_torch.mesh.ply import write_ply
     from naruto_tpu_torch.sim.raycast import RaycastSimulator
 
@@ -219,8 +228,20 @@ def test_other_simulators_refused(tmp_path, method):
         depth = sim.simulate(np.eye(4, dtype=np.float32))[1]
         assert depth.shape == (24, 32) and float(depth.max()) == 2.0
     else:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            init_simulator(cfg, "cpu")
+        from naruto_tpu_torch.sim.replay import ReplaySimulator
+        from naruto_tpu_torch.utils.image_io import write_jpeg, write_png
+
+        rec = tmp_path / "rec" / "results"
+        rec.mkdir(parents=True)
+        write_jpeg(str(rec / "frame000000.jpg"),
+                   np.full((24, 32, 3), 200, np.uint8))
+        write_png(str(rec / "depth000000.png"),
+                  np.full((24, 32), 13107, np.uint16))
+        cfg = deep_update(cfg, {"sim": {"scene_path": str(rec.parent)}})
+        sim = init_simulator(cfg, "cpu")
+        assert isinstance(sim, ReplaySimulator)
+        color, depth = sim.frame(np.eye(4, dtype=np.float32))
+        assert color.shape == (24, 32, 3) and float(depth.max()) == 2.0
     with pytest.raises(ValueError, match="unknown simulator"):
         init_simulator(deep_update(cfg, {"sim": {"method": "nope"}}), "cpu")
 

@@ -64,6 +64,46 @@ def test_load_gltf_matches_jax(tmp_path, kind):
     assert got[0].shape == (7, 3)
 
 
+@pytest.mark.parametrize("fault", ["build", "load"])
+def test_texture_codec_failure_raises(tmp_path, monkeypatch, fault):
+    """A codec library that fails to build (g++ raising) or to load (not a
+    shared object) makes load_gltf raise: no texture falls back quietly."""
+    from naruto_tpu_torch.native import build
+    from naruto_tpu_torch.utils import image_io
+
+    path = JAX_GLTF_TESTS._make_glb(tmp_path, with_texture=True)
+    junk = tmp_path / "not_a_library.so"
+    junk.write_bytes(b"not an ELF file")
+
+    def ensure_built(name):
+        if fault == "build":
+            raise RuntimeError(f"g++ failed to build {name}")
+        return str(junk)
+
+    monkeypatch.setattr(image_io, "_LIB", None)
+    monkeypatch.setattr(build, "ensure_built", ensure_built)
+    with pytest.raises(RuntimeError if fault == "build" else OSError):
+        tgltf.load_gltf(path, quiet=True)
+
+
+def test_undecodable_texture_falls_back(tmp_path, monkeypatch, capsys):
+    """A progressive JPEG texture, which the codec refuses, gives the
+    material's baseColorFactor (white here) with a warning."""
+    import cv2
+
+    img = np.zeros((16, 16, 3), np.uint8)
+    img[..., 2] = 255
+    ok, jpg = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert ok
+    # the helper embeds what _png_bytes gives; the codec reads the magic
+    monkeypatch.setattr(JAX_GLTF_TESTS, "_png_bytes",
+                        lambda _img: jpg.tobytes())
+    path = JAX_GLTF_TESTS._make_glb(tmp_path, with_texture=True)
+    _, _, colors = tgltf.load_gltf(path)
+    np.testing.assert_array_equal(colors[4:], 1.0)
+    assert "texture not decodable" in capsys.readouterr().out
+
+
 def test_decode_png_matches_jax():
     img = np.random.default_rng(0).integers(0, 256, (7, 5, 3), np.uint8)
     blob = JAX_GLTF_TESTS._png_bytes(img)

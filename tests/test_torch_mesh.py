@@ -201,8 +201,9 @@ def test_extract_mesh_matches_jax(fitted_pair, gt_sphere):
 
 
 def test_extract_mesh_uncert_colours(fitted_pair):
-    """The uncertainty mesh's jet colouring (lazy matplotlib import)."""
-    pytest.importorskip("matplotlib")
+    """The uncertainty mesh's jet colouring: the JAX package's through
+    matplotlib, the port's through its own table (visualization/raster.py),
+    which needs no matplotlib."""
     mj, mt = fitted_pair
     vj, fj, cj = jextract.extract_mesh(mj, 0.1, color_mode="uncert")
     vt, ft, ct = textract.extract_mesh(mt, 0.1, color_mode="uncert")

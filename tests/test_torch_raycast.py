@@ -263,9 +263,9 @@ def test_wall_contact_matches_jax(gravity, vel):
 
 # ------------------------------------------------------ simulator factory
 def test_init_simulator_backends(tmp_path):
-    """raycast builds the port's RaycastSimulator; replay keeps the JAX
-    package's config-time guard, then raises naming its item; an unknown
-    method is a ValueError."""
+    """raycast builds the port's RaycastSimulator; replay builds the port's
+    ReplaySimulator and keeps the JAX package's config-time guard; an
+    unknown method is a ValueError."""
     v, f, c = cube_room()
     path = str(tmp_path / "room.glb")
     write_glb(path, v, f, colors=c)
@@ -274,9 +274,13 @@ def test_init_simulator_backends(tmp_path):
     sim = init_simulator(cfg, "cpu")
     assert isinstance(sim, RaycastSimulator)
     assert (sim.n_verts, sim.n_faces) == (16, 24)
-    replay = deep_update(cfg, {"sim": {"method": "replay"}})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        init_simulator(replay, "cpu")
+    from naruto_tpu_torch.sim.replay import ReplaySimulator
+
+    replay = deep_update(cfg, {"sim": {"method": "replay",
+                                       "scene_path": str(tmp_path)}})
+    sim = init_simulator(replay, "cpu")
+    assert isinstance(sim, ReplaySimulator)
+    assert sim.results_dir == str(tmp_path)       # no results/ inside
     mp3d = deep_update(make_config("MP3D", "pLe4wQe7qrG", num_iter=10),
                        {"sim": {"method": "replay"}})
     assert mp3d.enable_active_planning
