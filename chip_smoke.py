@@ -122,6 +122,25 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      the jet table; export_pose's array equals the run's poses, and the
      VIS_STEPS poses equal phase 7's first VIS_STEPS bit for bit (the
      saver only renders frames and reads the field).
+ 14. data-parallel: phase 4's mapper at full width (office0, steps 0..5,
+     the keyframe store filled to SHARDED_KEYFRAMES) on SHARDED_RANKS
+     ranks spawned on the one card (naruto_tpu_torch/parallel/dryrun.py's
+     worker; the backend that parallel/mesh.py's rule picks, Gloo where
+     ranks share a card), with parallel.shard_rays and shard_volumes: one
+     BA iteration's gradients from the same state and draws against the
+     single-process gradient (SHARDED_GRAD_TOL), the (49, 56, 35) volume
+     query against the unsharded one (SHARDED_VOL_TOL) on SHARDED_RANKS
+     and on SHARDED_PAD_RANKS ranks (which pads the voxel axis), then
+     SHARDED_STEPS BA steps, then SHARDED_SITE_STEPS with each collective
+     timed alone, after which the field and the table's Adam moments must
+     be bit-identical across ranks; every BA iteration of a rank launches
+     BA_LAUNCHES_PER_ITER and makes SHARDED_COLLECTIVES_PER_ITER, a volume
+     query one collective. The wall of a BA iteration at 1 rank and at
+     SHARDED_RANKS (ranks sharing one card: not a scaling figure), and the
+     collectives' share of it; every (kernel, shape) of rank 0 at
+     the half-batch shapes replayed against its plain version; then phase
+     7's run (ACTIVE_SEED) cut to SHARDED_ACTIVE_STEPS steps on
+     SHARDED_RANKS ranks, equal poses on every rank, rank 0's row.
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -134,7 +153,8 @@ card's name and power limit, and the line before that the kernels' JSON
 4, the microbenchmarks of phase 5, the passive run of phase 6, the active
 run of phase 7, the parity run of phase 8, the settings run of phase 9,
 the raycast run of phase 10, the two resumed runs of phase 11, the
-replayed run of phase 12, the --enable_vis run of phase 13).
+replayed run of phase 12, the --enable_vis run of phase 13, rank 0 of the
+data-parallel phase 14).
 """
 from __future__ import annotations
 
@@ -305,6 +325,23 @@ JET_PINNED = {
 VIS_STEPS = 60
 VIS_REPLAY_STRIDE = 5
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of the host
+# phase 14: the data-parallel mapper on ranks that share the card
+SHARDED_RANKS = 2
+SHARDED_PAD_RANKS = 3      # 96,040 voxels are no multiple of 3
+SHARDED_KEYFRAMES = 8
+SHARDED_STEPS = 10         # BA steps of mapper.iters iterations
+SHARDED_SITE_STEPS = 2     # then BA steps with each collective timed alone
+SHARDED_ACTIVE_STEPS = 60
+# tests/test_parallel.py's tolerances for the sharded production gradient:
+# (rtol, atol) by optimizer group
+SHARDED_GRAD_TOL = {"table": (1e-3, 2e-5), "uncert": (1e-3, 2e-5),
+                    "decoder": (1e-3, 1e-5)}
+SHARDED_VOL_TOL = (1e-5, 1e-6)
+# collectives of one sharded BA iteration: the loss denominators and the
+# gradient bucket, one all-reduce each
+SHARDED_COLLECTIVES_PER_ITER = {"denominators": 1, "gradients": 1,
+                                "volumes": 0, "checksum": 0}
+SHARDED_TIMEOUT_S = 600
 PROFILED_PLANS = 3         # aggregations traced by the profiler, at most
 SOURCE = {
     "outer_scan": "naruto_tpu_torch/csrc/outer_cumsum.cu",
@@ -2205,6 +2242,379 @@ def run_vis(torch, kernels, prims, root: str, phase7: dict) -> tuple:
         f"each against its plain version on the inputs of its first call:")
     return counts, recorder.replay("vis")
 
+# -------------------------------------------------------------- phase 14
+def sharded_state(mapper) -> dict:
+    """What a BA iteration reads of a mapper, on the host: the field, the
+    keyframes stored so far, the poses and the uncertainty volume."""
+    from naruto_tpu_torch.parallel.dryrun import to_host
+
+    n = mapper.kf.count
+    rows = n * mapper.kf.rays_per_slot
+    return to_host({"params": mapper.params,
+                     "kf_rays": mapper.kf.rays[:rows],
+                     "kf_frame_ids": mapper.kf.frame_ids[:n], "kf_count": n,
+                     "poses": mapper.poses, "uncert_vol": mapper.uncert_vol})
+
+
+def load_sharded_state(torch, mapper, st: dict) -> None:
+    mapper.load_weights(st["params"])
+    n = st["kf_count"]
+    with torch.no_grad():
+        mapper.kf.rays[:st["kf_rays"].shape[0]] = st["kf_rays"].to(
+            mapper.device)
+        mapper.kf.frame_ids[:n] = st["kf_frame_ids"].to(mapper.device)
+        mapper.poses.copy_(st["poses"])
+        mapper.uncert_vol.copy_(st["uncert_vol"])
+    mapper.kf.count = n
+
+
+def sharded_rank(mesh, payload) -> dict:
+    """Phase 14 on one rank (spawned by naruto_tpu_torch/parallel/dryrun.py
+    on every rank): the sharded volume query, one BA iteration from the
+    payload's draws, SHARDED_STEPS BA steps from the rank's own draws (the
+    same on every rank) with each iteration's launches and collectives,
+    SHARDED_SITE_STEPS more with each collective timed alone, the field
+    checked bit-identical across ranks, then the active run; rank
+    0 replays its (kernel, shape) keys last, when the other ranks are
+    done."""
+    import torch
+
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.mapping.mapper import BADraws, Mapper
+    from naruto_tpu_torch.ops import kernels, primitives
+    from naruto_tpu_torch.parallel.dryrun import to_host
+    from naruto_tpu_torch.parallel.mesh import (assert_replicated,
+                                                collective_counts,
+                                                reset_collective_counts,
+                                                timed_collectives)
+    from naruto_tpu_torch.system.engine import Engine
+
+    dev = mesh.device
+    mapper = Mapper(payload["cfg"], device=dev)
+    if mapper._ba_mesh is None or mapper._sharded_vol is None:
+        fail("phase 14: the mapper's sharded BA or volume query is off")
+    load_sharded_state(torch, mapper, payload["state"])
+    out = {"backend": mesh.backend, "device": str(dev)}
+    recorder = ShapeRecorder(torch, kernels, primitives)
+    kernels.reset_launch_counts()
+    with recorder:
+        reset_collective_counts()
+        u, s = mapper.map_volumes()
+        out["volume_collectives"] = collective_counts()
+        out["volumes"] = (u.cpu(), s.cpu())
+        # the BA reads the single-process volume, as the reference's
+        # iteration does (the gathered one equals it within SHARDED_VOL_TOL)
+        mapper.uncert_vol = payload["state"]["uncert_vol"].to(dev)
+        frame_rays = mapper.frame_to_rays(*payload["frame"])
+        c2w = torch.as_tensor(payload["c2w"], device=dev)
+        setup = mapper._ba_setup(payload["bucket"], frame_rays, c2w,
+                                 payload["fid"])
+        reset_collective_counts()
+        _, grads = mapper._ba_iteration(setup, BADraws(*[
+            None if d is None else d.to(dev) for d in payload["draws"]]), 0)
+        out["grads"] = to_host(grads)
+        out["iter0_collectives"] = collective_counts()
+        per_iter = []
+        iteration = mapper._ba_iteration
+
+        def counted(setup, draws, it):
+            before = kernels.launch_counts()
+            reset_collective_counts()
+            res = iteration(setup, draws, it)
+            after = kernels.launch_counts()
+            per_iter.append(({k: after[k] - before[k]
+                              for k in BA_LAUNCHES_PER_ITER},
+                             collective_counts()))
+            return res
+
+        mapper._ba_iteration = counted
+        # the padded-rank check runs beside this one: not in the window
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        while not os.path.exists(payload["quiet_card"]):
+            if time.monotonic() > deadline:
+                fail("phase 14: the padded-rank check never ended")
+            time.sleep(0.05)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_STEPS):
+            mapper._ba_impl(payload["bucket"], frame_rays, c2w,
+                            payload["fid"])
+        torch.cuda.synchronize(dev)
+        out["ba_ms"] = 1e3 * (time.perf_counter() - t0) / len(per_iter)
+        # then each collective alone: the work queued before it and its own
+        # end awaited, its wall added to its site
+        n0 = len(per_iter)
+        with timed_collectives() as spent:
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_SITE_STEPS):
+                mapper._ba_impl(payload["bucket"], frame_rays, c2w,
+                                payload["fid"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        n = len(per_iter) - n0
+        out["sites"] = {"iter_ms": 1e3 * wall / n, "bucket_mb": 4e-6 * sum(
+            p.numel() for p in mapper._all_params()), **{
+            f"{k}_ms": 1e3 * v / n for k, v in spent.items()}}
+    out["per_iter"] = per_iter
+    assert_replicated(mesh, mapper._all_params() + mapper.embed_opt.mu
+                      + mapper.embed_opt.nu,
+                      f"the field after "
+                      f"{SHARDED_STEPS + SHARDED_SITE_STEPS} BA steps")
+    out["ba_launches"] = kernels.launch_counts()
+    del mapper, setup, frame_rays, grads, u, s
+    torch.cuda.empty_cache()
+
+    act = payload["active"]
+    cfg = deep_update(act["cfg"], {"general": {
+        "result_dir": act["result_dirs"][mesh.rank]}})
+    eng = Engine(cfg, device=dev, quiet=True)
+    if eng.mapper._ba_mesh is None:
+        fail("phase 14: the active run's mapper is not sharded")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize(dev)
+    out["active"] = {"run_s": time.perf_counter() - t0,
+                     "poses": eng.mapper.poses.cpu(),
+                     "stats": eng.planner.stats_summary()}
+    if eng.lead:
+        eng.finalize()
+        out["active"]["row"] = read_row(os.path.join(eng.run_dir,
+                                                     "eval_result.txt"))
+    out["launches"] = kernels.launch_counts()
+    if mesh.rank == 0:
+        log(f"[sharded] rank 0: {len(recorder.seen)} distinct (kernel, "
+            f"shape) at the half-batch shapes; each against its plain "
+            f"version on the inputs of its first call:")
+        out["cases"] = recorder.replay("sharded")
+    return out
+
+
+def volumes_rank(mesh, payload) -> dict:
+    """The sharded volume query on one rank of SHARDED_PAD_RANKS; then an
+    NCCL group over the same ranks, which share the card: the premise of
+    parallel/mesh.py's backend rule (the error, or None if it worked)."""
+    import torch
+
+    from naruto_tpu_torch.mapping.mapper import Mapper
+    from naruto_tpu_torch.parallel.mesh import (collective_counts,
+                                                reset_collective_counts)
+
+    mapper = Mapper(payload["cfg"], device=mesh.device)
+    mapper.load_weights(payload["params"])
+    reset_collective_counts()
+    u, s = mapper.map_volumes()
+    out = {"volumes": (u.cpu(), s.cpu()),
+           "collectives": collective_counts(), "nccl_error": None}
+    try:
+        group = torch.distributed.new_group(backend="nccl")
+        torch.distributed.all_reduce(torch.ones(1, device=mesh.device),
+                                     group=group)
+        torch.cuda.synchronize(mesh.device)
+    except torch.distributed.DistBackendError as e:
+        out["nccl_error"] = str(e).strip().splitlines()[-1]
+    return out
+
+
+def check_sharded_volumes(torch, res: list, ref, what: str) -> None:
+    rtol, atol = SHARDED_VOL_TOL
+    for r, got in enumerate(res):
+        for name, g, w in zip(("uncert", "sdf"), got, ref):
+            if g.shape != w.shape or not torch.allclose(g, w, rtol=rtol,
+                                                        atol=atol):
+                fail(f"{what}: rank {r}'s {name} volume differs from the "
+                     f"unsharded query by {float((g - w).abs().max()):.3e}")
+
+
+def run_sharded(torch, kernels, prims, root: str) -> tuple:
+    """Phase 14. Returns rank 0's launches and replayed cases."""
+    import numpy as np
+
+    from naruto_tpu_torch.config import load_config, make_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.mapping.mapper import Mapper
+    from naruto_tpu_torch.parallel import mesh as pmesh
+    from naruto_tpu_torch.parallel.dryrun import spawn, to_host
+    from naruto_tpu_torch.sim.analytic import AnalyticSimulator
+
+    t_phase = time.perf_counter()
+    shard = {"parallel": {"shard_rays": True, "shard_volumes": True}}
+    cfg = make_config("Replica", "office0", overrides=shard)
+    sim = AnalyticSimulator(cfg, device="cuda")
+    mapper = Mapper(cfg, device="cuda")        # no process group: one rank
+    m = cfg.mapper
+    for i in range(6):
+        sim.update_step(i)
+        mapper.update_step(i)
+        color = depth = None
+        if mapper.needs_frame(i):
+            color, depth = sim.simulate(path_pose(i))
+        mapper.online_recon_step(i, color, depth, path_pose(i))
+    while mapper.kf.count < SHARDED_KEYFRAMES:
+        fid = mapper.kf.count * m.keyframe_every
+        sim.update_step(fid)
+        color, depth = sim.simulate(path_pose(fid))
+        mapper.poses[fid] = torch.as_tensor(path_pose(fid), device="cuda")
+        mapper.add_keyframe(mapper.frame_to_rays(color, depth), fid)
+    mapper.map_volumes()
+    state = sharded_state(mapper)
+    vols = [v.cpu() for v in mapper._volumes_impl()]
+    bucket, fid = mapper._pick_bucket(mapper.kf.count), 110
+    color, depth = sim.simulate(path_pose(fid))
+    frame = (color.cpu(), depth.cpu())
+    frame_rays = mapper.frame_to_rays(color, depth)
+    c2w = torch.as_tensor(path_pose(fid), device="cuda")
+    setup = mapper._ba_setup(bucket, frame_rays, c2w, fid)
+    draws = mapper._draw_ba(setup)
+    ref_grads = to_host(mapper._ba_iteration(setup, draws, 0)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_STEPS):
+        mapper._ba_impl(bucket, frame_rays, c2w, fid)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / (SHARDED_STEPS * m.iters)
+    rays = mapper._ba_n_rays(bucket)
+    del mapper, setup, frame_rays, sim
+    torch.cuda.empty_cache()
+
+    prep_s = time.perf_counter() - t_phase
+    active = deep_update(load_config(os.path.join(root, ACTIVE_CFG)), {
+        **shard, "general": {"seed": ACTIVE_SEED,
+                             "num_iter": SHARDED_ACTIVE_STEPS}})
+    import threading
+
+    with tempfile.TemporaryDirectory(prefix="sharded_") as tmp:
+        # the padded-rank volume check in a thread beside the main ranks,
+        # whose timed window waits for it to end (quiet_card)
+        quiet = os.path.join(tmp, "quiet_card")
+        padded = {}
+
+        def padded_check():
+            t0 = time.perf_counter()
+            try:
+                padded["res"] = spawn(
+                    "chip_smoke:volumes_rank", SHARDED_PAD_RANKS,
+                    {"cfg": cfg, "params": state["params"]}, device="cuda",
+                    timeout=SHARDED_TIMEOUT_S)
+            except BaseException as e:      # re-raised below
+                padded["error"] = e
+            padded["s"] = time.perf_counter() - t0
+            open(quiet, "w").close()
+
+        thread = threading.Thread(target=padded_check)
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            res = spawn("chip_smoke:sharded_rank", SHARDED_RANKS, {
+                "cfg": cfg, "state": state, "frame": frame,
+                "c2w": path_pose(fid), "fid": fid, "bucket": bucket,
+                "draws": to_host(draws), "quiet_card": quiet,
+                "active": {"cfg": active, "result_dirs": [
+                    os.path.join(tmp, f"rank{r}")
+                    for r in range(SHARDED_RANKS)]}},
+                device="cuda", timeout=SHARDED_TIMEOUT_S)
+        finally:
+            thread.join()
+        spawn_s = time.perf_counter() - t0
+    if "error" in padded:
+        raise padded["error"]
+    r0 = res[0]
+    log(f"[sharded] {SHARDED_RANKS} ranks on {r0['device']}, backend "
+        f"{r0['backend']} (parallel/mesh.py's rule: the ranks share the "
+        f"card); office0 at phase 4's width, {rays} rays a BA iteration "
+        f"(bucket {bucket}), {rays // SHARDED_RANKS} a rank, "
+        f"{SHARDED_KEYFRAMES} keyframes; the single-process setup and "
+        f"reference {prep_s:.1f} s, the ranks {spawn_s:.1f} s (their "
+        f"start, the checks, the active run)")
+    for r, got in enumerate(res):
+        for group, (rtol, atol) in SHARDED_GRAD_TOL.items():
+            for i, (g, w) in enumerate(zip(got["grads"][group],
+                                           ref_grads[group])):
+                if not torch.allclose(g, w, rtol=rtol, atol=atol):
+                    err = float((g - w).abs().max())
+                    fail(f"rank {r}'s {group} gradient {i} differs from the "
+                         f"single-process one by {err:.3e} (rtol {rtol}, "
+                         f"atol {atol})")
+        if got["iter0_collectives"] != SHARDED_COLLECTIVES_PER_ITER:
+            fail(f"rank {r}'s first BA iteration made "
+                 f"{got['iter0_collectives']}")
+        launches = [n for n, _ in got["per_iter"]]
+        colls = [c for _, c in got["per_iter"]]
+        check_ba_launches(launches, what=f"rank {r}'s sharded BA")
+        wrong = [c for c in colls if c != SHARDED_COLLECTIVES_PER_ITER]
+        if wrong:
+            fail(f"{len(wrong)} of rank {r}'s {len(colls)} BA iterations "
+                 f"made other collectives than "
+                 f"{SHARDED_COLLECTIVES_PER_ITER}: {wrong[0]}")
+        if got["volume_collectives"] != {**{k: 0 for k in
+                                             SHARDED_COLLECTIVES_PER_ITER},
+                                          "volumes": 1}:
+            fail(f"rank {r}'s volume query made "
+                 f"{got['volume_collectives']}")
+    worst = {group: max(float((g - w).abs().max()) for g, w in
+                        zip(r0["grads"][group], ref_grads[group]))
+             for group in SHARDED_GRAD_TOL}
+    log(f"[sharded] one BA iteration's gradients from the same state and "
+        f"draws on every rank against the single-process gradient: max "
+        f"|diff| {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
+        f"(tolerances {SHARDED_GRAD_TOL})")
+    check_sharded_volumes(torch, [g["volumes"] for g in res], vols,
+                          f"{SHARDED_RANKS} ranks")
+    n = vols[0].numel()
+    log(f"[sharded] the (49, 56, 35) volume query ({n} voxels) on "
+        f"{SHARDED_RANKS} ranks equals the unsharded one (rtol, atol "
+        f"{SHARDED_VOL_TOL}); one collective a query")
+    log(f"[sharded] {len(r0['per_iter'])} BA iterations a rank "
+        f"({SHARDED_STEPS + SHARDED_SITE_STEPS} steps): each launched "
+        f"{BA_LAUNCHES_PER_ITER} "
+        f"and made {SHARDED_COLLECTIVES_PER_ITER}; field and table Adam "
+        f"moments bit-identical across ranks after them")
+    log(f"[sharded] BA iteration wall: 1 rank {one_ms:.2f} ms, "
+        f"{SHARDED_RANKS} ranks {r0['ba_ms']:.2f} ms (rank 0; "
+        f"{SHARDED_RANKS} ranks sharing one H100; not a scaling figure)")
+    for r, got in enumerate(res):
+        st = got["sites"]
+        log(f"[sharded] rank {r}, {SHARDED_SITE_STEPS} BA steps with each "
+            f"collective timed alone (the queued work and its own end "
+            f"awaited): an iteration {st['iter_ms']:.2f} ms, of it the "
+            f"gradient bucket ({st['bucket_mb']:.2f} MB of f32) "
+            f"{st['gradients_ms']:.2f} ms and the denominators "
+            f"{st['denominators_ms']:.3f} ms ({SHARDED_RANKS} ranks sharing "
+            f"one H100 over {r0['backend']})")
+    pad = padded["res"]
+    check_sharded_volumes(torch, [g["volumes"] for g in pad], vols,
+                          f"{SHARDED_PAD_RANKS} ranks")
+    if any(g["collectives"]["volumes"] != 1 for g in pad):
+        fail(f"a volume query on {SHARDED_PAD_RANKS} ranks made "
+             f"{[g['collectives'] for g in pad]}")
+    log(f"[sharded] on {SHARDED_PAD_RANKS} ranks ({pmesh.pad_to(n, 3) - n} "
+        f"padded voxels): the unsharded volumes, one collective a query "
+        f"({padded['s']:.1f} s with the ranks' start, beside the "
+        f"{SHARDED_RANKS} ranks' start)")
+    nccl = pad[0]["nccl_error"]
+    log(f"[sharded] NCCL over the {SHARDED_PAD_RANKS} ranks sharing the "
+        f"card: " + (f"refused ({nccl}); hence Gloo" if nccl else
+                     "accepted (parallel/mesh.py's rule still picks Gloo)"))
+    a0 = r0["active"]
+    for r, got in enumerate(res[1:], 1):
+        if not torch.equal(got["active"]["poses"], a0["poses"]):
+            fail(f"the active run's poses on rank {r} differ from rank 0's")
+    row = a0["row"]
+    log(f"[sharded] {ACTIVE_CFG} seed {ACTIVE_SEED}, "
+        f"{SHARDED_ACTIVE_STEPS} steps on {SHARDED_RANKS} ranks: "
+        f"{a0['run_s']:.2f} s (rank 0; ranks sharing one card), equal "
+        f"poses on every rank, {a0['stats']['n_plans']} plans; rank 0's "
+        f"row: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    if not all(math.isfinite(v) for v in row.values()):
+        fail(f"the sharded active run's row is not finite: {row}")
+    idle = [k for k in BA_LAUNCHES_PER_ITER
+            if BA_LAUNCHES_PER_ITER[k] and not r0["launches"][k]]
+    if idle:
+        fail(f"the sharded path never launched {idle}")
+    log(f"[sharded] phase 14 in {time.perf_counter() - t_phase:.1f} s; "
+        f"rank 0's launches {r0['launches']}")
+    return r0["launches"], r0["cases"]
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2324,8 +2734,10 @@ def main() -> None:
                      for k in resumed_p_cases}
     replay, replay_cases, _ = run_replay(torch, kernels, primitives, root)
     vis, vis_cases = run_vis(torch, kernels, primitives, root, phase7)
+    sharded, sharded_cases = run_sharded(torch, kernels, primitives, root)
     for path, counts in (("raycast", raycast), ("resumed", resumed),
-                         ("replay", replay), ("vis", vis)):
+                         ("replay", replay), ("vis", vis),
+                         ("sharded", sharded)):
         idle = [k for k in BA_LAUNCHES_PER_ITER
                 if BA_LAUNCHES_PER_ITER[k] and not counts[k]]
         if idle:
@@ -2337,7 +2749,8 @@ def main() -> None:
             ("raycast", raycast, raycast_cases),
             ("resumed", resumed, resumed_cases),
             ("replay", replay, replay_cases),
-            ("vis", vis, vis_cases))
+            ("vis", vis, vis_cases),
+            ("sharded", sharded, sharded_cases))
 
     def summary(case: dict) -> dict:
         return {**{k: case[k] for k in ("shape", "max_abs_err", "ms",

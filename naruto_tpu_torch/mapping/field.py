@@ -169,3 +169,17 @@ def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
     h = hash_encode(params["table"], x01, spec.hash_spec)
     sdf, _, uncert, _ = _heads(params, x01, h, spec)
     return (sdf, uncert) if with_uncert else sdf
+
+
+# the surface band of the planner's uncertainty volume
+SURFACE_BAND = (0.0, 0.5)
+
+
+def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec):
+    """(sdf, uncert_map) at x01 [N, 3]: the uncertainty softplus(u) + 0.01
+    on the surface band SURFACE_BAND of the SDF, zero off it (the mapper's
+    volumes, which the planner reads)."""
+    sdf, uncert = query_sdf(params, x01, spec, with_uncert=True)
+    uncert_map = torch.nn.functional.softplus(uncert) + 0.01
+    on_surface = (sdf >= SURFACE_BAND[0]) & (sdf < SURFACE_BAND[1])
+    return sdf, torch.where(on_surface, uncert_map, 0.0)

@@ -41,34 +41,48 @@ def _safe_div(num, den):
     return num / torch.clamp(den, min=1.0)
 
 
-def rgb_depth_losses(rend: Dict, target_rgb, target_d, ray_mask,
-                     lw: LossWeights):
-    valid = ((target_d[:, 0] > 0.0) & (target_d[:, 0] < lw.depth_trunc)
-             & (ray_mask > 0))
-    validf = valid.to(torch.float32)
-    n_real = torch.sum(ray_mask)
-    w = torch.where(valid, 1.0, lw.rgb_missing)[:, None] * ray_mask[:, None]
-    rgb_loss = _safe_div(torch.sum(torch.square(w * (rend["rgb"] - target_rgb))),
-                         n_real * 3.0)
-    d_se = torch.square(rend["depth"] - target_d[:, 0]) * validf
-    depth_loss = _safe_div(torch.sum(d_se), torch.sum(validf))
-    return rgb_loss, depth_loss, valid
+def _valid_rays(target_d, ray_mask, lw: LossWeights):
+    return ((target_d[:, 0] > 0.0) & (target_d[:, 0] < lw.depth_trunc)
+            & (ray_mask > 0))
 
 
-def sdf_losses(sdf, z_vals, target_d, ray_mask, lw: LossWeights):
-    """sdf, z_vals [N, S]; target_d [N, 1]."""
+def _sdf_masks(z_vals, target_d, ray_mask, lw: LossWeights):
+    """(front, sdf_mask) [N, S]: the free-space samples and the truncation
+    band's, padded rays zeroed."""
     tr = lw.trunc * lw.sc_factor
-    s = sdf.shape[1]
     rm = ray_mask[:, None]
     front_raw = (z_vals < target_d - tr).to(torch.float32)
     back = (z_vals > target_d + tr).to(torch.float32)
     depth_ok = (target_d > 0.0).to(torch.float32)
-    front = front_raw * rm
-    sdf_mask = (1.0 - front_raw) * (1.0 - back) * depth_ok * rm
+    return front_raw * rm, (1.0 - front_raw) * (1.0 - back) * depth_ok * rm
 
-    n_elems = torch.sum(ray_mask) * s
-    n_fs = torch.sum(front)
-    n_sdf = torch.sum(sdf_mask)
+
+def _global(counts: torch.Tensor, group) -> torch.Tensor:
+    """Local counts [k], summed over the ranks of `group` (a
+    parallel.mesh.Mesh) in one collective; as they are without one. They
+    are masks and counts and carry no gradient."""
+    if group is None:
+        return counts
+    # imported here: parallel/ imports this module
+    from naruto_tpu_torch.parallel.mesh import all_reduce
+
+    return all_reduce(counts.detach().clone(), "denominators")
+
+
+def _rgb_depth(rend, target_rgb, target_d, ray_mask, valid, n_real, n_valid,
+               lw: LossWeights):
+    validf = valid.to(torch.float32)
+    w = torch.where(valid, 1.0, lw.rgb_missing)[:, None] * ray_mask[:, None]
+    rgb_loss = _safe_div(torch.sum(torch.square(w * (rend["rgb"] - target_rgb))),
+                         n_real * 3.0)
+    d_se = torch.square(rend["depth"] - target_d[:, 0]) * validf
+    return rgb_loss, _safe_div(torch.sum(d_se), n_valid)
+
+
+def _sdf(sdf, z_vals, target_d, front, sdf_mask, n_real, n_fs, n_sdf,
+         lw: LossWeights):
+    tr = lw.trunc * lw.sc_factor
+    n_elems = n_real * sdf.shape[1]
     n_both = torch.clamp(n_fs + n_sdf, min=1.0)
     fs_loss = _safe_div(torch.sum(torch.square((sdf - 1.0) * front)),
                         n_elems) * (1.0 - n_fs / n_both)
@@ -78,10 +92,9 @@ def sdf_losses(sdf, z_vals, target_d, ray_mask, lw: LossWeights):
     return fs_loss, sdf_loss
 
 
-def uncert_loss(rend: Dict, target_d, valid_mask, lw: LossWeights):
+def _uncert(rend, target_d, vm, n_valid, lw: LossWeights):
+    nv = torch.clamp(n_valid, min=1.0)
     sigma = rend["uncert_map"] + 1e-9
-    vm = valid_mask.to(torch.float32)
-    nv = torch.clamp(torch.sum(vm), min=1.0)
     err2 = torch.square(rend["depth"] - target_d[:, 0])
     nll = torch.sum((err2 / (2.0 * sigma)) * vm) / nv
     return nll + 0.5 * torch.sum(torch.log(sigma) * vm) / nv
@@ -142,22 +155,39 @@ def smoothness_tv(embed: torch.Tensor, n: int, lw: LossWeights):
 
 
 def total_loss(rend: Dict, target_rgb, target_d, ray_mask, lw: LossWeights,
-               with_smooth: bool = True):
+               with_smooth: bool = True, group=None):
     """Weighted sum of the losses -> (loss, aux dict). With smoothness on,
-    ``rend`` must carry the lattice embeddings as "extra_embed"."""
-    rgb_l, depth_l, valid = rgb_depth_losses(rend, target_rgb, target_d,
-                                             ray_mask, lw)
-    fs_l, sdf_l = sdf_losses(rend["sdf"], rend["z_vals"], target_d,
-                             ray_mask, lw)
+    ``rend`` must carry the lattice embeddings as "extra_embed".
+
+    With `group`, every denominator (real rays, rays of valid depth,
+    free-space and truncation-band samples; the sample count and the
+    uncertainty term's valid rays follow from them) is summed over the
+    ranks in one collective, and the smoothness term, which every rank
+    computes alike from the replicated lattice, enters divided by the
+    number of ranks: each rank's loss and aux are its share, and summing
+    the ranks' gradients once (parallel/sharded.py) gives the unsharded
+    gradient."""
+    valid = _valid_rays(target_d, ray_mask, lw)
+    validf = valid.to(torch.float32)
+    front, sdf_mask = _sdf_masks(rend["z_vals"], target_d, ray_mask, lw)
+    n_real, n_valid, n_fs, n_sdf = _global(torch.stack(
+        [torch.sum(ray_mask), torch.sum(validf), torch.sum(front),
+         torch.sum(sdf_mask)]), group)
+    rgb_l, depth_l = _rgb_depth(rend, target_rgb, target_d, ray_mask, valid,
+                                n_real, n_valid, lw)
+    fs_l, sdf_l = _sdf(rend["sdf"], rend["z_vals"], target_d, front,
+                       sdf_mask, n_real, n_fs, n_sdf, lw)
     loss = lw.rgb * rgb_l + lw.depth * depth_l + lw.sdf * sdf_l + lw.fs * fs_l
     aux = {"rgb_loss": rgb_l, "depth_loss": depth_l, "sdf_loss": sdf_l,
            "fs_loss": fs_l}
     if "uncert_map" in rend:
-        u_l = uncert_loss(rend, target_d, valid, lw)
+        u_l = _uncert(rend, target_d, validf, n_valid, lw)
         loss = loss + lw.uncert * u_l
         aux["uncert_loss"] = u_l
     if with_smooth and lw.smooth > 0:
         s_l = smoothness_tv(rend["extra_embed"], lw.smooth_pts - 1, lw)
+        if group is not None:
+            s_l = s_l / group.world
         loss = loss + lw.smooth * s_l
         aux["smooth_loss"] = s_l
     aux["total"] = loss

@@ -45,7 +45,14 @@ Full state (``save_full_state`` / ``load_full_state``): the JAX package's
 ``MapperState`` tree in its npz format, either package's file loading in
 the other, with the draw sites' generator states in the header.
 
-Not ported yet: the sharded BA.
+Data-parallel (parallel/, under a process group of several ranks): with
+``parallel.shard_rays`` and tracking off, ``_grad_fn`` splits each batch
+of rays over the ranks (every rank draws the full batch and takes its
+rows, so the draws are the unsharded run's), sums the loss denominators
+and then the gradients over the ranks, and every rank takes the same Adam
+steps; a batch whose ray count is not a multiple of the ranks' runs
+unsharded. With ``parallel.shard_volumes`` the volume query splits the
+voxel axis and gathers the whole volume on every rank.
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ from naruto_tpu_torch.config import MainConfig
 from naruto_tpu_torch.geometry.rays import get_camera_rays
 from naruto_tpu_torch.geometry.voxel import volume_shape, world_grid
 from naruto_tpu_torch.mapping.field import (FieldSpec, init_field_params,
-                                            query_sdf)
+                                            query_sdf, volume_maps)
 from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
                                                 sample_global_rays)
 from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
@@ -71,6 +78,9 @@ from naruto_tpu_torch.mapping.pose_opt import (const_speed_init,
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.ops.encoding import table_leaves
 from naruto_tpu_torch.ops.mlp import use_full_fp32_matmul
+from naruto_tpu_torch.parallel.mesh import current_mesh
+from naruto_tpu_torch.parallel.sharded import (data_parallel_grads,
+                                               sharded_volume_query)
 from naruto_tpu_torch.sim.base import quantize_color
 from naruto_tpu_torch.utils import ckpt_io
 from naruto_tpu_torch.utils.printer import InfoPrinter
@@ -454,6 +464,17 @@ class Mapper:
         self._copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
                              else None)
 
+        # data-parallel BA and volumes over the process group already
+        # joined (parallel/mesh.py), as the JAX package's over its devices:
+        # the BA shards only with tracking off
+        self.mesh = current_mesh(dev)
+        par = cfg.parallel
+        self._ba_mesh = (self.mesh if par.shard_rays
+                         and not self.track_enabled else None)
+        self._sharded_vol = (sharded_volume_query(self.mesh, self.spec)
+                             if par.shard_volumes and self.mesh is not None
+                             else None)
+
     def _all_params(self) -> List[torch.Tensor]:
         return [p for g in self._groups.values() for p in g]
 
@@ -493,10 +514,11 @@ class Mapper:
     # ------------------------------------------------------- loss + update
     def _loss_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
                  z_noise, smooth=None, smooth_scale: float = 1.0,
-                 importance_u=None, params=None):
+                 importance_u=None, params=None, group=None):
         """smooth: (offset_u, jitter, base, diffc) lattice draws (the last
         two None unless smooth_sample), or None for no smoothness term this
-        iteration. params: the field (this mapper's by default)."""
+        iteration. params: the field (this mapper's by default). group: the
+        mesh whose ranks each hold a slice of the batch (total_loss)."""
         lw = (self.lw._replace(smooth=self.lw.smooth * smooth_scale)
               if smooth_scale != 1.0 else self.lw)
         with_smooth = smooth is not None
@@ -508,27 +530,40 @@ class Mapper:
                            z_noise, extra_pts01=extra,
                            importance_u=importance_u)
         return total_loss(rend, target_rgb, target_d, ray_mask, lw,
-                          with_smooth=with_smooth)
+                          with_smooth=with_smooth, group=group)
 
     def _grad_fn(self, rays_o, rays_d, target_rgb, target_d, ray_mask,
                  z_noise, smooth=None, smooth_scale: float = 1.0,
                  importance_u=None, pose_leaves: Sequence = ()):
         """-> (aux, grads by group {"table", "decoder", "uncert"}, and
         "pose" for `pose_leaves` when there are any: zeros where the loss
-        does not reach one))."""
-        loss, aux = self._loss_fn(rays_o, rays_d, target_rgb, target_d,
-                                  ray_mask, z_noise, smooth, smooth_scale,
-                                  importance_u)
-        wrt = self._all_params() + list(pose_leaves)
-        flat = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            wrt, torch.autograd.grad(loss, wrt, allow_unused=True))]
+        does not reach one)).
+
+        With the BA sharded (``_ba_mesh``) and a ray count that the ranks
+        split evenly, each rank takes its rows of every per-ray argument,
+        the loss's denominators are summed over the ranks, and the
+        gradients and aux are summed once (parallel/sharded.py): each
+        rank returns the unsharded batch's. Otherwise the whole batch."""
+        mesh = self._ba_mesh
+        if mesh is not None and rays_o.shape[0] % mesh.world:
+            mesh = None
+
+        def loss_fn(rays_o, rays_d, target_rgb, target_d, ray_mask, z_noise,
+                    importance_u, group):
+            return self._loss_fn(rays_o, rays_d, target_rgb, target_d,
+                                 ray_mask, z_noise, smooth, smooth_scale,
+                                 importance_u, group=group)
+
+        flat, aux = data_parallel_grads(
+            mesh, loss_fn, self._all_params() + list(pose_leaves), rays_o,
+            rays_d, target_rgb, target_d, ray_mask, z_noise, importance_u)
         grads, i = {}, 0
         for k, g in self._groups.items():
             grads[k] = list(flat[i:i + len(g)])
             i += len(g)
         if pose_leaves:
             grads["pose"] = flat[i:]
-        return {k: v.detach() for k, v in aux.items()}, grads
+        return aux, grads
 
     @torch.no_grad()
     def _apply_map_update(self, grads: Dict) -> None:
@@ -808,11 +843,10 @@ class Mapper:
     # --------------------------------------------------------- map volumes
     @torch.no_grad()
     def _volumes_impl(self):
-        sdf, uncert = query_sdf(self.params, self.grid01, self.spec,
-                                with_uncert=True)
-        uncert_map = torch.nn.functional.softplus(uncert) + 0.01
-        on_surface = (sdf >= 0.0) & (sdf < 0.5)
-        uncert_map = torch.where(on_surface, uncert_map, 0.0)
+        if self._sharded_vol is not None:
+            sdf, uncert_map = self._sharded_vol(self.params, self.grid01)
+        else:
+            sdf, uncert_map = volume_maps(self.params, self.grid01, self.spec)
         return (uncert_map.reshape(self.vol_shape),
                 sdf.reshape(self.vol_shape))
 

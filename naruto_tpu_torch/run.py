@@ -26,6 +26,16 @@ planner state, periodic meshes) under the run's `visualization/`, which
 `python -m naruto_tpu_torch.visualization.offline` turns into plots,
 stills and videos. `--sim replay --scene_path DIR` replays recorded frames
 (`python -m naruto_tpu_torch.sim.scripted` writes them).
+
+Data-parallel, one process per rank under torchrun, with the YAML's
+`parallel: {shard_rays: true, shard_volumes: true}` (the JAX package's
+switches; there is no flag for them):
+
+    torchrun --nproc_per_node 2 -m naruto_tpu_torch.run --cfg sharded.yaml
+
+Every rank runs the same loop; the first line says the ranks, the backend
+and why (parallel/mesh.py), and rank 0 alone prints and writes the run's
+files.
 """
 from __future__ import annotations
 
@@ -105,10 +115,24 @@ def resume_path(args, run_dir: str):
 
 def main(argv=None):
     args = parse_args(argv)
+    from naruto_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(args.device)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None and lead:
+        print(mesh.describe(), flush=True)
+    try:
+        _run(args, mesh.device if mesh is not None else args.device, lead)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device, lead: bool) -> None:
     cfg = build_config(args)
     from naruto_tpu_torch.system.engine import Engine
 
-    engine = Engine(cfg, device=args.device)
+    engine = Engine(cfg, device=device)
     resume = resume_path(args, engine.run_dir) if args.resume else None
     dev = engine.device
     on_card = dev.type == "cuda"
@@ -126,8 +150,9 @@ def main(argv=None):
     peak = (f", peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB"
             if on_card else "")
-    print(f"[run] wall: run() {t1 - t0:.2f} s, finalize() {t2 - t1:.2f} s"
-          f"{peak}", flush=True)
+    if lead:
+        print(f"[run] wall: run() {t1 - t0:.2f} s, finalize() "
+              f"{t2 - t1:.2f} s{peak}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,3 @@
-"""Entry points of the port that measure it on the card."""
+"""Entry points of the port beside the run: the measurements on the card
+(microbenchmarks, probes, trace summaries), the scene assets, and the
+evaluation tools (the protocol runner, completion gaps)."""

@@ -25,6 +25,15 @@ writes every step's artifacts under ``<run dir>/visualization/``. While it
 saves or shows the rgbd panel, every frame renders (``vis_needs_rgbd``):
 the saver gets the simulator's float colour, the mapper the uint8 frame on
 the steps that consume one, as without the saver.
+
+Under a process group of several ranks (``torchrun``, parallel/mesh.py)
+every rank runs this same loop with the same seed, so every rank renders
+the same frames and, the volumes being gathered, makes the same plans.
+Rank 0 alone writes files (config.json, meshes, checkpoints, snapshots,
+planner_stats.json, the saver's artifacts, eval_result.txt) and prints;
+the other ranks render every frame rank 0's saver renders, and nothing
+else. At the end of ``run`` the ranks compare checksums of their final
+pose, poses and field, and the run raises where they differ.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from naruto_tpu_torch.mapping.mapper import Mapper
 from naruto_tpu_torch.mesh.extract import save_mesh
 from naruto_tpu_torch.mesh.marching import marching_cubes
 from naruto_tpu_torch.mesh.ply import read_mesh, read_ply, write_ply
+from naruto_tpu_torch.parallel.mesh import assert_replicated, current_mesh
 from naruto_tpu_torch.planner import init_planner
 from naruto_tpu_torch.sim import init_simulator
 from naruto_tpu_torch.sim.base import quantize_color
@@ -61,9 +71,13 @@ class Engine:
             raise RuntimeError("Engine(device='cuda') needs a CUDA device "
                                "and none is available; pass device='cpu' "
                                "to run on the host")
+        self.mesh = current_mesh(self.device)
+        # the rank that writes and prints
+        self.lead = self.mesh is None or self.mesh.rank == 0
         self.printer = InfoPrinter(
             "NARUTO-TPU", cfg.general.num_iter,
-            f"{cfg.general.dataset} - {cfg.general.scene}", quiet=quiet)
+            f"{cfg.general.dataset} - {cfg.general.scene}",
+            quiet=quiet or not self.lead)
         self.timer = Timer()
         # the simulator must render exactly the mapper's sensor size
         ph = tuple(cfg.sim.pinhole_hw)
@@ -88,12 +102,14 @@ class Engine:
 
         self.run_dir = os.path.join(cfg.general.result_dir,
                                     cfg.general.dataset, cfg.general.scene)
+        self.visualizer = None
+        if not self.lead:
+            return
         self.mapper.result_dir = self.run_dir
         # config provenance: the merged config next to the artifacts
         os.makedirs(self.run_dir, exist_ok=True)
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             json.dump(cfg.to_dict(), f, indent=1, default=str)
-        self.visualizer = None
         if cfg.vis.enable_all_vis:
             from naruto_tpu_torch.visualization.saver import ArtifactSaver
 
@@ -163,9 +179,10 @@ class Engine:
             c2w = self.resume(resume_from, c2w)
             start = self.mapper.step + 1
         vis = self.visualizer
-        # the rgbd panel consumes every frame
-        vis_needs_rgbd = vis is not None and (cfg.vis.save_rgbd
-                                              or cfg.vis.vis_rgbd)
+        # the rgbd panel consumes every frame (on every rank, so that all
+        # render alike)
+        vis_needs_rgbd = cfg.vis.enable_all_vis and (cfg.vis.save_rgbd
+                                                     or cfg.vis.vis_rgbd)
         for i in range(start, n):
             for mod in ((self.sim, self.mapper, self.planner) if active
                         else (self.sim, self.mapper)):
@@ -198,17 +215,26 @@ class Engine:
                     c2w = self.planner.main(self.uncert_sdf, c2w,
                                             new_vols is not None)
             freq = cfg.general.ckpt_freq
-            if freq and i > 0 and i % freq == 0:
+            if freq and i > 0 and i % freq == 0 and self.lead:
                 self.save_snapshot(c2w)
-            if (i + 1) % 250 == 0:
+            if (i + 1) % 250 == 0 and self.lead:
                 print(f"[Engine] step {i + 1} timers:\n"
                       f"{self.timer.summary()}", flush=True)
                 if active:
                     print(f"[Engine] planner: "
                           f"{self.planner.stats_summary()}", flush=True)
+        if self.mesh is not None:
+            m = self.mapper
+            assert_replicated(
+                self.mesh, [torch.from_numpy(np.asarray(c2w, np.float32)),
+                            m.poses, *m._all_params()],
+                "the final pose, poses and field")
         return np.asarray(c2w)
 
     def finalize(self, result_dir: Optional[str] = None) -> None:
+        """Rank 0's; the other ranks have nothing to write."""
+        if not self.lead:
+            return
         cfg = self.cfg
         out = result_dir or self.run_dir
         os.makedirs(out, exist_ok=True)

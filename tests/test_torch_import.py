@@ -27,7 +27,9 @@ def test_package_imports_with_jax_blocked():
                 "utils.image_io", "utils.profiling", "sim.replay",
                 "sim.scripted", "visualization", "visualization.raster",
                 "visualization.saver", "visualization.offline",
-                "export_pose"):
+                "export_pose", "parallel", "parallel.mesh",
+                "parallel.sharded", "parallel.dryrun",
+                "scripts.completion_gaps", "scripts.run_protocol"):
         assert f"naruto_tpu_torch.{new}" in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}:\n"
