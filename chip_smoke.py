@@ -103,14 +103,23 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      decode and encode ms; then the first REPLAY_STEPS poses of
      data/traj_ab/traj.txt captured from the analytic office0 room by
      sim/scripted.py (frame JPEGs, 16-bit depth PNGs, traj.txt) into a
-     temporary directory, and phase 6's run cut to REPLAY_STEPS steps
-     twice: on the analytic simulator, then over sim.method replay of the
-     capture (with the analytic run's gt_mesh.ply beside it as mesh.ply).
-     The replayed trajectory must be the analytic one within TRAJ_TOL, its
+     temporary directory, and phase 6's run cut to REPLAY_STEPS steps: on
+     the analytic simulator, then over sim.method replay of the capture
+     (with the analytic run's gt_mesh.ply beside it as mesh.ply) four
+     times, in the order of FORMS: its frames prefetched (sim/prefetch.py:
+     decoded on a worker thread, copied from pinned memory on a stream of
+     their own) or inline (the simulator's host_frame hidden). The
+     replayed trajectory must be the analytic one within TRAJ_TOL, its
      ratio within REPLAY_RATIO_PTS points and its MAD within REPLAY_MAD_CM
-     of the analytic run's; the replays of phase 6 on both runs. The ms a
-     frame to capture (render + encode) and to replay (decode + copy), and
-     both runs' walls, are printed.
+     of the analytic run's; every replayed run's poses bit for bit and row
+     digit for digit the first's; the replays of phase 6 on the analytic
+     run and the first replayed one. Then the passive trajectory cut to
+     RAYCAST_PASSIVE_STEPS steps with tracking on (every frame consumed)
+     over phase 10's mesh through the raycast simulator, in the same four
+     forms and with the same gates. The ms a frame to capture (render +
+     encode) and to replay (decode + copy), and each run's wall,
+     Simulation section (the frame wait), ba_dispatch and tracking
+     medians, are printed.
  13. --enable_vis: phase 7's run (ACTIVE_SEED, its configuration) for
      VIS_STEPS steps with vis.enable_all_vis and vis.vis_rgbd, then every
      mode of visualization/offline.py on its visualization/ directory
@@ -152,9 +161,9 @@ card's name and power limit, and the line before that the kernels' JSON
 (each kernel's launches on every path that drives it: the slice of phase
 4, the microbenchmarks of phase 5, the passive run of phase 6, the active
 run of phase 7, the parity run of phase 8, the settings run of phase 9,
-the raycast run of phase 10, the two resumed runs of phase 11, the
-replayed run of phase 12, the --enable_vis run of phase 13, rank 0 of the
-data-parallel phase 14).
+the raycast run of phase 10, the two resumed runs of phase 11, the first
+replayed and the first passive raycast run of phase 12, the --enable_vis
+run of phase 13, rank 0 of the data-parallel phase 14).
 """
 from __future__ import annotations
 
@@ -306,6 +315,24 @@ PORT_PASSIVE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307809,
                     "fscore_pct": 99.495077, "mad_cm": 0.463325}
 # phase 12: the codec, the capture and the replayed passive run
 REPLAY_STEPS = 200
+# the replayed run and a passive raycast run on phase 10's mesh, each with
+# its frames prefetched (sim/prefetch.py) and inline, in this order in one
+# process; the first run's launches are the path's
+FORMS = ("prefetched", "inline", "inline", "prefetched")
+# the passive raycast run: the trajectory cut to RAYCAST_PASSIVE_STEPS
+# steps, with tracking on (schema defaults) so that every frame is consumed
+RAYCAST_PASSIVE_STEPS = 100
+RAYCAST_PASSIVE_OVER = {"mapper": {"tracking_enable": True}}
+# its BA iteration (poses optimised): phase 4's launches and the position
+# gradient's feature gather
+TRACKED_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
+                             "gather_rows": 6, "row_cumsum": 0,
+                             "sorted_segment_sum": 1}
+# and its tracking iteration: one forward's hash and uncertainty gathers
+# (no importance pass) and the position gradient's feature gather
+TRACKED_TRACK_LAUNCHES_PER_ITER = {"outer_scan_slots": 0,
+                                   "outer_scan_rows": 0, "gather_rows": 3,
+                                   "row_cumsum": 0, "sorted_segment_sum": 0}
 REPLAY_RATIO_PTS = 0.5     # |replayed - analytic| completion ratio, points
 REPLAY_MAD_CM = 0.05       # |replayed - analytic| MAD
 CODEC_MIN_PSNR_DB = 40.0   # quality 95, 4:2:0, a 680x1200 frame (43-51 dB)
@@ -1260,7 +1287,8 @@ def read_row(path: str) -> dict:
 
 def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                 over=None, num_iter=None, reference=REFERENCE_ROW,
-                want=None, check=None, resume_from=None) -> tuple:
+                want=None, check=None, resume_from=None, inline=False,
+                recorder=None, track_want=None) -> tuple:
     """The passive run of PASSIVE_CFG through the port's Engine, with the
     overrides `over` and `num_iter` steps (the file's 1,000 by default);
     returns the launches of each kernel over run() and finalize(), and
@@ -1268,9 +1296,12 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
     `reference`: the JAX package's row the run's row is held to (None: the
     row must be finite only); `want`: the launches of a BA iteration;
     `check(eng, row)`: further gates, called before the run's directory
-    goes; `resume_from`: a full-state snapshot the run continues from.
-    With tracking on, every tracking iteration must launch
-    TRACK_LAUNCHES_PER_ITER."""
+    goes; `resume_from`: a full-state snapshot the run continues from;
+    `inline`: the simulator's frames made inline (InlineFrames), not
+    prefetched; `recorder`: a ShapeRecorder the caller replays (then the
+    second value returned is None). With tracking on, every tracking
+    iteration must launch `track_want` (TRACK_LAUNCHES_PER_ITER, phase 9's
+    settings, by default)."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -1281,6 +1312,7 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
     from naruto_tpu_torch.system import engine as engine_mod
 
     want = BA_LAUNCHES_PER_ITER if want is None else want
+    track_want = track_want or TRACK_LAUNCHES_PER_ITER
     cfg = load_config(os.path.join(root, PASSIVE_CFG))
     if over:
         cfg = deep_update(cfg, over)
@@ -1307,6 +1339,8 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
             f"raises if g++ fails), {lib.name} {how} and loaded in "
             f"{time.perf_counter() - t0:.2f} s")
         eng = engine_mod.Engine(cfg, device="cuda", quiet=True)
+        if inline:
+            eng.sim = InlineFrames(eng.sim)
         log(f"[{tag}] hash grid: {eng.mapper.spec.hash_spec.total_entries} "
             f"table rows, resolutions {eng.mapper.spec.hash_spec.resolutions}")
         per_iter, per_track = [], []
@@ -1325,7 +1359,8 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
             return out
 
         extract._dense_sdf = dense_counted
-        recorder = ShapeRecorder(torch, kernels, prims)
+        own = recorder is None
+        recorder = recorder or ShapeRecorder(torch, kernels, prims)
         try:
             with recorder:
                 kernels.reset_launch_counts()
@@ -1334,7 +1369,7 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                 t0 = time.perf_counter()
                 eng.run(resume_from=resume_from)
                 torch.cuda.synchronize()
-                run_s = time.perf_counter() - t0
+                run_s = eng.run_seconds = time.perf_counter() - t0
                 # the first step this run made (a resumed run's: the
                 # snapshot's + 1)
                 first = max(1, cfg.general.num_iter
@@ -1356,10 +1391,9 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                     if len(per_track) != cfg.general.num_iter - 1:
                         fail(f"{len(per_track)} tracking calls, not "
                              f"{cfg.general.num_iter - 1}")
-                    check_ba_launches(per_track, TRACK_LAUNCHES_PER_ITER,
-                                      "tracking")
+                    check_ba_launches(per_track, track_want, "tracking")
                     log(f"[{tag}] every iteration of {len(per_track)} "
-                        f"tracking calls launched {TRACK_LAUNCHES_PER_ITER}")
+                        f"tracking calls launched {track_want}")
                 peak_run = torch.cuda.max_memory_allocated() / 2 ** 30
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
@@ -1413,6 +1447,8 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
                 fail(f"mad_cm {row['mad_cm']} > {max_mad:.3f}")
         if check is not None:
             check(eng, row)
+    if not own:
+        return counts, None
     # every (kernel, shape) of the run against its plain version, after the
     # counts were read: these launches are not the path's
     log(f"[{tag}] {len(recorder.seen)} distinct (kernel, shape) in run() "
@@ -1855,7 +1891,7 @@ def run_raycast(torch, kernels, prims, root: str, keep_dir: str) -> tuple:
         check_renderer(torch, eng.cfg, eng.sim, rendered)
         snap = os.path.join(keep_dir, "raycast_full_state.pkl")
         shutil.copyfile(eng.snapshot_path(), snap)
-        info.update(snapshot=snap, cfg=eng.cfg,
+        info.update(snapshot=snap, cfg=eng.cfg, mesh=mesh,
                     poses=eng.mapper.poses.cpu().clone(),
                     save_s=t["full_state_save"])
 
@@ -1944,6 +1980,109 @@ def run_resumed_active(torch, kernels, prims, info: dict) -> tuple:
 
 
 # -------------------------------------------------------------- phase 12
+class InlineFrames:
+    """A simulator with host_frame hidden (the seam of
+    tests/test_torch_prefetch.py): the engine then makes every frame
+    inline, on its own thread."""
+
+    def __init__(self, sim):
+        self._sim = sim
+
+    def __getattr__(self, name):
+        if name == "host_frame":
+            raise AttributeError(name)
+        return getattr(self._sim, name)
+
+
+def _ms(seconds: list) -> str:
+    import numpy as np
+
+    return f"{1e3 * float(np.median(seconds)):.2f}" if seconds else "-"
+
+
+def run_forms(torch, kernels, prims, root: str, tag: str, over: dict,
+              num_iter: int, want=None, track_want=None,
+              check=None) -> tuple:
+    """The passive run of PASSIVE_CFG with `over` and `num_iter` steps,
+    once in each form of FORMS (its frames prefetched by sim/prefetch.py,
+    or inline), in one process: every run's poses bit for bit and row
+    digit for digit the first's, its (kernel, shape) keys the first's. Each
+    run's run() wall, Simulation section (the frame wait: prefetcher.get,
+    or the render and copy inline) and the medians of ba_dispatch and
+    tracking are printed. `want`, `track_want`: the launches of a BA and
+    of a tracking iteration (run_passive's); `check(eng, row)`: further gates on the first run. Returns the first
+    run's launches (a prefetched run: the path's), its replayed cases, and
+    the runs' numbers."""
+    from naruto_tpu_torch.sim import prefetch
+    from naruto_tpu_torch.system import engine as engine_mod
+
+    made = []
+
+    class Counted(prefetch.FramePrefetcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    runs = []
+    engine_mod.FramePrefetcher = Counted
+    try:
+        for k, form in enumerate(FORMS):
+            rec = ShapeRecorder(torch, kernels, prims)
+            got = {}
+
+            def keep(eng, row, first=k == 0):
+                t = eng.timer.timings
+                got.update(poses=eng.mapper.poses.cpu().clone(), row=row,
+                           run_s=eng.run_seconds, sim=t["Simulation"],
+                           ba=t["ba_dispatch"], track=t.get("tracking", []))
+                if first and check is not None:
+                    check(eng, row)
+
+            before = len(made)
+            counts, _ = run_passive(
+                torch, kernels, prims, root, f"{tag} {form}", over=over,
+                num_iter=num_iter, reference=None, want=want, check=keep,
+                inline=form == "inline", recorder=rec,
+                track_want=track_want)
+            if len(made) - before != (form == "prefetched"):
+                fail(f"[{tag}] the {form} run made {len(made) - before} "
+                     f"prefetchers")
+            if form == "prefetched" and made[-1]._stream is None:
+                fail(f"[{tag}] the prefetcher has no copy stream")
+            runs.append({"form": form, "counts": counts,
+                         "keys": set(rec.seen), **got})
+            if k == 0:
+                first_rec = rec
+    finally:
+        engine_mod.FramePrefetcher = prefetch.FramePrefetcher
+    first = runs[0]
+    for k, r in enumerate(runs[1:], 1):
+        if not torch.equal(r["poses"], first["poses"]):
+            bad = [i for i in range(len(r["poses"]))
+                   if not torch.equal(r["poses"][i], first["poses"][i])]
+            fail(f"[{tag}] run {k} ({r['form']}): poses differ from run 0's "
+                 f"({first['form']}) from step {bad[0]} on")
+        if r["row"] != first["row"]:
+            fail(f"[{tag}] run {k} ({r['form']}): row {r['row']} differs "
+                 f"from run 0's {first['row']}")
+        if r["keys"] != first["keys"]:
+            fail(f"[{tag}] run {k} ({r['form']}): (kernel, shape) keys "
+                 f"differ from run 0's")
+    for k, r in enumerate(runs):
+        log(f"[{tag}] run {k} {r['form']:10s}: run() {r['run_s']:.2f} s; "
+            f"Simulation {sum(r['sim']):.3f} s over {len(r['sim'])} frames "
+            f"(median frame wait {_ms(r['sim'])} ms); ba_dispatch median "
+            f"{_ms(r['ba'])} ms ({len(r['ba'])} BA steps); tracking median "
+            f"{_ms(r['track'])} ms")
+    log(f"[{tag}] the {len(runs)} runs: poses bit for bit and rows digit "
+        f"for digit equal; the same {len(first['keys'])} (kernel, shape) "
+        f"keys, replayed on run 0's inputs:")
+    cases = first_rec.replay(tag)
+    stats = [{k: r[k] for k in ("form", "run_s", "sim", "ba", "track")}
+             for r in runs]
+    return first["counts"], cases, stats
+
+
 def _median_ms(fn, reps: int = CODEC_REPS) -> float:
     times = []
     for _ in range(reps):
@@ -2019,8 +2158,8 @@ def check_codec(torch, frame, depth_trunc: float) -> dict:
 
 def run_replay(torch, kernels, prims, root: str) -> tuple:
     """Phase 12: the codec's contracts, the capture of REPLAY_STEPS poses,
-    and the passive run on the analytic simulator and over their replay.
-    Returns the replayed run's launches and cases."""
+    and the passive run on the analytic simulator and over their replay in
+    each of FORMS. Returns the replayed run's launches and cases."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -2105,17 +2244,42 @@ def run_replay(torch, kernels, prims, root: str) -> tuple:
                 f"{REPLAY_MAD_CM}) from it")
 
         t0 = time.perf_counter()
-        counts, cases = run_passive(
+        counts, cases, forms = run_forms(
             torch, kernels, prims, root, "replay",
-            over={"sim": {"method": "replay", "scene_path": cap}},
-            num_iter=REPLAY_STEPS, reference=None, check=same_as_analytic)
+            {"sim": {"method": "replay", "scene_path": cap}}, REPLAY_STEPS,
+            check=same_as_analytic)
         replay_s = time.perf_counter() - t0
     log(f"[replay] wall (run, finalize and replays): analytic "
-        f"{analytic_s:.2f} s, replayed {replay_s:.2f} s; capture "
-        f"{capture_s:.2f} s")
-    return counts, cases, {"codec_ms": codec_ms,
+        f"{analytic_s:.2f} s, replayed {replay_s:.2f} s for "
+        f"{len(FORMS)} runs; capture {capture_s:.2f} s")
+    return counts, cases, {"forms": forms, "codec_ms": codec_ms,
                            "capture_ms": 1e3 * capture_s / len(poses),
                            "render_ms": render_ms, "replay_ms": replay_ms}
+
+
+def run_raycast_passive(torch, kernels, prims, root: str,
+                        mesh: str) -> tuple:
+    """Phase 12, raycast: the passive run cut to RAYCAST_PASSIVE_STEPS
+    steps with tracking on (every frame consumed), over phase 10's mesh of
+    office0 in a scene directory beside the trajectory, in each of FORMS.
+    Returns the first run's launches and cases."""
+    from naruto_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(root, PASSIVE_CFG))
+    with tempfile.TemporaryDirectory(prefix="raycast_passive_") as scene:
+        os.symlink(mesh, os.path.join(scene, "mesh.ply"))
+        shutil.copyfile(os.path.join(root, cfg.sim.scene_path, "traj.txt"),
+                        os.path.join(scene, "traj.txt"))
+        t0 = time.perf_counter()
+        counts, cases, _ = run_forms(
+            torch, kernels, prims, root, "raycast-passive",
+            {**RAYCAST_PASSIVE_OVER,
+             "sim": {"method": "raycast", "scene_path": scene}},
+            RAYCAST_PASSIVE_STEPS, want=TRACKED_LAUNCHES_PER_ITER,
+            track_want=TRACKED_TRACK_LAUNCHES_PER_ITER)
+    log(f"[raycast-passive] wall (run, finalize and replays) of "
+        f"{len(FORMS)} runs: {time.perf_counter() - t0:.2f} s")
+    return counts, cases
 
 
 # -------------------------------------------------------------- phase 13
@@ -2728,15 +2892,18 @@ def main() -> None:
         check=same_as_phase6, resume_from=passive_keep["snapshot"])
     resumed_a, resumed_a_cases = run_resumed_active(torch, kernels,
                                                     primitives, raycast_info)
-    keep.cleanup()
     resumed = {k: resumed_p[k] + resumed_a[k] for k in resumed_p}
     resumed_cases = {k: resumed_p_cases[k] + resumed_a_cases[k]
                      for k in resumed_p_cases}
     replay, replay_cases, _ = run_replay(torch, kernels, primitives, root)
+    passive_rc, passive_rc_cases = run_raycast_passive(
+        torch, kernels, primitives, root, raycast_info["mesh"])
+    keep.cleanup()
     vis, vis_cases = run_vis(torch, kernels, primitives, root, phase7)
     sharded, sharded_cases = run_sharded(torch, kernels, primitives, root)
     for path, counts in (("raycast", raycast), ("resumed", resumed),
-                         ("replay", replay), ("vis", vis),
+                         ("replay", replay),
+                         ("raycast_passive", passive_rc), ("vis", vis),
                          ("sharded", sharded)):
         idle = [k for k in BA_LAUNCHES_PER_ITER
                 if BA_LAUNCHES_PER_ITER[k] and not counts[k]]
@@ -2749,6 +2916,7 @@ def main() -> None:
             ("raycast", raycast, raycast_cases),
             ("resumed", resumed, resumed_cases),
             ("replay", replay, replay_cases),
+            ("raycast_passive", passive_rc, passive_rc_cases),
             ("vis", vis, vis_cases),
             ("sharded", sharded, sharded_cases))
 

@@ -11,6 +11,12 @@ frame(c2w) -> (uint8 colour [H, W, 3], depth [H, W]) on the device: the
 frame as the engine hands it to the mapper. The colour is quantized where
 the renderer's output lies (on the device for the analytic simulator, on
 the host before the copy for the raycast one) by the same expression.
+
+host_frame(c2w, quantize=True) -> (colour, depth) as host numpy arrays,
+uint8 colour (f32 in [0, 1] without `quantize`) and f32 depth: only on the
+simulators that make their frames on the host (raycast, replay), whose
+``frame`` is this plus the copy. A passive run prefetches their frames
+(sim/prefetch.py).
 """
 from __future__ import annotations
 

@@ -11,10 +11,11 @@ sim.invalid_depth_value), RDF camera-to-world poses.
 
 The renderer runs on the host, with OpenMP. ``simulate`` returns what the
 analytic simulator returns, tensors on the run's device with colour in
-[0, 1]; ``frame`` quantizes the colour to uint8 on the host before the copy
-(a quarter of the bytes), by the expression the JAX package's mapper
-applies to the same host frame. ``probe_erp_dist`` returns host numpy: its
-consumer, the planner's collision rule, runs on the host.
+[0, 1]; ``host_frame`` is the frame on the host, its colour quantized to
+uint8 (a quarter of the bytes) by the expression the JAX package's mapper
+applies to the same host frame, and ``frame`` copies it to the device.
+``probe_erp_dist`` returns host numpy: its consumer, the planner's
+collision rule, runs on the host.
 
 Dynamic rigid objects (``sim.objects``) and their physics are as in the
 JAX package: constant velocities in the start camera's frame, one initial
@@ -365,9 +366,15 @@ class RaycastSimulator(Simulator):
     def simulate(self, c2w, return_erp: bool = False):
         return self._to_device(*self.render_host(c2w, return_erp))
 
-    def frame(self, c2w):
+    def host_frame(self, c2w, quantize: bool = True):
+        """The pinhole frame on the host: (uint8 colour, or f32 in [0, 1]
+        without `quantize`; f32 depth). What ``frame`` copies, and what
+        sim/prefetch.py's worker makes."""
         color, depth = self.render_host(c2w)
-        return self._to_device(quantize_color(color), depth)
+        return (quantize_color(color) if quantize else color), depth
+
+    def frame(self, c2w):
+        return self._to_device(*self.host_frame(c2w))
 
     def probe_erp_dist(self, c2w) -> np.ndarray:
         """Distance-only ERP render (host numpy), bit-identical to

@@ -8,9 +8,11 @@ data; this backend serves the same directory layout:
     <dir>/traj.txt                per-frame c2w (RUB rows; see PoseLoader)
 The frame is the one of ``update_step``'s index; the requested pose is
 ignored (the frames were recorded along the trajectory), as in the
-reference. ``simulate`` returns tensors on the run's device, colour in
-[0, 1] (the decoded uint8 over 255); ``frame`` hands the decoded uint8
-colour over directly, which equals ``quantize_color(simulate()[0])``.
+reference. ``host_frame`` returns the decoded frame on the host: the uint8
+colour, or with ``quantize=False`` the colour in [0, 1] (the uint8 over
+255, as the JAX package divides); ``simulate`` and ``frame`` copy the one
+or the other to the run's device. The uint8 colour equals
+``quantize_color(simulate()[0])``.
 """
 from __future__ import annotations
 
@@ -65,6 +67,15 @@ class ReplaySimulator(Simulator):
         depth = depth_raw.astype(np.float32) / self.depth_scale
         return rgb, depth
 
+    def host_frame(self, c2w, quantize: bool = True):
+        """The current step's frame on the host: (uint8 colour, or f32 in
+        [0, 1] without `quantize`; f32 depth). What ``frame`` and
+        ``simulate`` copy, and what sim/prefetch.py's worker makes."""
+        rgb, depth = self.read()
+        if not quantize:
+            rgb = rgb.astype(np.float32) / np.float32(255.0)
+        return rgb, depth
+
     def _to_device(self, rgb: np.ndarray, depth: np.ndarray):
         return (torch.from_numpy(rgb).to(self.device),
                 torch.from_numpy(depth).to(self.device))
@@ -73,8 +84,7 @@ class ReplaySimulator(Simulator):
         if return_erp:
             raise NotImplementedError(
                 "replay data carries no ERP sensor; use analytic or raycast")
-        rgb, depth = self._to_device(*self.read())
-        return rgb.to(torch.float32) / 255.0, depth
+        return self._to_device(*self.host_frame(c2w, quantize=False))
 
     def frame(self, c2w):
-        return self._to_device(*self.read())
+        return self._to_device(*self.host_frame(c2w))

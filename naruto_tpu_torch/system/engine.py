@@ -2,10 +2,20 @@
 naruto_tpu/system/engine.py).
 
 Per step: update the module steps, resolve the pose (the planner's in the
-active mode, the trajectory's in the passive one), render the RGB-D frame
-on the main thread when the mapper consumes it (``needs_frame``), run one
-mapping step, and in the active mode let the planner emit the next pose
-from the volumes of the last mapping step. At the end, ``finalize`` writes
+active mode, the trajectory's in the passive one), take the RGB-D frame
+when the mapper consumes it (``needs_frame``), run one mapping step, and
+in the active mode let the planner emit the next pose from the volumes of
+the last mapping step. The frame (timed as ``Simulation``) is rendered on
+the main thread, but in a passive run from step 0 over a simulator that
+makes its frames on the host (``host_frame``: raycast, replay): there
+sim/prefetch.py's worker makes the next consumed frame and copies it to
+the device while the mapper trains on the current one, and steps the
+simulator itself. The analytic simulator renders on the card, so there is
+no host-to-device hop to hide, and a worker thread issuing its render op
+by op was measured to slow the run (300 passive steps: 13.20-15.13 s of
+``run()`` against 11.29-12.13 s inline, +17%, on an NVIDIA H100 80GB HBM3
+at a 700 W power limit; its Python held the GIL the host-bound BA needs):
+it renders inline. At the end, ``finalize`` writes
 the final mesh, the checkpoint, the trajectory length, the planner's
 statistics (``planner_stats.json``, active mode), the ground truth and the
 metric row (accuracy, completion, ratio, F-score, MAD) to
@@ -54,6 +64,7 @@ from naruto_tpu_torch.parallel.mesh import assert_replicated, current_mesh
 from naruto_tpu_torch.planner import init_planner
 from naruto_tpu_torch.sim import init_simulator
 from naruto_tpu_torch.sim.base import quantize_color
+from naruto_tpu_torch.sim.prefetch import FramePrefetcher
 from naruto_tpu_torch.system.pose_loader import PoseLoader
 from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.results import update_results_file
@@ -162,6 +173,20 @@ class Engine:
                      self.mapper.step + 1, "Engine")
         return c2w
 
+    def _prefetcher(self, n: int, start: int,
+                    vis_needs_rgbd: bool) -> Optional[FramePrefetcher]:
+        """The frame prefetcher of a passive run from step 0 over a
+        simulator that makes its frames on the host, else None (the JAX
+        engine's rule, for host frame sources)."""
+        traj = self.pose_loader.traj
+        if (self.cfg.enable_active_planning or not traj or start != 0
+                or not hasattr(self.sim, "host_frame")):
+            return None
+        return FramePrefetcher(
+            self.sim, lambda s: traj[s],
+            needs_fn=None if vis_needs_rgbd else self.mapper.needs_frame,
+            horizon=min(n, len(traj)))
+
     def run(self, num_iter: Optional[int] = None,
             resume_from: Optional[str] = None) -> np.ndarray:
         """Steps up to `num_iter` (general.num_iter by default), from step 0
@@ -172,35 +197,59 @@ class Engine:
         two part at the next plan."""
         cfg = self.cfg
         n = num_iter if num_iter is not None else cfg.general.num_iter
-        active = cfg.enable_active_planning
         c2w = self._init_pose()
         start = 0
         if resume_from:
             c2w = self.resume(resume_from, c2w)
             start = self.mapper.step + 1
-        vis = self.visualizer
         # the rgbd panel consumes every frame (on every rank, so that all
         # render alike)
         vis_needs_rgbd = cfg.vis.enable_all_vis and (cfg.vis.save_rgbd
                                                      or cfg.vis.vis_rgbd)
+        prefetcher = self._prefetcher(n, start, vis_needs_rgbd)
+        try:
+            c2w = self._loop(c2w, start, n, vis_needs_rgbd, prefetcher)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if self.mesh is not None:
+            m = self.mapper
+            assert_replicated(
+                self.mesh, [torch.from_numpy(np.asarray(c2w, np.float32)),
+                            m.poses, *m._all_params()],
+                "the final pose, poses and field")
+        return np.asarray(c2w)
+
+    def _loop(self, c2w, start: int, n: int, vis_needs_rgbd: bool,
+              prefetcher: Optional[FramePrefetcher]):
+        cfg = self.cfg
+        active = cfg.enable_active_planning
+        vis = self.visualizer
+        # with a prefetcher its worker steps the simulator, ahead of this
+        # loop: stepping it here too would move the frame in the making
+        stepped = ((self.mapper,) if prefetcher is not None
+                   else (self.sim, self.mapper)) \
+            + ((self.planner,) if active else ())
         for i in range(start, n):
-            for mod in ((self.sim, self.mapper, self.planner) if active
-                        else (self.sim, self.mapper)):
+            for mod in stepped:
                 mod.update_step(i)
             if vis is not None:
                 vis.update_step(i)
             c2w = self.pose_loader.update_pose(c2w, i)
             color = depth = vis_color = vis_depth = None
-            # a frame nothing consumes is not rendered, and not timed
+            # a frame nothing consumes is not made, and not timed
             needs = self.mapper.needs_frame(i)
             if vis_needs_rgbd:
                 with self.timer.time("Simulation", "General"):
-                    vis_color, vis_depth = self.sim.simulate(c2w)[:2]
+                    vis_color, vis_depth = (
+                        prefetcher.get(i) if prefetcher is not None
+                        else self.sim.simulate(c2w)[:2])
                     if needs:
                         color, depth = quantize_color(vis_color), vis_depth
             elif needs:
                 with self.timer.time("Simulation", "General"):
-                    color, depth = self.sim.frame(c2w)
+                    color, depth = (prefetcher.get(i) if prefetcher is not None
+                                    else self.sim.frame(c2w))
             with self.timer.time("SLAM", "General"):
                 new_vols = self.mapper.online_recon_step(i, color, depth,
                                                          c2w)
@@ -223,13 +272,7 @@ class Engine:
                 if active:
                     print(f"[Engine] planner: "
                           f"{self.planner.stats_summary()}", flush=True)
-        if self.mesh is not None:
-            m = self.mapper
-            assert_replicated(
-                self.mesh, [torch.from_numpy(np.asarray(c2w, np.float32)),
-                            m.poses, *m._all_params()],
-                "the final pose, poses and field")
-        return np.asarray(c2w)
+        return c2w
 
     def finalize(self, result_dir: Optional[str] = None) -> None:
         """Rank 0's; the other ranks have nothing to write."""

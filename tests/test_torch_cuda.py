@@ -914,3 +914,64 @@ def test_device_trace_on_cuda(cuda_device, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert profiling.time_call(torch.mm, x, x, iters=3) > 0
+
+
+@pytest.mark.cuda
+def test_prefetched_frames_on_card(cuda_device):
+    """The frame prefetcher over a raycast scene for 20 steps, each copy
+    held back on its stream by a sleep: the frames it delivers equal
+    sim.frame's bit for bit (so the consumer's stream waited for each
+    copy); a copy is pending on the prefetcher's stream while the
+    consumer's stream is idle (another stream); and a pinned buffer is
+    rewritten only after the event of its last copy."""
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.sim.prefetch import FramePrefetcher
+    from naruto_tpu_torch.sim.raycast import RaycastSimulator
+
+    cfg = make_config("Replica", "office0", overrides={
+        "cam": {"H": 120, "W": 160, "fx": 80.0, "fy": 80.0, "cx": 79.5,
+                "cy": 59.5},
+        "sim": {"method": "raycast", "pinhole_hw": (120, 160),
+                "erp_hw": (16, 32)}})
+    rng = np.random.default_rng(0)
+    verts = rng.uniform(-3, 3, (900, 3)).astype(np.float32)
+    faces = rng.integers(0, 900, (300, 3)).astype(np.int32)
+    colors = rng.uniform(0, 1, (900, 3)).astype(np.float32)
+    sim = RaycastSimulator(cfg, cuda_device, verts=verts, faces=faces,
+                           colors=colors)
+    traj = []
+    for k in range(20):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = [0.05 * k, -0.03 * k, 0.02 * k]
+        traj.append(c2w)
+    reused_after_event = []
+
+    class HeldBack(FramePrefetcher):
+        def _fill(self, slot, arrays):
+            done = self._copied[slot]
+            reused_after_event.append(done is None or done.query())
+            with torch.cuda.stream(self._stream):
+                torch.cuda._sleep(50_000_000)
+            return super()._fill(slot, arrays)
+
+    pf = HeldBack(sim, lambda s: traj[s], needs_fn=lambda i: True,
+                  horizon=len(traj))
+    consumer = torch.cuda.current_stream(cuda_device)
+    assert pf._stream != consumer
+    got, pending_elsewhere = [], []
+    for i in range(len(traj)):
+        color, depth = pf.get(i)
+        got.append((color.clone(), depth.clone()))   # read on the consumer
+        consumer.synchronize()
+        if i + 1 < len(traj):
+            pf._next.result()        # the next copy is issued, held back
+            pending_elsewhere.append(not pf._stream.query()
+                                     and consumer.query())
+    pf.close()
+    assert all(pending_elsewhere) and len(pending_elsewhere) == 19
+    assert reused_after_event == [True] * 20
+    for c2w, (color, depth) in zip(traj, got):
+        want = sim.frame(c2w)
+        assert color.is_cuda and color.dtype == torch.uint8
+        assert torch.equal(color, want[0]) and torch.equal(depth, want[1])
+    assert any(float(d.max()) > 0 for _, d in got)

@@ -181,7 +181,7 @@ def test_gt_occupancy_volume_matches_jax():
     {"vis": {"enable_all_vis": True}},
     {"general": {"ckpt_freq": 10}},
 ], ids=["over0-None", "over1-item 8", "over2-item 5"])
-def test_engine_refuses_what_is_not_ported(tmp_path, over):
+def test_engine_runs_every_mode(tmp_path, over):
     """Nothing is refused any more. Active planning builds the planner on
     the engine's device; the artifact saver (item 8) writes its contract
     for every step; ckpt_freq writes the run's full-state snapshot every
@@ -210,7 +210,7 @@ def test_engine_refuses_what_is_not_ported(tmp_path, over):
 
 
 @pytest.mark.parametrize("method", ["replay", "raycast"])
-def test_other_simulators_refused(tmp_path, method):
+def test_replay_and_raycast_simulators(tmp_path, method):
     """Neither is refused any more: raycast builds the port's
     RaycastSimulator over the scene_path mesh, replay (item 8) the port's
     ReplaySimulator over a recorded directory."""
@@ -246,7 +246,7 @@ def test_other_simulators_refused(tmp_path, method):
         init_simulator(deep_update(cfg, {"sim": {"method": "nope"}}), "cpu")
 
 
-def test_run_cli_refuses_resume(tmp_path, capsys):
+def test_run_cli_resume_path(tmp_path, capsys):
     """--resume, ported: 'auto' with no snapshot in the run directory
     starts fresh and says so; a path that does not exist fails."""
     args = trun.parse_args(["--cfg", os.path.join(

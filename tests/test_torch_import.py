@@ -29,7 +29,8 @@ def test_package_imports_with_jax_blocked():
                 "visualization.saver", "visualization.offline",
                 "export_pose", "parallel", "parallel.mesh",
                 "parallel.sharded", "parallel.dryrun",
-                "scripts.completion_gaps", "scripts.run_protocol"):
+                "scripts.completion_gaps", "scripts.run_protocol",
+                "sim.prefetch"):
         assert f"naruto_tpu_torch.{new}" in mods, new
     code = ("import sys\n"
             f"for m in {FORBIDDEN!r}:\n"
