@@ -13,8 +13,8 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      small shapes; two calls must agree bit for bit; both timed (CUDA
      events, and the profiler's device time);
   3. segment sums: the hash-grid backward's segment sum, and the
-     uncertainty grid's trilinear VJP (sort, gather_rows,
-     sorted_segment_sum), through the kernels on the card against the same
+     uncertainty grid's trilinear VJP (sort, sorted_segment_sum fed the
+     sort permutation), through the kernels on the card against the same
      functions through the plain versions on the host, at the mapping
      step's point counts, table size and (49, 56, 35) grid;
   4. the slice: the mapper's online entry point at the full Replica/office0
@@ -33,8 +33,14 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      sorted_segment_sum also on key layouts that stress its tiling (one key
      on most rows, empty leading and trailing slots, long gaps, M beside a
      tile multiple); two row_cumsum or sorted_segment_sum calls must agree
-     bit for bit; the host's cost per call of
-     every wrapper and plain version; then both ported microbenchmark
+     bit for bit. sorted_segment_sum fed a sort permutation at the BA's
+     and at the vertex layout's shapes ([15,789,952, 2] into 814,897
+     slots, keys from the parity grid's corner rows of points along rays):
+     against its plain version, and bit for bit against the pair it
+     replaces (gather_rows by the permutation, then the sum of the
+     gathered rows), both forms timed in turns by the profiler beside the
+     bound, index_add_ and torch.sort (SegmentForms); the host's cost per
+     call of every wrapper and plain version; then both ported microbenchmark
      scripts run in this process, and their launch counts show every
      kernel ran;
   6. the passive run: the port's Engine on configs/ab/passive_traj_ab.yaml
@@ -65,7 +71,10 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      same poses (trajectory within 1e-4 m, ratio >= 99.0%, MAD <= its
      0.459 cm + 0.1 cm), PARITY_LAUNCHES_PER_ITER in every BA iteration,
      and the replays of phase 6 (the vertex backward's segment sum over
-     15.8M rows of F = 2, the forward's gather of [814,897, 2] f32 rows);
+     15.8M rows of F = 2 fed the sort permutation, the forward's gather of
+     [814,897, 2] f32 rows); at each key of the vertex backward's segment
+     sum, on the run's own keys, permutation and values, the two forms are
+     also timed in turns (SegmentForms), in a fresh process (forms_apart);
   9. the remaining settings: phase 6's run with tracking (schema defaults:
      10 iterations of 1,024 rays a frame), n_importance 12, smooth_sample
      4,096 and the weights carry on the default hybrid grid, cut to
@@ -197,11 +206,12 @@ HOST_CALLS = 200           # calls enqueued back to back per host-cost line
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # launches of each kernel entry point in one BA iteration: the fused scan's
 # slot rows in the hash backward (never its full rows); gather_rows for the
-# hash forward, the backward's two payload gathers, the uncertainty grid's
-# cell gather and its trilinear VJP's gather by the sort permutation;
-# sorted_segment_sum for that VJP's segment sum; row_cumsum nowhere
+# hash forward, the backward's two payload gathers and the uncertainty
+# grid's cell gather; sorted_segment_sum, fed the sort permutation, for
+# the trilinear VJP's segment sum (no gather by the permutation);
+# row_cumsum nowhere
 BA_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                        "gather_rows": 5, "row_cumsum": 0,
+                        "gather_rows": 4, "row_cumsum": 0,
                         "sorted_segment_sum": 1}
 BACKWARD_KERNELS = ("outer_scan_slots",)   # only in the backward
 SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
@@ -213,7 +223,6 @@ BA_GATHERS = (
     ("sort payload", 493_568, 1, "int32", 493_568, False),
     ("sort payload", 493_568, 8, "bfloat16", 493_568, False),
     ("uncert cells", 89_760, 8, "float32", 93_568, False),
-    ("segment rows", 93_568, 8, "float32", 93_568, False),
 )
 # the uncertainty grid at office0: the trilinear VJP sums BA_POINTS rows of
 # 8 corner weights into the cells of a (49, 56, 35) grid
@@ -255,11 +264,11 @@ PARITY_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.357286,
               "completion_cm": 1.288284, "completion_ratio_pct": 99.609,
               "mad_cm": 0.459087}
 # its BA iteration: gather_rows for the hash forward (one row of F = 2 per
-# corner), the uncertainty grid's cell gather, and the two segment sums'
-# gathers by their sort permutations; sorted_segment_sum for the vertex
-# rows (bf16-rounded) and the trilinear VJP (exact); no fused scan
+# corner) and the uncertainty grid's cell gather; sorted_segment_sum, fed
+# each sort permutation, for the vertex rows (bf16-rounded) and the
+# trilinear VJP (exact); no fused scan
 PARITY_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
-                            "gather_rows": 4, "row_cumsum": 0,
+                            "gather_rows": 2, "row_cumsum": 0,
                             "sorted_segment_sum": 2}
 # phase 9: the passive protocol with the remaining settings, cut to
 # SETTINGS_STEPS steps (schema defaults: 10 tracking iterations of 1,024
@@ -271,12 +280,11 @@ SETTINGS_OVER = {"mapper": {"tracking_enable": True},
 # its BA iteration (poses optimised): the hash encode runs twice, the first
 # pass with the smoothness pairs riding it; gather_rows for both forwards,
 # both uncertainty-grid lookups, each backward's two payload gathers (the
-# weights carry) and its position gradient's feature gather, and the
-# trilinear VJP's gather; the slot-row scan in both hash backwards; one
-# sorted_segment_sum (the trilinear VJP: no loss reads the first pass's
-# uncertainty)
+# weights carry) and its position gradient's feature gather; the slot-row
+# scan in both hash backwards; one sorted_segment_sum fed the permutation
+# (the trilinear VJP: no loss reads the first pass's uncertainty)
 SETTINGS_LAUNCHES_PER_ITER = {"outer_scan_slots": 2, "outer_scan_rows": 0,
-                              "gather_rows": 11, "row_cumsum": 0,
+                              "gather_rows": 10, "row_cumsum": 0,
                               "sorted_segment_sum": 1}
 # a tracking iteration (the field frozen): both forwards' hash and
 # uncertainty gathers, and the position gradient's feature gather; no
@@ -326,7 +334,7 @@ RAYCAST_PASSIVE_OVER = {"mapper": {"tracking_enable": True}}
 # its BA iteration (poses optimised): phase 4's launches and the position
 # gradient's feature gather
 TRACKED_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                             "gather_rows": 6, "row_cumsum": 0,
+                             "gather_rows": 5, "row_cumsum": 0,
                              "sorted_segment_sum": 1}
 # and its tracking iteration: one forward's hash and uncertainty gathers
 # (no importance pass) and the position gradient's feature gather
@@ -577,8 +585,8 @@ def ba_points(torch, gen):
 
 
 def check_trilinear_vjp(torch, dev) -> None:
-    """The uncertainty grid's volume gradient through gather_rows and
-    sorted_segment_sum on the card against the plain versions on the
+    """The uncertainty grid's volume gradient through sorted_segment_sum
+    fed the sort permutation on the card against the plain versions on the
     host."""
     from naruto_tpu_torch.ops.grid_sample import trilinear_sample
 
@@ -934,15 +942,136 @@ def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
     return res
 
 
+def segment_forms(torch, gather, segsum, label: str, si, vals, size: int,
+                  perm, rb: bool) -> dict:
+    """SegmentForms: the two forms of a dense segment sum after its sort,
+    on the same card tensors: the pair of gather_rows by the permutation
+    and sorted_segment_sum of the gathered rows, and the one
+    sorted_segment_sum call fed the permutation. Fails unless they agree
+    bit for bit; then times both by the profiler's device time in turns
+    (pair, one call, one call, pair), beside the one call's bound, the
+    pair's gather and sum alone, index_add_ on the permuted rows (one
+    PyTorch call for the same sums), index_add_ on the unsorted rows (the
+    scatter with atomics that the sort avoids) and torch.sort of the
+    unsorted keys (the rest of the backward). A time the tracer lost is
+    None."""
+    from naruto_tpu_torch.scripts.trace_summary import device_ms
+
+    nf = vals.shape[1]
+
+    def one():
+        return segsum(si, vals, size, round_bf16=rb, perm=perm)
+
+    def pair():
+        return segsum(si, gather(vals, perm), size, round_bf16=rb)
+
+    got, ref = one(), pair()
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        fail(f"sorted_segment_sum {label}: fed the permutation, it differs "
+             f"from gather_rows + sorted_segment_sum by "
+             f"{float((got - ref).abs().max()):.3e}")
+
+    def traced(fn):
+        t = device_ms(fn)
+        return None if math.isnan(t) else t
+
+    keys = torch.empty_like(si)
+    keys[perm] = si                     # the keys before the sort
+    v = vals.bfloat16().float() if rb else vals
+    vp = v.index_select(0, perm)
+    rows = gather(vals, perm)
+    turns = {"pair": [], "one": []}
+    for form in ("pair", "one", "one", "pair"):
+        turns[form].append(traced(pair if form == "pair" else one))
+    nbytes, flops = _segment_work(si, vals, size, perm=perm)
+    bound_ms, bound_by = bound(nbytes, flops)
+    res = {"shape": label, "round_bf16": rb,
+           "pair_device_ms": turns["pair"], "device_ms": turns["one"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gather_device_ms": traced(lambda: gather(vals, perm)),
+           "sum_device_ms": traced(lambda: segsum(si, rows, size,
+                                                  round_bf16=rb)),
+           "index_add_device_ms": traced(
+               lambda: v.new_zeros((size, nf)).index_add_(0, si, vp)),
+           "index_add_unsorted_device_ms": traced(
+               lambda: v.new_zeros((size, nf)).index_add_(0, keys, v)),
+           "sort_device_ms": traced(lambda: torch.sort(keys, stable=True))}
+
+    def ms(t):
+        return "not measured" if t is None else f"{t:.4f}"
+
+    log(f"[forms] sorted_segment_sum {label} "
+        f"({'bf16' if rb else 'f32'}): fed the permutation equal to "
+        f"gather_rows + sorted_segment_sum bit for bit; device ms in turns "
+        f"(profiler): pair {ms(turns['pair'][0])}, one call "
+        f"{ms(turns['one'][0])}, one call {ms(turns['one'][1])}, pair "
+        f"{ms(turns['pair'][1])}; bound {bound_ms:.4f} ({bound_by}); the "
+        f"pair's gather {ms(res['gather_device_ms'])} and sum "
+        f"{ms(res['sum_device_ms'])}; index_add_ on the permuted rows "
+        f"{ms(res['index_add_device_ms'])}, on the unsorted rows "
+        f"{ms(res['index_add_unsorted_device_ms'])}; torch.sort of the "
+        f"keys {ms(res['sort_device_ms'])}")
+    return res
+
+
+def forms_apart(torch, recorded: list) -> list:
+    """segment_forms for each of `recorded` ((label, si, vals, size, perm,
+    round_bf16), card tensors), in one fresh process: in a process that has
+    run the mapper for long, the tracer keeps a few of a trace's records or
+    none. The inputs reach the child through a temporary directory; the
+    kernels' libraries are already built."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_forms_") as tmp:
+        for i, (label, *inputs) in enumerate(recorded):
+            torch.save({"label": label, "inputs": inputs},
+                       os.path.join(tmp, f"{i}.pt"))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.forms_child({tmp!r}, "
+             f"{len(recorded)})"], cwd=root, capture_output=True, text=True,
+            timeout=900)
+        sys.stdout.write(run.stdout)
+        sys.stderr.write(run.stderr)
+        if run.returncode:
+            fail(f"the forms' child process exited with {run.returncode}")
+        log(f"[forms] {len(recorded)} keys timed in a fresh process in "
+            f"{time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(tmp, "forms.json")) as f:
+            return json.load(f)
+
+
+def forms_child(tmp: str, n: int) -> None:
+    """forms_apart's child: segment_forms on the card for each input file
+    of `tmp`, the results to tmp/forms.json."""
+    sys.meta_path.insert(0, BlockImports(("jax", "naruto_tpu")))
+    import torch
+
+    from naruto_tpu_torch.ops import primitives as prims
+
+    out = []
+    for i in range(n):
+        rec = torch.load(os.path.join(tmp, f"{i}.pt"), map_location="cuda")
+        out.append(segment_forms(torch, prims.gather_rows,
+                                 prims.sorted_segment_sum, rec["label"],
+                                 *rec["inputs"]))
+    with open(os.path.join(tmp, "forms.json"), "w") as f:
+        json.dump(out, f)
+
+
 def check_primitives(torch, prims, dev) -> dict:
     """gather_rows, sorted_segment_sum and row_cumsum against their plain
     versions at the scripts' sizes, at ragged M and at the BA path's
     shapes, sorted_segment_sum also on key layouts that stress its tiling;
     returns, per kernel, every case, each marked with the path whose shape
-    it has ("microbenchmarks", "slice", "ragged" or "layouts")."""
+    it has ("microbenchmarks", "slice", "ragged" or "layouts"), and under
+    "forms" the two forms of the segment sum fed a permutation, in turns
+    (segment_forms), at the BA's and the vertex layout's shapes."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     res = {k: [] for k in PRIM_KERNELS}
+    res["forms"] = []
 
     def case(name, path, *args, **kw):
         res[name].append({"path": path, **kernel_case(torch, name, *args,
@@ -979,20 +1108,26 @@ def check_primitives(torch, prims, dev) -> dict:
              lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
              nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
              library=lambda: tbl.index_select(0, idx), profiled=True)
-    def segment_cases(path, label, si, vals, size, profiled, library):
+    def segment_cases(path, label, si, vals, size, profiled, library,
+                      perm=None, forms=(True, False)):
         nf = vals.shape[1]
-        for rb in (True, False):
+        fed = "" if perm is None else \
+            f" fed the {str(perm.dtype).replace('torch.', '')} permutation"
+        for rb in forms:
             v = vals.bfloat16().float() if rb else vals
+            if perm is not None:
+                v = v.index_select(0, perm)     # the rows the sums take
             case("sorted_segment_sum", path,
                  f"{'bf16' if rb else 'f32'} {label}{si.shape[0]} -> "
-                 f"[{size},{nf}]",
+                 f"[{size},{nf}]{fed}",
                  lambda: prims.sorted_segment_sum(si, vals, size,
-                                                  round_bf16=rb),
-                 lambda: prims.sorted_segment_sum_plain(si, vals, size,
-                                                        round_bf16=rb),
-                 prims.SEGMENT_TOL, nbytes=nb(si, vals) + size * nf * 4,
+                                                  round_bf16=rb, perm=perm),
+                 lambda: prims.sorted_segment_sum_plain(
+                     si, vals, size, round_bf16=rb, perm=perm),
+                 prims.SEGMENT_TOL,
+                 nbytes=_segment_work(si, vals, size, perm=perm)[0],
                  flops=si.shape[0] * nf,
-                 library=(lambda: vals.new_zeros((size, nf)).index_add_(
+                 library=(lambda: v.new_zeros((size, nf)).index_add_(
                      0, si, v)) if library else None,
                  profiled=profiled, deterministic=True)
 
@@ -1004,13 +1139,55 @@ def check_primitives(torch, prims, dev) -> dict:
     shape = torch.tensor(UNCERT_SHAPE, dtype=torch.float32)
     cells = _corner_data(UNCERT_SHAPE,
                          (ba_points(torch, cpu_gen) * shape - 0.5))[0]
-    si = torch.sort(cells.to(torch.int32)).values.to(dev)
+    # the sort as dense_segment_sum makes it: the permutation feeds the sum
+    si, perm = torch.sort(cells.to(torch.int32).to(dev), stable=True)
     log(f"[kernels] BA cells: {BA_POINTS} points in "
         f"{int(torch.unique(si).numel())} of {BA_CELLS} cells, longest run "
         f"{int(torch.unique_consecutive(si, return_counts=True)[1].max())}")
-    segment_cases("slice", "BA cells ", si,
-                  torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev),
-                  BA_CELLS, True, True)
+    vals = torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev)
+    segment_cases("slice", "BA cells ", si, vals, BA_CELLS, True, True,
+                  perm=perm, forms=(False, True))
+    for dtype in (torch.int64, torch.int32):
+        res["forms"].append(segment_forms(
+            torch, prims.gather_rows, prims.sorted_segment_sum,
+            f"BA cells {BA_POINTS} -> [{BA_CELLS},{PRIM_F}] "
+            f"{str(dtype).replace('torch.', '')}", si, vals, BA_CELLS,
+            perm.to(dtype), False))
+    segment_cases("slice", "BA cells, gathered rows ", si,
+                  prims.gather_rows(vals, perm), BA_CELLS, True, True)
+    # the vertex layout's backward at the parity grid's office0 size
+    from naruto_tpu_torch.scripts.probe_segment_sum import vertex_keys
+
+    keys, size = vertex_keys(dev)
+    si, perm = torch.sort(keys, stable=True)
+    vals = torch.randn((keys.shape[0], 2), generator=gen, device=dev)
+    log(f"[kernels] vertex rows: {keys.shape[0]} in "
+        f"{int(torch.unique(si).numel())} of {size} table rows")
+    segment_cases("slice", "vertex ", si, vals, size, True, True, perm=perm,
+                  forms=(True,))
+    res["forms"].append(segment_forms(
+        torch, prims.gather_rows, prims.sorted_segment_sum,
+        f"vertex {keys.shape[0]} -> [{size},2] int64", si, vals, size, perm,
+        True))
+    segment_cases("slice", "vertex, gathered rows ", si,
+                  prims.gather_rows(vals, perm), size, True, True,
+                  forms=(True,))
+    case("gather_rows", "slice",
+         f"vertex payload [{keys.shape[0]},2] f32 x {keys.shape[0]} int64 "
+         f"(the pair's gather, off the path)",
+         lambda: prims.gather_rows(vals, perm),
+         lambda: prims.gather_rows_plain(vals, perm), prims.GATHER_TOL,
+         nbytes=nb(vals, perm) + nb(vals),
+         library=lambda: vals.index_select(0, perm), profiled=True)
+    tbl = torch.randn((size, 2), generator=gen, device=dev)
+    case("gather_rows", "slice",
+         f"vertex forward [{size},2] f32 x {keys.shape[0]} "
+         f"{str(keys.dtype).replace('torch.', '')}",
+         lambda: prims.gather_rows(tbl, keys),
+         lambda: prims.gather_rows_plain(tbl, keys), prims.GATHER_TOL,
+         nbytes=nb(tbl, keys) + keys.shape[0] * nb(tbl[:1]),
+         library=lambda: tbl.index_select(0, keys), profiled=True)
+    del keys, si, perm, vals, tbl
     for m in (PRIM_M,) + RAGGED_M:
         big = m == PRIM_M
         size = ((PRIM_T + 127) // 128) * 128 if big else RAGGED_SLOTS
@@ -1129,9 +1306,12 @@ def _gather_work(tbl, idx):
     return _nbytes(tbl, idx) + idx.shape[0] * _nbytes(tbl[:1]), 0.0
 
 
-def _segment_work(si, vals, size, **_):
-    return _nbytes(si, vals) + size * vals.shape[1] * 4, \
-        si.shape[0] * vals.shape[1]
+def _segment_work(si, vals, size, perm=None, **_):
+    """Keys, permutation and the M value rows read once (the rows the
+    permutation picks, M of vals' rows), the output written once."""
+    rows = si.shape[0] * vals.shape[1] * vals.element_size()
+    return _nbytes(si) + rows + (0 if perm is None else _nbytes(perm)) \
+        + size * vals.shape[1] * 4, si.shape[0] * vals.shape[1]
 
 
 def _cumsum_work(x):
@@ -1215,17 +1395,22 @@ class ShapeRecorder:
     def _recording(self, name, fn):
         torch = self.torch
 
+        def part(a):
+            return (tuple(a.shape), str(a.dtype)) \
+                if isinstance(a, torch.Tensor) else a
+
+        def copy(a):
+            return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
         def call(*args, **kw):
             if args[0].is_cuda:
-                key = (name,) + tuple(
-                    (tuple(a.shape), str(a.dtype))
-                    if isinstance(a, torch.Tensor) else a for a in args) \
-                    + tuple(sorted(kw.items()))
+                key = (name,) + tuple(part(a) for a in args) + tuple(
+                    (k, part(v)) for k, v in sorted(kw.items()))
                 rec = self.seen.get(key)
                 if rec is None:
-                    rec = self.seen[key] = [name, [
-                        a.detach().clone() if isinstance(a, torch.Tensor)
-                        else a for a in args], kw, 0]
+                    rec = self.seen[key] = [
+                        name, [copy(a) for a in args],
+                        {k: copy(v) for k, v in kw.items()}, 0]
                 rec[3] += 1
             return fn(*args, **kw)
         return call
@@ -1244,13 +1429,17 @@ class ShapeRecorder:
         calls at its key) for every key seen; fails on any disagreement."""
         torch = self.torch
         res = {name: [] for name in self.sites}
+        pending = []
+
+        def text(a):
+            return f"{list(a.shape)} {str(a.dtype).replace('torch.', '')}" \
+                if isinstance(a, torch.Tensor) else str(a)
+
         for name, args, kw, calls in self.seen.values():
             _, _, plain, tol, work, scale = self.sites[name]
             kernel = self.wrappers[name]
-            label = " x ".join(
-                f"{list(a.shape)} {str(a.dtype).replace('torch.', '')}"
-                if isinstance(a, self.torch.Tensor) else str(a)
-                for a in args) + "".join(f" {k}={v}" for k, v in kw.items())
+            label = " x ".join(text(a) for a in args) + "".join(
+                f" {k}={text(v)}" for k, v in kw.items())
             nbytes, flops = work(*args, **kw)
             magnitude = (lambda: scale(torch, plain, args, kw)) \
                 if scale else None
@@ -1275,6 +1464,16 @@ class ShapeRecorder:
                 case["f64_err"] = f64_err
             res[name].append({"path": path, "calls": calls,
                               "err_of": self.scale_names[scale], **case})
+            if name == "sorted_segment_sum" and kw.get("perm") is not None \
+                    and args[1].shape[1] == 2:
+                # the vertex backward's: both forms timed in turns on its
+                # inputs, after the replay
+                pending.append((res[name][-1], (
+                    f"{path} {label}", *args, kw["perm"], kw["round_bf16"])))
+        if pending:
+            for case, forms in zip(pending, forms_apart(
+                    torch, [inputs for _, inputs in pending])):
+                case[0]["forms"] = forms
         return res
 
 
@@ -2973,6 +3172,11 @@ def main() -> None:
             **summary(main_case), **hres[name], "cases": pres[name],
             **{f"{path}_shapes": in_brief(cases[name])
                for path, _, cases in runs}})
+        if name == "sorted_segment_sum":
+            # both forms in turns: phase 5's and the vertex keys' replays
+            entries[-1]["forms"] = pres["forms"] + [
+                c["forms"] for _, _, cases in runs for c in cases[name]
+                if "forms" in c]
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

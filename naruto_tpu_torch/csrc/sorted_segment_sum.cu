@@ -1,9 +1,11 @@
 // Segment sum of sorted keys: the kernel behind
 // naruto_tpu_torch.ops.primitives.sorted_segment_sum.
 //
-//   out[s, f] = sum over i with si[i] == s of r(vals[i, f])
-//   si [M] int32 sorted ascending, vals [M, F] f32, out [size, F] f32,
-//   r = round to bf16 (ROUND) or the identity; sums in f32.
+//   out[s, f] = sum over i with si[i] == s of r(vals[p(i), f])
+//   si [M] int32 sorted ascending, out [size, F] f32, r = round to bf16
+//   (ROUND) or the identity; sums in f32. Without a permutation p(i) = i
+//   and vals is [M, F] f32; with one, p(i) = perm[i] (int32 or int64, as
+//   torch.sort gives it) into the rows of vals [V, F] f32.
 //
 // Replaces the Pallas TPU kernels that accumulate sorted updates through a
 // one-hot matmul window into a table held in VMEM:
@@ -15,8 +17,11 @@
 // leave the tail unread, a window can start past the output's end, P1 drops
 // keys outside its block's window and P7 counts its window overlap twice.
 // This kernel computes what those scripts check against, a segment sum,
-// over all M rows. On the port's BA path it is the segment sum of the
-// uncertainty grid's trilinear VJP ([93,568, 8] into [89,760, 8]).
+// over all M rows. It is the whole of a dense segment sum after the sort
+// of its keys, fed the sort permutation: on the port's BA path the
+// uncertainty grid's trilinear VJP ([93,568, 8] into [89,760, 8], f32) and
+// the vertex layout's hash-grid backward ([15,789,952, 2] into [814,897,
+// 2], bf16-rounded; configs/parity.yaml).
 //
 // What bounds it on an H100: bytes. At the scripts' shape (3,000,000 keys
 // into 201,088 x 8 slots) it reads 12 MB of keys and 96 MB of values and
@@ -32,12 +37,15 @@
 //     by M; the id comes from the ticket of lookback.cuh) and stages its
 //     values (16-byte cp.async) and keys, with the first key of the next
 //     tile, in shared memory. All copies of a tile are in flight at once,
-//     and the SM's other blocks work meanwhile.
+//     and the SM's other blocks work meanwhile. With a permutation, row r
+//     is copied from vals[perm[r]] (see below): the sums are then those of
+//     the same call on the gathered rows, bit for bit.
 //   * Thread (j, g) owns W = 4 adjacent columns (W = 1 where F is not a
-//     multiple of 4 or a pointer is not 16-byte aligned) over stretch g of L
-//     consecutive rows (L = 4, 8 or 16): one 16-byte shared load and W adds
-//     a row, four rows' loads placed before their sums. One pad row after
-//     every stretch keeps the loads of a quarter warp on distinct banks.
+//     multiple of 4 or, without a permutation, a pointer is not 16-byte
+//     aligned) over stretch g of L consecutive rows (L = 4, 8 or 16): one
+//     16-byte shared load and W adds a row, four rows' loads placed before
+//     their sums. One pad row after every stretch keeps the loads of a
+//     quarter warp on distinct banks. Narrow rows (F = 2, 3) are below.
 //     Run boundaries are key[r] != key[r + 1], read from the tile.
 //   * The write rule: a row whose key a differs from the next key b (the
 //     last of all M rows: always) closes a run. It writes the run's sum to
@@ -76,7 +84,32 @@
 //   * No float atomics: the order of every addition depends on M, F and the
 //     keys alone, so two calls on the same input agree bit for bit.
 //   * F: a launch takes up to 256 columns, so a wider F is cut into column
-//     blocks, one launch each; F = 8 is the designed shape.
+//     blocks, one launch each; F = 8 and F = 2 are the designed shapes.
+//
+// The vertex rows. The vertex layout's backward sums 15,789,952 rows of
+// F = 2 (16 levels x 8 corners of 123,359 points) into 814,897 slots. The
+// design above saw only F = 8: at F = 2 a thread took one column with
+// 4-byte shared loads (W = 1), and the rows came from a gather by the sort
+// permutation into a [M, 2] tensor (126 MB written, then read back here),
+// one launch more. For them:
+//   * Narrow rows (W = F = 2 or 3): a thread owns whole rows, one 8-byte
+//     shared load (F = 2) and F adds a row, over a stretch of L rows, and a
+//     tile has 256 stretches. The pad row stays: with 8-byte rows a half
+//     warp's 16 loads are one wavefront, at words 2 (g (L + 1) + c) and the
+//     word after; L + 1 is odd, so g (L + 1) mod 16 takes every value once
+//     over the half warp, and the 32 words fall on 32 banks (without the
+//     pad, 4-way conflicts at L = 4). The keys, 4 bytes a row, land on
+//     banks g (L + 1) + c mod 32: distinct over the warp. The card chose
+//     the wide rows' stretch limits for them too (4 to 16 rows; below).
+//   * The permutation: a block reads its tile's slice of perm in 16-byte
+//     chunks (2 int64 or 4 int32 indices, BATCH chunks a thread in flight,
+//     streamed with an evict-first hint), then copies each row from its
+//     place with cp.async (8 bytes a row at F = 2, 16-byte pieces at F = 8;
+//     4-byte pieces where vals is not aligned for more). The keys are
+//     staged first, as their copies need no index. W does not depend on
+//     vals' alignment here, so the tiling, and every sum, equal those of
+//     the call on the gathered rows. The [M, F] intermediate is never
+//     written and its launch is gone.
 //
 // What bounds it now (same card; device time, and a per-block timeline of
 // global-timer stamps, from scripts/probe_segment_sum.py and chip_smoke.py):
@@ -111,6 +144,29 @@
 // then searches the running totals: the BA's cells 0.018 ms, and 0.35
 // against 0.08 ms where three gaps hold all 200,000 slots).
 //
+// At the vertex shape (the same card; scripts/probe_segment_sum.py, keys
+// from the corner rows of 123,359 points along rays, 814,897 slots; device
+// time): fed the permutation 0.2028-0.2029 ms against 0.0962 ms of bytes
+// (47%: keys, permutation and values read once, the output written once),
+// where the pair it replaces takes 0.2596 (the gather) + 0.1057-0.1059
+// (the sum of the gathered rows). What bounds it is the random row reads:
+// each 8-byte row costs a 32-byte L2 sector, and the 126 MB of values are
+// 2.5 times the L2, so the reads bring ~505 MB of sectors, not 126 MB; the
+// same kernel with its row copies removed takes 0.1123-0.1133 ms. A tile
+// of 4,096 rows lives ~16 us (median), 10.5 of them staging (21.5 at the
+// 90th percentile); three blocks an SM (58 KB of shared memory each)
+// overlap the walk, the scan and the join of one with the others' copies.
+// On sorted rows the narrow path takes 0.1057-0.1059 ms (55% of its 0.0585
+// ms), one column a thread (W = 1, the design before) 0.1272-0.1273. At
+// the BA's shape fed the permutation: 0.0082 ms, the pair 0.0067 + 0.0025
+// (launch-bound, as before).
+// Measured and not kept: narrow stretches of 4 rows (0.1846-0.1854 /
+// 0.2521-0.2532 ms on sorted / permuted rows) and of at most 8 (0.1192-
+// 0.1193 / 0.2031-0.2037); one permutation chunk a thread in flight
+// (0.2068-0.2081) and eight (0.2120-0.2149, and 0.0086 against 0.0082 at
+// the BA's shape); the permutation read through L1 and L2 instead of
+// streamed (0.2060-0.2062).
+//
 // State: the per-stream buffer of lookback.cuh (ticket, done count,
 // epoch), shared with row_cumsum.cu and outer_cumsum.cu; the records lie
 // where those publish their aggregates.
@@ -125,6 +181,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cassert>
+
 #include "lookback.cuh"
 
 namespace {
@@ -132,10 +190,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MIN_LSH = 2;          // a stretch has at least 4 rows,
 constexpr int MAX_LSH = 4;          // at most 16 where tiles stay plenty
-constexpr int MIN_ROWS = 32;        // a tile owns at least this many rows
 constexpr int TARGET_TILES = 1056;  // 8 tiles an SM before stretches grow
+constexpr int MIN_ROWS = 32;        // a tile owns at least this many rows
 constexpr int SMALL_GAP = 32;       // longer gaps are filled by the block
 constexpr int QCAP = 128;           // queued gaps a tile
+constexpr int BATCH = 4;            // permutation loads a thread in flight
 constexpr int MAX_SMEM = 96 * 1024;
 constexpr int NO_STOP = 0x7fffffff;
 
@@ -145,38 +204,130 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                  :: "r"(s), "l"(gmem) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                 :: "r"(s), "l"(gmem) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
                  :: "r"(s), "l"(gmem) : "memory");
 }
 
-// W floats from src / to dst (4W-byte aligned) in one access
+// W floats from src to dst in shared memory: one copy where `wide` (src
+// 4W-byte aligned, W = 2 or 4), else W copies of 4 bytes
+template <int W>
+__device__ __forceinline__ void stage_piece(float* dst, const float* src,
+                                            bool wide) {
+  if constexpr (W == 2 || W == 4) {
+    if (wide) {
+      cp_async<4 * W>(dst, src);
+      return;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) cp_async<4>(dst + w, src + w);
+}
+
+// W floats from src / to dst (4W-byte aligned for W = 2 or 4) in one access
 template <int W>
 __device__ __forceinline__ void load_row(const float* src, float (&v)[W]) {
   if constexpr (W == 4) {
     const float4 q = *reinterpret_cast<const float4*>(src);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (W == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(src);
+    v[0] = q.x; v[1] = q.y;
   } else {
-    v[0] = *src;
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = src[w];
   }
 }
 
 template <int W>
 __device__ __forceinline__ void store_row(float* dst, const float (&o)[W]) {
-  if constexpr (W == 4)
+  if constexpr (W == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-  else
-    *dst = o[0];
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) dst[w] = o[w];
+  }
+}
+
+// n <= P indices from p (16-byte aligned where vec), streamed past L1 and
+// marked first to leave L2, which the rows they point at need more
+__device__ __forceinline__ void load_chunk(const long long* p, int n,
+                                           bool vec, long long (&o)[2]) {
+  if (vec && n == 2) {
+    const longlong2 q = __ldcs(reinterpret_cast<const longlong2*>(p));
+    o[0] = q.x; o[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) o[k] = k < n ? __ldcs(p + k) : 0;
+  }
+}
+
+__device__ __forceinline__ void load_chunk(const int* p, int n, bool vec,
+                                           int (&o)[4]) {
+  if (vec && n == 4) {
+    const int4 q = __ldcs(reinterpret_cast<const int4*>(p));
+    o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o[k] = k < n ? __ldcs(p + k) : 0;
+  }
+}
+
+// The tile's rows from their places in vals: row r of the tile is
+// vals[perm[row0 + r]]. The tile's slice of perm is read in chunks of P
+// indices, one 16-byte load each, BATCH chunks a thread before the first
+// copy; then every piece of those rows is copied with cp.async, so all
+// copies of the tile are in flight before the caller's wait. An index
+// outside [0, mv) fails the assert, as in gather_rows.cu.
+template <int W, typename Idx, int P>
+__device__ __forceinline__ void stage_permuted(
+    float* tile, const Idx* __restrict__ perm,
+    const float* __restrict__ vals, int64_t mv, int64_t row0, int r_hi,
+    int nf, int col0, int ncols, int lsh, bool wide) {
+  const int nq = (r_hi + P - 1) / P;
+  const bool vec = (uintptr_t)perm % 16 == 0;    // row0 is a multiple of P
+  for (int q0 = threadIdx.x; q0 < nq; q0 += BATCH * THREADS) {
+    Idx src[BATCH][P];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int q = q0 + b * THREADS;
+      load_chunk(perm + row0 + (int64_t)q * P,
+                 q < nq ? min(P, r_hi - q * P) : 0, vec, src[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int r = (q0 + b * THREADS) * P + k;
+        if (r < r_hi) {
+          const uint64_t s = (uint64_t)(int64_t)src[b][k];
+          assert(s < (uint64_t)mv);
+          float* dst = tile + (size_t)(r + (r >> lsh)) * ncols;
+          const float* from = vals + s * nf + col0;
+          for (int c = 0; c < ncols; c += W)
+            stage_piece<W>(dst + c, from + c, wide);
+        }
+      }
+    }
+  }
 }
 
 // Columns col0 .. col0 + ncols of the sum; ncols a multiple of W, at most
-// THREADS. A tile has (THREADS / (ncols / W)) << lsh rows.
+// THREADS. A tile has (THREADS / (ncols / W)) << lsh rows. perm: null, or
+// [m] indices into the mv rows of vals (int64 where perm64); wide: vals'
+// rows may be staged W floats a copy.
 template <int W, bool ROUND>
 __global__ void __launch_bounds__(THREADS)
 segment_sum_kernel(const int* __restrict__ si, const float* __restrict__ vals,
-                   float* __restrict__ out, unsigned* __restrict__ state,
-                   int64_t cap, int64_t m, int size, int nf, int col0,
-                   int ncols, int lsh) {
+                   const void* __restrict__ perm, int perm64, int64_t mv,
+                   int wide, float* __restrict__ out,
+                   unsigned* __restrict__ state, int64_t cap, int64_t m,
+                   int size, int nf, int col0, int ncols, int lsh) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(16) float xs[THREADS * W];
   __shared__ int fl[THREADS];
@@ -209,15 +360,30 @@ segment_sum_kernel(const int* __restrict__ si, const float* __restrict__ vals,
   // every stretch
   auto prow = [&](int r) { return r + (r >> lsh); };
 
-  // stage the rows
-  if (active) {
-    const float* src = vals + row0 * nf + col0 + j * W;
-    for (int r = g; r < r_hi; r += ngr)
-      cp_async<4 * W>(tile + (size_t)prow(r) * ncols + j * W,
-                      src + (int64_t)r * nf);
+  // stage the rows, in order or each from its place in the permutation,
+  // and the keys with the first key of the next tile (before the permuted
+  // rows, whose copies wait for their indices)
+  auto stage_keys = [&] {
+    for (int r = tid; r <= r_hi && row0 + r < m; r += THREADS)
+      cp_async<4>(keys + prow(r), si + row0 + r);
+  };
+  if (perm == nullptr) {
+    if (active) {
+      const float* src = vals + row0 * nf + col0 + j * W;
+      for (int r = g; r < r_hi; r += ngr)
+        stage_piece<W>(tile + (size_t)prow(r) * ncols + j * W,
+                       src + (int64_t)r * nf, true);
+    }
+    stage_keys();
+  } else if (perm64) {
+    stage_keys();
+    stage_permuted<W, long long, 2>(tile, (const long long*)perm, vals, mv,
+                                    row0, r_hi, nf, col0, ncols, lsh, wide);
+  } else {
+    stage_keys();
+    stage_permuted<W, int, 4>(tile, (const int*)perm, vals, mv, row0, r_hi,
+                              nf, col0, ncols, lsh, wide);
   }
-  for (int r = tid; r <= r_hi && row0 + r < m; r += THREADS)
-    cp_async<4>(keys + prow(r), si + row0 + r);
   if (tid == 0) {
     ngaps = 0;
     edge[0] = t > 0 ? si[row0 - 1] : 0;   // the tile before: its last key
@@ -519,10 +685,10 @@ segment_sum_kernel(const int* __restrict__ si, const float* __restrict__ vals,
 }
 
 template <int W, bool ROUND>
-int launch_columns(const int* si, const float* vals, float* out,
-                   unsigned* state, int64_t cap, int64_t words, int64_t m,
-                   int size, int nf, int col0, int ncols,
-                   cudaStream_t stream) {
+int launch_columns(const int* si, const float* vals, const void* perm,
+                   int perm64, int64_t mv, float* out, unsigned* state,
+                   int64_t cap, int64_t words, int64_t m, int size, int nf,
+                   int col0, int ncols, cudaStream_t stream) {
   const int ngr = THREADS / (ncols / W);
   auto rows = [&](int lsh) { return (int64_t)ngr << lsh; };
   int lsh = MIN_LSH;
@@ -535,6 +701,8 @@ int launch_columns(const int* si, const float* vals, float* out,
   if (ntiles > cap || ntiles > 0x7fffffff || smem > MAX_SMEM ||
       lookback::state_words(cap, ntiles, 2 * ncols) + 2 > words)
     return (int)cudaErrorInvalidValue;
+  // staged rows read W floats a copy unless a permuted row is misaligned
+  const int wide = perm == nullptr || (uintptr_t)vals % (4 * W) == 0;
   auto kernel = segment_sum_kernel<W, ROUND>;
   // static and dynamic shared memory together may pass 48 KB only by leave
   if (smem > 32 * 1024) {
@@ -543,35 +711,56 @@ int launch_columns(const int* si, const float* vals, float* out,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)ntiles, THREADS, smem, stream>>>(
-      si, vals, out, state, cap, m, size, nf, col0, ncols, lsh);
+      si, vals, perm, perm64, mv, wide, out, state, cap, m, size, nf, col0,
+      ncols, lsh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out [size, nf] f32, every row written. state: `words` int32 of the
-// caller's look-back buffer (zeroed when it was made), with room for `cap`
-// tile flags; a tile owns at least MIN_ROWS rows.
+// out [size, nf] f32, every row written. perm: null (vals [m, nf]), or [m]
+// int32 or int64 (perm64) indices into vals [mv, nf]. state: `words` int32
+// of the caller's look-back buffer (zeroed when it was made), with room for
+// `cap` tile flags; a tile owns at least MIN_ROWS rows.
 extern "C" int naruto_sorted_segment_sum(const void* si, const void* vals,
-                                         void* out, void* state, int64_t cap,
-                                         int64_t words, int64_t m, int size,
-                                         int nf, int round_bf16,
+                                         const void* perm, void* out,
+                                         void* state, int64_t cap,
+                                         int64_t words, int64_t m,
+                                         int64_t mv, int size, int nf,
+                                         int round_bf16, int perm64,
                                          void* stream) {
-  if (m < 0 || size < 1 || nf < 1) return (int)cudaErrorInvalidValue;
-  const bool vec =
-      nf % 4 == 0 && ((uintptr_t)vals | (uintptr_t)out) % 16 == 0;
+  if (m < 0 || size < 1 || nf < 1 || (perm && m > 0 && mv < 1))
+    return (int)cudaErrorInvalidValue;
+  // W: four columns a thread where rows and pointers allow it, a whole row
+  // of 2 or 3 columns, else one column. With perm the rows are copied into
+  // shared memory whatever vals' alignment, so W does not depend on it, and
+  // the sums are those of the same call on the gathered rows.
+  const uintptr_t at =
+      (uintptr_t)out | (perm ? (uintptr_t)0 : (uintptr_t)vals);
+  const int w = nf % 4 == 0 && at % 16 == 0 ? 4
+                : nf == 3                    ? 3
+                : nf == 2 && at % 8 == 0     ? 2
+                                             : 1;
   for (int col0 = 0; col0 < nf; col0 += THREADS) {
     const int ncols = nf - col0 < THREADS ? nf - col0 : THREADS;
     auto go = [&](auto launch) {
-      return launch((const int*)si, (const float*)vals, (float*)out,
-                    (unsigned*)state, cap, words, m, size, nf, col0, ncols,
-                    (cudaStream_t)stream);
+      return launch((const int*)si, (const float*)vals, perm, perm64, mv,
+                    (float*)out, (unsigned*)state, cap, words, m, size, nf,
+                    col0, ncols, (cudaStream_t)stream);
     };
-    const int rc =
-        vec ? (round_bf16 ? go(launch_columns<4, true>)
-                          : go(launch_columns<4, false>))
-            : (round_bf16 ? go(launch_columns<1, true>)
-                          : go(launch_columns<1, false>));
+    int rc;
+    if (w == 4)
+      rc = round_bf16 ? go(launch_columns<4, true>)
+                      : go(launch_columns<4, false>);
+    else if (w == 3)
+      rc = round_bf16 ? go(launch_columns<3, true>)
+                      : go(launch_columns<3, false>);
+    else if (w == 2)
+      rc = round_bf16 ? go(launch_columns<2, true>)
+                      : go(launch_columns<2, false>);
+    else
+      rc = round_bf16 ? go(launch_columns<1, true>)
+                      : go(launch_columns<1, false>);
     if (rc != 0) return rc;
   }
   return 0;

@@ -262,15 +262,17 @@ def _cell_indices(x: torch.Tensor, spec: HashGridSpec):
 
 def _corner_indices(x: torch.Tensor, spec: HashGridSpec):
     """Vertex rows: the 8 corner vertices of every (point, level) ->
-    (idx [N, L*8] int64 in corner order, w [N, L, 8] f32). Dense levels
-    index x + y(R+1) + z(R+1)^2."""
+    (idx [N, L*8] int32 in corner order, as the JAX function gives them,
+    w [N, L, 8] f32). Dense levels index x + y(R+1) + z(R+1)^2; the hash
+    runs in int64 and the rows are cast once, here: both gathers of them
+    and the backward's sort read 4-byte indices."""
     n = x.shape[0]
     i0, frac = _cell_pos(x, spec)
     dev = x.device
     corners = device_const(_CORNERS, torch.int64, dev)               # [8, 3]
     cx, cy, cz = (i0[..., a, None] + corners[:, a] for a in range(3))
     s = device_const(spec.resolutions, torch.int64, dev)[None, :, None] + 1
-    idx = _level_slots(cx, cy, cz, s, spec)                       # [N, L, 8]
+    idx = _level_slots(cx, cy, cz, s, spec).to(torch.int32)       # [N, L, 8]
     return idx.reshape(n, spec.n_levels * 8), _corner_weights(frac)
 
 

@@ -8,9 +8,10 @@ clamped to the border (torch's grid_sample pads with zeros instead; the
 points here lie inside the AABB, so only the half-voxel fringe differs).
 
 The volume gradient is a segment sum over cells, sort-based as in the JAX
-package: ``segment.dense_segment_sum`` sorts the cell ids, gathers the
-weighted cotangent rows by the permutation (``gather_rows``) and sums each
-cell's run with ``sorted_segment_sum``, in a fixed order on either device.
+package: ``segment.dense_segment_sum`` sorts the cell ids and sums each
+cell's run with ``sorted_segment_sum``, which reads the weighted cotangent
+rows by the sort permutation itself (no gather), in a fixed order on either
+device.
 """
 from __future__ import annotations
 

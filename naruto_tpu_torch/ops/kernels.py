@@ -61,7 +61,8 @@ ENTRY_POINTS = {
                                _I32)},
     "sorted_segment_sum": {
         "naruto_sorted_segment_sum": (
-            [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P], _I32)},
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _I32,
+             _I32, _P], _I32)},
     "row_cumsum": {
         "naruto_row_cumsum": ([_P, _P, _P, _I64, _I64, _I64, _I32, _P],
                               _I32)},

@@ -12,9 +12,10 @@ and scripts/microbench_round2.py, which compute three functions:
   * ``row_cumsum``          (P4 ``cs_kernel``): ``csrc/row_cumsum.cu``.
 
 ``gather_rows`` and ``sorted_segment_sum`` also carry the mapper's BA path:
-the hash grid's forward gather, the backward's payload gathers, the
-uncertainty grid's cell gather, and its trilinear VJP's segment sum (a
-gather by the sort permutation, then ``sorted_segment_sum``).
+the hash grid's forward gather, the cell-row backward's payload gathers,
+the uncertainty grid's cell gather, and the segment sums of the vertex
+layout's backward and of the trilinear VJP (``sorted_segment_sum`` fed the
+sort permutation, which reads each row from its place: no gather).
 
 Each source's header says what bounds the kernel on the card and how its
 design answers it. As in ``ops/kernels.py``, every wrapper checks the
@@ -100,24 +101,35 @@ def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- segment sum
-def _check_segment(si: torch.Tensor, vals: torch.Tensor,
-                   size: int) -> torch.device:
+def _check_segment(si: torch.Tensor, vals: torch.Tensor, size: int,
+                   perm) -> torch.device:
     if si.dtype != torch.int32:
         raise TypeError(f"keys must be int32, got {si.dtype}")
     if vals.dtype != torch.float32:
         raise TypeError(f"values must be float32, got {vals.dtype}")
-    if si.dim() != 1 or vals.dim() != 2 or vals.shape[0] != si.shape[0] \
-            or vals.shape[1] < 1:
+    if si.dim() != 1 or vals.dim() != 2 or vals.shape[1] < 1 \
+            or (perm is None and vals.shape[0] != si.shape[0]):
         raise ValueError(f"keys {tuple(si.shape)} / values "
                          f"{tuple(vals.shape)} must be [M] / [M, F]")
     if not 0 <= size < _INT32_MAX:
         raise ValueError(f"size {size} out of range")
-    _contiguous(si, vals)
-    return _device(si, vals)
+    operands = (si, vals)
+    if perm is not None:
+        if perm.dtype not in GATHER_INDEX_DTYPES:
+            raise TypeError(f"perm must be int32 or int64, got {perm.dtype}")
+        if perm.shape != si.shape:
+            raise ValueError(f"perm {tuple(perm.shape)} must be [M] as the "
+                             f"keys {tuple(si.shape)}")
+        operands += (perm,)
+    _contiguous(*operands)
+    return _device(*operands)
 
 
 def sorted_segment_sum_plain(si: torch.Tensor, vals: torch.Tensor, size: int,
-                             *, round_bf16: bool) -> torch.Tensor:
+                             *, round_bf16: bool,
+                             perm: torch.Tensor | None = None) -> torch.Tensor:
+    if perm is not None:
+        vals = vals.index_select(0, perm)
     v = vals.to(torch.bfloat16).float() if round_bf16 else vals
     return vals.new_zeros((size, vals.shape[1])).index_add_(0, si, v)
 
@@ -127,17 +139,23 @@ _SEGMENT_MAX_COLS = 256    # columns a launch takes (its THREADS)
 
 
 def sorted_segment_sum(si: torch.Tensor, vals: torch.Tensor, size: int, *,
-                       round_bf16: bool) -> torch.Tensor:
-    """out[s] = sum of r(vals[i]) over i with si[i] == s, in f32: si [M]
-    int32 sorted ascending, vals [M, F] f32 -> [size, F] f32; r rounds to
-    bf16 (round_bf16) or is the identity. Every slot is written (empty ones
-    with 0). On the card the sums run in a fixed order, so two calls on the
-    same input agree bit for bit, and keys outside [0, size) are dropped;
-    the plain version takes keys in [0, size) only."""
-    dev = _check_segment(si, vals, size)
+                       round_bf16: bool,
+                       perm: torch.Tensor | None = None) -> torch.Tensor:
+    """out[s] = sum of r(vals[p(i)]) over i with si[i] == s, in f32: si [M]
+    int32 sorted ascending -> [size, F] f32; r rounds to bf16 (round_bf16)
+    or is the identity. p(i) = i and vals [M, F] f32, or, given perm [M]
+    int32/int64 (a sort permutation, each index in [0, V)), p(i) = perm[i]
+    into vals [V, F] f32: the sum of gather_rows(vals, perm) without the
+    gathered copy, in one launch, its sums equal to that pair's bit for
+    bit. Every slot is written (empty ones with 0). On the card the sums
+    run in a fixed order, so two calls on the same input agree bit for bit,
+    and keys outside [0, size) are dropped; the plain version takes keys in
+    [0, size) only."""
+    dev = _check_segment(si, vals, size, perm)
     if not vals.is_cuda:
-        return sorted_segment_sum_plain(si, vals, size, round_bf16=round_bf16)
-    m, nf = vals.shape
+        return sorted_segment_sum_plain(si, vals, size, round_bf16=round_bf16,
+                                        perm=perm)
+    m, nf = si.shape[0], vals.shape[1]
     out = vals.new_empty((size, nf))
     if size:
         # two words a column and tile, and room to align them
@@ -145,9 +163,11 @@ def sorted_segment_sum(si: torch.Tensor, vals: torch.Tensor, size: int, *,
                                 2 * min(nf, _SEGMENT_MAX_COLS))
         launch("sorted_segment_sum",
                lib("sorted_segment_sum").naruto_sorted_segment_sum, dev,
-               si.data_ptr(), vals.data_ptr(), out.data_ptr(),
-               state.data_ptr(), cap, state.numel(), m, size, nf,
-               int(round_bf16))
+               si.data_ptr(), vals.data_ptr(),
+               None if perm is None else perm.data_ptr(), out.data_ptr(),
+               state.data_ptr(), cap, state.numel(), m, vals.shape[0], size,
+               nf, int(round_bf16),
+               int(perm is not None and perm.dtype == torch.int64))
     return out
 
 

@@ -11,18 +11,20 @@ writes, for every slot, the prefix sum through the slot's last update, and
 an adjacent difference turns those into per-slot sums.
 
 ``dense_segment_sum`` (the vertex layout's hash-grid backward, and the
-uncertainty grid's trilinear VJP) sorts the keys, gathers the value rows by
-the sort permutation and sums each run of equal keys directly with
-``primitives.sorted_segment_sum``: no prefix sum, no rank search, no
-difference of running totals. It has the JAX function's signature and
-default: the values are rounded to bf16 before the f32 sums (by the segment
-sum, as it reads them) unless ``pack_bf16=False`` (the exact form the
-trilinear VJP uses).
+uncertainty grid's trilinear VJP) is one ``torch.sort`` of the keys and one
+``primitives.sorted_segment_sum`` fed the sort permutation: the kernel reads
+each value row from its place in the unsorted values and sums each run of
+equal keys directly. No gather, no sorted copy of the values, no prefix
+sum, no rank search, no difference of running totals. It has the JAX
+function's signature and default: the values are rounded to bf16 before the
+f32 sums (by the segment sum, as it reads them) unless ``pack_bf16=False``
+(the exact form the trilinear VJP uses).
 
-Every row gather here is ``primitives.gather_rows``: like the segment sum, a
-kernel on the card and its plain version on the CPU. Each index is in range
-by construction (a sort permutation), so the gather's device-side assert
-guards it without a host check.
+Every row gather here (the cell-row carries' payloads) is
+``primitives.gather_rows``: like the segment sum, a kernel on the card and
+its plain version on the CPU. Each index is in range by construction (a
+sort permutation), so the kernels' device-side asserts guard it without a
+host check.
 """
 from __future__ import annotations
 
@@ -152,8 +154,9 @@ def dense_segment_sum(indices: torch.Tensor, values: torch.Tensor,
     segment sum rounds each row as it reads it); pack_bf16=False sums the
     values exactly in f32. Each slot's sum is taken directly over its run
     of the sorted rows (the JAX function differences a prefix sum, which
-    also carries the running total's rounding)."""
+    also carries the running total's rounding). One sort and one kernel:
+    the segment sum reads row i of the sorted order from values[perm[i]]."""
     si, perm = torch.sort(indices.to(torch.int32), stable=True)
-    sv = primitives.gather_rows(values.contiguous(), perm)
     return primitives.sorted_segment_sum(
-        si, sv, size, round_bf16=pack_bf16 and values.shape[1] % 2 == 0)
+        si, values.contiguous(), size,
+        round_bf16=pack_bf16 and values.shape[1] % 2 == 0, perm=perm)

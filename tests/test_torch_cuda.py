@@ -468,6 +468,122 @@ def test_sorted_segment_sum_is_one_launch_on_card(gen, cuda_device):
     _only_kernel(calls, "segment_sum")
 
 
+# sorted_segment_sum fed a sort permutation: (layout, rows, slots, columns).
+# F = 2 is the vertex backward's (bf16-rounded), F = 8 the trilinear VJP's
+# (exact f32). 3 x 4,096 and 3 x 2,048 rows are multiples of every tile the
+# two widths take, so one less and one more straddle a tile's edge.
+PERM_CASES = [(name, m, size, nf)
+              for nf, tile, big_size in ((2, 4096, 814_897),
+                                         (8, 2048, 201_088))
+              for name, m, size in (
+                  ("uniform", 1, 300), ("uniform", 2049, 4000),
+                  ("uniform", 5000, 300), ("uniform", 3 * tile - 1, 3000),
+                  ("uniform", 3 * tile + 1, 3000),
+                  ("uniform", 1_000_003, big_size),
+                  ("dominant_key", 300_000, 5000),
+                  ("first_key_late", 20_000, 9000),
+                  ("last_key_early", 20_000, 9000),
+                  ("long_gaps", 5000, 200_000))] + [
+    ("ba_cells", 93_568, 89_760, 8)]
+
+
+def _permuted(gen, dev, name, m, size, nf, idx_dtype, offset=0):
+    """The inputs of a layout as a sort leaves them: sorted keys, the values
+    unsorted in a tensor of m + 3 rows (starting `offset` floats into its
+    storage), and the permutation whose rows are the layout's values in
+    key order."""
+    si, vals = _segment_inputs(gen, dev, name, m, size, nf)
+    perm = torch.tensor(gen.permutation(m + 3)[:m], device=dev)
+    flat = torch.zeros((m + 3) * nf + offset, device=dev)
+    unsorted = flat[offset:].view(m + 3, nf)
+    unsorted[perm] = vals
+    return si, unsorted, perm.to(idx_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name,m,size,nf", PERM_CASES)
+def test_sorted_segment_sum_with_perm_on_card(gen, cuda_device, name, m, size,
+                                              nf, idx_dtype):
+    """The permutation's form against the pair it replaces (gather_rows by
+    the permutation, then the sum of the gathered rows) bit for bit, and
+    against the plain version within SEGMENT_TOL (exact where the sums
+    are); one launch a call, and two calls give the same bits."""
+    rb = nf == 2
+    si, vals, perm = _permuted(gen, cuda_device, name, m, size, nf, idx_dtype)
+    n0 = kernels.launch_counts()["sorted_segment_sum"]
+    got = primitives.sorted_segment_sum(si, vals, size, round_bf16=rb,
+                                        perm=perm)
+    assert kernels.launch_counts()["sorted_segment_sum"] == n0 + 1
+    again = primitives.sorted_segment_sum(si, vals, size, round_bf16=rb,
+                                          perm=perm)
+    pair = primitives.sorted_segment_sum(
+        si, primitives.gather_rows(vals, perm), size, round_bf16=rb)
+    ref = primitives.sorted_segment_sum_plain(si, vals, size, round_bf16=rb,
+                                              perm=perm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, pair)
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+    if name in EXACT_LAYOUTS:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nf", [2, 8])
+def test_sorted_segment_sum_with_perm_misaligned_on_card(gen, cuda_device,
+                                                         nf, idx_dtype):
+    """Values one float off their alignment: the rows are copied in 4-byte
+    pieces, but the tiling is that of the aligned gathered rows, so the
+    pair's sums come out bit for bit."""
+    si, vals, perm = _permuted(gen, cuda_device, "uniform", 20_000, 3000, nf,
+                               idx_dtype, offset=1)
+    assert vals.data_ptr() % 8
+    got = primitives.sorted_segment_sum(si, vals, 3000, round_bf16=nf == 2,
+                                        perm=perm)
+    pair = primitives.sorted_segment_sum(
+        si, primitives.gather_rows(vals, perm), 3000, round_bf16=nf == 2)
+    ref = primitives.sorted_segment_sum_plain(si, vals, 3000,
+                                              round_bf16=nf == 2, perm=perm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pair)
+    assert _rel(got, ref) <= primitives.SEGMENT_TOL
+
+
+@pytest.mark.cuda
+def test_sorted_segment_sum_with_perm_is_one_launch_on_card(gen,
+                                                            cuda_device):
+    """With the permutation too, one kernel and nothing else on the device
+    a call (no gather, no memset), as the profiler records it."""
+    cases = [c for c in PERM_CASES if c[1] <= 300_000]
+    inputs = [_permuted(gen, cuda_device, *c, torch.int64) for c in cases]
+    calls = [lambda si=si, v=v, p=p, size=c[2]: primitives.sorted_segment_sum(
+        si, v, size, round_bf16=c[3] == 2, perm=p)
+        for c, (si, v, p) in zip(cases, inputs)]
+    _only_kernel(calls, "segment_sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,pack", [(2, True), (8, False)])
+def test_dense_segment_sum_launches_no_gather_on_card(gen, cuda_device, nf,
+                                                      pack):
+    """dense_segment_sum on the card: one sort and one sorted_segment_sum
+    launch, no gather_rows; against the host's result within
+    SEGMENT_TOL."""
+    idx = torch.tensor(gen.integers(0, 5000, 40_000), device=cuda_device)
+    vals = torch.tensor(gen.normal(size=(40_000, nf)), dtype=torch.float32,
+                        device=cuda_device)
+    before = kernels.launch_counts()
+    got = segment.dense_segment_sum(idx, vals, 5000, pack_bf16=pack)
+    after = kernels.launch_counts()
+    ref = segment.dense_segment_sum(idx.cpu(), vals.cpu(), 5000,
+                                    pack_bf16=pack)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == "sorted_segment_sum") for k in after}
+    assert _rel(got.cpu(), ref) <= primitives.SEGMENT_TOL
+
+
 @pytest.mark.cuda
 def test_trilinear_vjp_on_card_matches_host(gen, cuda_device):
     """The uncertainty grid's volume gradient through the kernels on the

@@ -158,7 +158,7 @@ class TestFieldRenderLosses:
 CUR_CAP = 512
 # calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
 # same launch counts on the card): wrapper -> (module, calls)
-WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 5),
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 4),
                              "sorted_segment_sum": (primitives, 1),
                              "row_cumsum": (primitives, 0),
                              "outer_cumsum_slots": (kernels, 1),
@@ -283,8 +283,9 @@ class TestBAIteration:
         primitives.gather_rows / sorted_segment_sum and the hash backward's
         fused scan (the kernels on the card): the hash forward, the hash
         backward's two payload gathers and its slot-row scan, the
-        uncertainty grid's cell gather and its VJP's gather and segment
-        sum; never the full-row scan nor row_cumsum."""
+        uncertainty grid's cell gather and its VJP's segment sum, fed the
+        sort permutation (no gather of its rows); never the full-row scan
+        nor row_cumsum."""
         assert ba_pair["calls"] == {
             name: n for name, (_, n) in WRAPPER_CALLS_PER_BA_ITER.items()}
 

@@ -86,10 +86,52 @@ def test_dense_segment_sum_matches_jax(rng, kwargs, name, n, size):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("name,n,size", SEGMENT_LAYOUTS)
+@pytest.mark.parametrize("pack_bf16", [True, False])
+def test_dense_segment_sum_two_columns_matches_jax(rng, pack_bf16, name, n,
+                                                   size):
+    """F = 2, the vertex layout's width (its backward passes pack_bf16, the
+    default: the JAX function then sorts one bf16 pair per row), against
+    the JAX function: the port's one sort and one segment sum fed the
+    permutation. Tolerance as at F = 8: 1e-6 of max|cumsum|."""
+    idx = _segment_keys(rng, name, n, size).astype(np.int32)
+    rng.shuffle(idx)
+    vals = rng.normal(size=(n, 2)).astype(np.float32)
+    ref = np.asarray(jseg.dense_segment_sum(jnp.asarray(idx),
+                                            jnp.asarray(vals), size,
+                                            pack_bf16=pack_bf16))
+    got = segment.dense_segment_sum(torch.tensor(idx), torch.tensor(vals),
+                                    size, pack_bf16=pack_bf16).numpy()
+    assert got.shape == ref.shape == (size, 2)
+    assert not got[np.setdiff1d(np.arange(size), idx)].any()
+    scale = np.abs(np.cumsum(ref, axis=0)).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * scale)
+
+
+def test_dense_segment_sum_is_one_sort_and_one_segment_sum(rng):
+    """No gather of the values: the segment sum is fed the sort
+    permutation and the values as they are."""
+    idx = torch.tensor(rng.integers(0, 40, 300), dtype=torch.int64)
+    vals = torch.tensor(rng.normal(size=(300, 2)), dtype=torch.float32)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("gather_rows", "sorted_segment_sum"):
+            fn = getattr(primitives, name)
+            mp.setattr(primitives, name,
+                       lambda *a, _f=fn, _n=name, **k:
+                       (calls.append((_n, a, k)), _f(*a, **k))[1])
+        segment.dense_segment_sum(idx, vals, 40)
+    assert [c[0] for c in calls] == ["sorted_segment_sum"]
+    (_, (si, v, size), kw), = calls
+    assert v is vals and size == 40
+    assert torch.equal(si, torch.sort(idx.int(), stable=True).values)
+    assert torch.equal(kw["perm"], torch.sort(idx.int(), stable=True).indices)
+
+
 @pytest.mark.parametrize("crowded", [False, True])
 def test_trilinear_vjp_through_segment_sum_matches_jax(rng, crowded):
-    """The uncertainty grid's volume gradient (sort, gather_rows,
-    sorted_segment_sum, then the corner transpose) against the JAX
+    """The uncertainty grid's volume gradient (sort, sorted_segment_sum fed
+    the permutation, then the corner transpose) against the JAX
     package's VJP on the same inputs, with the points spread over the grid
     or, as the BA's rays do, crowded into a few cells (long runs, most
     cells empty). f32 on both sides, per-cell sums in another order: 1e-6
@@ -200,16 +242,32 @@ def _scan_stretches(xs, fl):
         d *= 2
 
 
-def _tiled_model(si, vals, size, ngr=4, L=4):
+def _tiled_model(si, vals, size, ngr=4, L=4, perm=None, P=2):
     """csrc/sorted_segment_sum.cu in numpy, step by step. A tile has ngr
     stretches of L rows. Runs inside a stretch are written at once; a
     segmented scan over the stretches (flag: the stretch closes a run;
     value: its sum after the last closing row) joins the rest; every tile
     publishes one record. The run open at a tile's first row takes the
     records of the tiles before that it covers, which are found from the
-    keys alone. f32 adds throughout. Returns the slots and the records
-    each tile read."""
-    m, nf = vals.shape
+    keys alone. f32 adds throughout. With perm, each tile stages its rows
+    from their places: its slice of perm read in chunks of P indices (the
+    last chunk of the last tile short), row r copied from vals[perm[r]].
+    Returns the slots and the records each tile read."""
+    m = si.shape[0]
+    nf = vals.shape[1]
+    if perm is not None:
+        staged = np.full((m, nf), np.nan, np.float32)
+        R = ngr * L
+        for t in range(max(1, -(-m // R))):
+            r_hi = min(R, m - t * R)
+            for q in range(-(-r_hi // P)):
+                chunk = perm[t * R + q * P:t * R + min(q * P + P, r_hi)]
+                assert len(chunk) == P or q == r_hi // P
+                for k, s in enumerate(chunk):
+                    assert 0 <= s < vals.shape[0]
+                    staged[t * R + q * P + k] = vals[s]
+        assert not np.isnan(staged).any()      # every row staged
+        vals = staged
     R = ngr * L
     ntiles = max(1, -(-m // R))
     slots = _Slots(size, nf)
@@ -277,12 +335,14 @@ def _tiled_model(si, vals, size, ngr=4, L=4):
 @pytest.mark.parametrize("name,n,size", WRITE_RULE_LAYOUTS)
 def test_segment_kernel_tiling_model(rng, name, n, size, round_bf16):
     """The kernel's tiling and write rule, modelled in numpy on tiles of
-    16 and of 20 rows, against sorted_segment_sum's plain version: every
-    slot is
-    written exactly once (so the output needs no memset), empty slots and
-    gaps hold 0, keys outside [0, size) are dropped, and a run over many
-    tiles reads one record per tile it covers. Small integer values, so
-    every sum is exact in any order and the comparison is bit for bit."""
+    16 and of 20 rows, on the narrow rows' tiles of 16 and 32 rows (more
+    stretches a tile), and with rows staged by a permutation, against
+    sorted_segment_sum's plain version: every slot is written exactly once
+    (so the output needs no memset), empty slots and gaps hold 0, keys
+    outside [0, size) are dropped, a run over many tiles reads one record
+    per tile it covers, and the permuted staging reads every row once.
+    Small integer values, so every sum is exact in any order and the
+    comparison is bit for bit."""
     si = _write_rule_keys(rng, name, n, size)
     vals = rng.integers(-8, 9, (n, 3)).astype(np.float32) \
         * (1.0 if round_bf16 else 0.125)
@@ -290,11 +350,25 @@ def test_segment_kernel_tiling_model(rng, name, n, size, round_bf16):
     ref = primitives.sorted_segment_sum(
         torch.tensor(si[keep]), torch.tensor(vals[keep]), size,
         round_bf16=round_bf16).numpy()
-    for tiling in ({}, {"ngr": 5}):
-        slots, reads = _tiled_model(si, vals, size, **tiling)
+    # the values as the sort left them: unsorted rows (and more of them
+    # than keys) that the permutation points into
+    perm = rng.permutation(n + 7)[:n]
+    unsorted = np.zeros((n + 7, 3), np.float32)
+    unsorted[perm] = vals
+    # wide rows (4 stretches of 4 or 5 of 4), narrow rows (one thread a
+    # row: more stretches a tile, 8 of 2 or of 4), and both fed the
+    # permutation in int64 (P = 2) or int32 (P = 4) chunks
+    tilings = ({}, {"ngr": 5}, {"ngr": 8, "L": 2}, {"ngr": 8, "L": 4},
+               {"perm": perm}, {"ngr": 8, "L": 2, "perm": perm},
+               {"ngr": 5, "perm": perm, "P": 4},
+               {"ngr": 8, "L": 4, "perm": perm, "P": 4})
+    for tiling in tilings:
+        rows = unsorted if "perm" in tiling else vals
+        slots, reads = _tiled_model(si, rows, size, **tiling)
         assert (slots.writes == 1).all()
         np.testing.assert_array_equal(slots.out, ref)
-        if name in ("one_dominant_key", "single_key") and n >= 64:
+        rows_a_tile = tiling.get("ngr", 4) * tiling.get("L", 4)
+        if name in ("one_dominant_key", "single_key") and n > 3 * rows_a_tile:
             assert max(reads.values()) >= 3      # a run over several tiles
     if name == "no_rows":
         assert not slots.out.any()
@@ -360,6 +434,32 @@ def test_segment_sum_plain_matches_jax(rng, round_bf16):
     assert got.shape == (size, 8)
     assert not got[np.setdiff1d(np.arange(size), keys)].any()
     assert _rel_err(got, ref) < 1e-6
+
+
+@pytest.mark.parametrize("perm_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("round_bf16", [True, False])
+def test_segment_sum_plain_with_perm_sums_the_gathered_rows(rng, round_bf16,
+                                                            perm_dtype):
+    """With perm, the plain version is the sum of vals[perm]: bit for bit
+    the plain version on the gathered rows (the same index_add_), and
+    jax.ops.segment_sum of those rows within 1e-6 of max|ref|. The values
+    may have more rows than the keys; the permutation picks M of them."""
+    m, size, v_rows = 5000, 3000, 5300
+    keys = _sorted_keys(rng, m, size)
+    vals = rng.normal(size=(v_rows, 2)).astype(np.float32)
+    perm = rng.permutation(v_rows)[:m]
+    tv, tp = torch.tensor(vals), torch.tensor(perm, dtype=perm_dtype)
+    got = primitives.sorted_segment_sum(torch.tensor(keys), tv, size,
+                                        round_bf16=round_bf16, perm=tp)
+    gathered = primitives.gather_rows(tv, tp)
+    assert torch.equal(got, primitives.sorted_segment_sum(
+        torch.tensor(keys), gathered, size, round_bf16=round_bf16))
+    jv = jnp.asarray(vals[perm])
+    if round_bf16:
+        jv = jv.astype(jnp.bfloat16).astype(jnp.float32)
+    ref = np.asarray(jax.ops.segment_sum(jv, jnp.asarray(keys),
+                                         num_segments=size))
+    assert _rel_err(got.numpy(), ref) < 1e-6
 
 
 def test_row_cumsum_plain_matches_jnp_cumsum(rng):
@@ -606,6 +706,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         primitives.sorted_segment_sum(ix, vals.t().contiguous().t(), 4,
                                       round_bf16=True)
+    perm = torch.arange(10)
+    with pytest.raises(TypeError):
+        primitives.sorted_segment_sum(ix, vals, 4, round_bf16=True,
+                                      perm=perm.short())
+    with pytest.raises(ValueError):
+        primitives.sorted_segment_sum(ix, vals, 4, round_bf16=True,
+                                      perm=perm[:9])
+    with pytest.raises(ValueError, match="contiguous"):
+        primitives.sorted_segment_sum(ix, vals, 4, round_bf16=True,
+                                      perm=torch.arange(20)[::2])
     with pytest.raises(TypeError):
         primitives.row_cumsum(vals.bfloat16())
     with pytest.raises(ValueError):
@@ -625,6 +735,9 @@ def test_cpu_tensors_take_the_plain_versions(rng):
         si = torch.sort(ix).values
         v = torch.ones((m, 8))
         out = primitives.sorted_segment_sum(si, v, 64, round_bf16=True)
+        assert out.shape == (64, 8) and float(out.sum()) == 8 * m
+        out = primitives.sorted_segment_sum(
+            si, v, 64, round_bf16=False, perm=torch.arange(m).flip(0))
         assert out.shape == (64, 8) and float(out.sum()) == 8 * m
         assert primitives.row_cumsum(v).shape == (m, 8)
     assert kernels.launch_counts() == before

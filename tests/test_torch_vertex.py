@@ -78,7 +78,8 @@ def test_vertex_spec_matches_jax():
 
 def test_corner_indices_match_jax(rng):
     """The 8 corner rows of every (point, level), dense and hashed levels,
-    and hashed coordinates whose products overflow 32 bits."""
+    and hashed coordinates whose products overflow 32 bits; int32, as the
+    JAX function gives them."""
     kw = dict(n_levels=4, log2_table_size=8, base_resolution=4,
               finest_resolution=600, layout="vertex")
     spec_j, spec_t = jenc.HashGridSpec(**kw), tenc.HashGridSpec(**kw)
@@ -87,6 +88,7 @@ def test_corner_indices_match_jax(rng):
     x[:4] = [[0, 0, 0], [1, 1, 1], [0.5, 1.0, 0.0], [1e-7, 0.999999, 0.5]]
     j_idx, j_w = jenc._corner_indices(jnp.asarray(x), spec_j)
     t_idx, t_w = tenc._corner_indices(_t(x), spec_t)
+    assert t_idx.dtype == torch.int32 and np.asarray(j_idx).dtype == np.int32
     np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
     # jnp.prod and the port's fixed product order: f32 products of 3
     np.testing.assert_allclose(t_w.numpy(), np.asarray(j_w), atol=1e-7)
@@ -115,9 +117,9 @@ def test_vertex_encode_and_table_vjp(rng, gather_dtype):
 
 
 def test_vertex_backward_runs_the_kernel_wrappers(rng):
-    """The vertex backward is sort + gather_rows by the permutation +
-    sorted_segment_sum of bf16-rounded rows (the P1 form): one call each,
-    and no fused scan."""
+    """The vertex backward is a sort and one sorted_segment_sum of
+    bf16-rounded rows (the P1 form) fed the sort permutation: no
+    gather_rows of the payload, and no fused scan."""
     spec = tenc.HashGridSpec(**_spec_kw("vertex"))
     table = _t(_table(jenc.HashGridSpec(**_spec_kw("vertex"))), True)
     x = _t(rng.uniform(0, 1, (50, 3)).astype(np.float32))
@@ -129,8 +131,12 @@ def test_vertex_backward_runs_the_kernel_wrappers(rng):
                 lambda f, n, *a, **k: (calls.append((n, k)), f(*a, **k))[1],
                 getattr(primitives, name), name))
         torch.autograd.grad(out.sum(), [table])
-    assert calls == [("gather_rows", {}),
-                     ("sorted_segment_sum", {"round_bf16": True})]
+    assert [(n, sorted(k)) for n, k in calls] == \
+        [("sorted_segment_sum", ["perm", "round_bf16"])]
+    kw = calls[0][1]
+    assert kw["round_bf16"] is True
+    assert kw["perm"].dtype == torch.int64
+    assert kw["perm"].shape == (50 * spec.n_levels * 8,)
 
 
 @pytest.mark.parametrize("layout", ["vertex", "cell", "hybrid"])
