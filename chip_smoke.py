@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Phases (any failure exits non-zero, and nothing is printed as a result):
+Phases (any failure exits non-zero, and nothing is printed as a result;
+they run in this order but for 5, which runs before 4, and 15, which runs
+right after 4):
   1. device and build: torch/CUDA versions, the card's name and power
      limit, every kernel of the port compiled from csrc/ (one nvcc per
      source, all started together);
@@ -22,8 +24,23 @@ Phases (any failure exits non-zero, and nothing is printed as a result):
      hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
      the keyframe store filled to 22 keyframes; a warm window of BA steps
      timed as bench.py times the JAX package (mapping iterations / s).
-     Every BA iteration must launch each kernel entry point of the path
-     its fixed number of times (BA_LAUNCHES_PER_ITER);
+     From here on a BA call on the card is one captured CUDA graph per
+     bucket (naruto_tpu_torch/mapping/ba_graph.py); phases 6-13 run it
+     too, phase 14's sharded BA the eager loop. Every BA iteration must
+     launch each kernel entry point of the path its fixed number of times
+     (BA_LAUNCHES_PER_ITER; a replayed iteration, what its capture
+     recorded);
+ 15. the graph, run right after phase 4 on its mapper: an eager copy made
+     through the full state, then the calls of GRAPH_CALLS (a bucket
+     change and back) in both forms in turns, equal bit for bit after
+     every call (every full-state leaf, the generators, every loss); each
+     form's host ms a call (ba_dispatch's), device ms a call (queued_ms),
+     BA iters/s by naruto_tpu_torch.bench's measure in turns, and peak
+     device memory (a mapper of each form alone in a fresh process over
+     GRAPH_MEMORY_CALLS: the graph form's reserved peak, its graphs' pool
+     included, at most GRAPH_MAX_PEAK times the eager form's); the
+     replay's device ms;
+     graph launches a call;
   5. the primitives: the kernels gather_rows, sorted_segment_sum
      (bf16-rounded and exact f32) and row_cumsum against their plain
      versions on the same card tensors at the microbenchmark scripts' sizes
@@ -168,15 +185,17 @@ computes the same function, that call's time.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON
 (each kernel's launches on every path that drives it: the slice of phase
-4, the microbenchmarks of phase 5, the passive run of phase 6, the active
-run of phase 7, the parity run of phase 8, the settings run of phase 9,
-the raycast run of phase 10, the two resumed runs of phase 11, the first
-replayed and the first passive raycast run of phase 12, the --enable_vis
-run of phase 13, rank 0 of the data-parallel phase 14).
+4, the graph phase 15, the microbenchmarks of phase 5, the passive run of
+phase 6, the active run of phase 7, the parity run of phase 8, the
+settings run of phase 9, the raycast run of phase 10, the two resumed runs
+of phase 11, the first replayed and the first passive raycast run of
+phase 12, the --enable_vis run of phase 13, rank 0 of the data-parallel
+phase 14).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.abc
 import json
 import math
@@ -195,6 +214,17 @@ SLICE_N, SLICE_M, SLICE_SLOTS, SLICE_K = 493_436, 493_568, 204_089, 8
 SMALL_SHAPES = ((512, 8, 4), (4608, 8, 4), (512, 2, 2), (4608, 2, 2))
 INT32_MAX = 2 ** 31 - 1
 WINDOW_STEPS = 20          # timed BA steps in the warm window
+# phase 15: the buckets of the BA calls made in each form, in turns (phase
+# 4 captured 8192 and 512; 2048's first call captures), the device
+# times' repetitions, and bench's measure (steps a window, windows)
+GRAPH_CALLS = (512,) * 5 + (2048,) * 4 + (512,) * 3
+# each form's device memory: a mapper from the same state in a fresh
+# process, its calls in a run's order of buckets (few keyframes first),
+# each bucket's first call and one more
+GRAPH_MEMORY_CALLS = (8192, 8192, 2048, 2048, 512, 512)
+GRAPH_QUEUED_REPS = 5
+GRAPH_BENCH_STEPS, GRAPH_BENCH_WINDOWS = 10, 3
+GRAPH_MAX_PEAK = 1.25      # the graph form's peak memory over the eager's
 PRIM_M, PRIM_T, PRIM_TS, PRIM_F = 3_000_000, 201_000, 65_536, 8
 RAGGED_M = (1, 2049, 5000)  # no multiple of any TPU block
 RAGGED_SLOTS = 4000
@@ -623,20 +653,48 @@ def path_pose(i: int):
     return c2w
 
 
-def count_ba_launches(kernels, mapper, per_iter: list) -> None:
+def count_ba_launches(kernels, mapper, per_iter: list,
+                      warm_ups: list = None) -> None:
     """From now on, every BA iteration of `mapper` appends to per_iter the
-    launches of each kernel of the path that it made."""
+    launches of each kernel of the path that it made: an iteration of the
+    eager call what it launched, an iteration of a graph replay what its
+    capture recorded for it, which the replay launched (ops/kernels.py
+    add_launches). A capture launches nothing and appends nothing; the
+    iterations of the graphs' warm-up (every bucket once, at the mapper's
+    first BA call, its state put back) launch and append to `warm_ups`, if
+    given."""
     iteration = mapper._ba_iteration
+    graphs = mapper._ba_graphs
 
     def counted(setup, draws, it):
+        warming = graphs is not None and graphs.warming
+        if kernels.is_capturing() or (warming and warm_ups is None):
+            return iteration(setup, draws, it)
         before = kernels.launch_counts()
         out = iteration(setup, draws, it)
         after = kernels.launch_counts()
-        per_iter.append({k: after[k] - before[k]
-                         for k in BA_LAUNCHES_PER_ITER})
+        (warm_ups if warming else per_iter).append(
+            {k: after[k] - before[k] for k in BA_LAUNCHES_PER_ITER})
         return out
 
     mapper._ba_iteration = counted
+    if graphs is not None:
+        replay = graphs.replay
+
+        def replayed(prog):
+            before = kernels.launch_counts()
+            out = replay(prog)
+            after = kernels.launch_counts()
+            if sum(after[k] - before[k] for k in after) != sum(
+                    n for counts in prog.launches_per_iter
+                    for n in counts.values()):
+                fail("a graph replay counted other than its capture's "
+                     "launches")
+            per_iter.extend({k: counts[k] for k in BA_LAUNCHES_PER_ITER}
+                            for counts in prog.launches_per_iter)
+            return out
+
+        graphs.replay = replayed
 
 
 def count_track_launches(kernels, mapper, per_iter: list) -> None:
@@ -677,8 +735,8 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     m = cfg.mapper
     sim = AnalyticSimulator(cfg, device="cuda")
     mapper = Mapper(cfg, device="cuda")
-    per_iter = []
-    count_ba_launches(kernels, mapper, per_iter)
+    per_iter, warm_ups = [], []
+    count_ba_launches(kernels, mapper, per_iter, warm_ups)
     spec = mapper.spec.hash_spec
     log(f"[slice] office0: frames {mapper.H}x{mapper.W}, grid L"
         f"{spec.n_levels}F{spec.n_features} {spec.layout} 2^"
@@ -712,15 +770,18 @@ def run_slice(torch, kernels, profile_dir) -> dict:
             iters_run += n_it
             losses += [a["total"] for a in mapper.last_aux]
             counts = kernels.launch_counts()
-            log(f"[slice] step {i}: {n_it} iterations in {dt:.2f} s, "
+            log(f"[slice] step {i}: {n_it} iterations in {dt:.2f} s "
+                f"(and {len(warm_ups)} warm-up iterations so far), "
                 f"launches so far "
                 f"{ {k: counts[k] for k in SLICE_KERNELS} }, last loss "
                 f"{float(mapper.last_aux[-1]['total']):.5f}")
-            if any(counts[k] != iters_run for k in BACKWARD_KERNELS):
-                fail(f"kernel launches {counts} != iterations {iters_run}: "
-                     f"a mapping iteration did not run the slot-row scan "
-                     f"once")
+            if any(counts[k] != iters_run + len(warm_ups)
+                   for k in BACKWARD_KERNELS):
+                fail(f"kernel launches {counts} != iterations {iters_run} + "
+                     f"{len(warm_ups)} of the warm-up: a mapping iteration "
+                     f"did not run the slot-row scan once")
             check_ba_launches(per_iter)
+            check_ba_launches(warm_ups, what="warm-up")
     log(f"[slice] steps 0..10 in {time.perf_counter() - t_all:.2f} s")
 
     u, s = vols
@@ -769,11 +830,16 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     elapsed = time.perf_counter() - t0
     iters_run += WINDOW_STEPS * m.iters
     counts = kernels.launch_counts()
-    if any(counts[k] != iters_run for k in BACKWARD_KERNELS):
-        fail(f"kernel launches {counts} != iterations {iters_run}")
+    if any(counts[k] != iters_run + len(warm_ups) for k in BACKWARD_KERNELS):
+        fail(f"kernel launches {counts} != iterations {iters_run} + "
+             f"{len(warm_ups)} of the warm-up")
     check_ba_launches(per_iter)
-    log(f"[slice] every one of {len(per_iter)} BA iterations launched "
-        f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}")
+    check_ba_launches(warm_ups, what="warm-up")
+    graphs = mapper._ba_graphs
+    log(f"[slice] every one of {len(per_iter)} BA iterations and of the "
+        f"{len(warm_ups)} warm-up iterations launched "
+        f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
+        f"{graphs.replays} graph launches in {graphs.calls} BA calls")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -810,21 +876,23 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     if profile_dir:
         profile_step(torch, mapper, bucket, frame_rays, c2w_t, fid,
                      profile_dir)
-    return {"launches": counts, "iters_per_sec": its}
+    return {"launches": counts, "iters_per_sec": its, "mapper": mapper,
+            "call": (bucket, frame_rays, c2w_t, fid), "per_iter": per_iter}
 
 
 def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
                  out_dir: str) -> None:
-    """One BA step under torch.profiler: kernel time by name, the device's
-    busy share, and launches and kernel time per iteration; the trace and
-    the table go to out_dir."""
+    """One eager BA step under torch.profiler (a graph replay's kernels need
+    not show in a trace): kernel time by name, the device's busy share,
+    and launches and kernel time per iteration; the trace and the table go
+    to out_dir."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mapper._ba_impl(bucket, frame_rays, c2w, fid)
+        mapper._ba_impl_eager(bucket, frame_rays, c2w, fid)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
@@ -849,6 +917,220 @@ def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
         + os.path.join(out_dir, "ba_step_trace.json"))
     trace_summary.main([os.path.join(out_dir, "ba_step_trace.json"),
                         "--iters", str(mapper.cfg.mapper.iters)])
+
+
+# ----------------------------------------------------------------- phase 15
+def _same_state(torch, a, b) -> list:
+    """The names of the state leaves, generators and pose rows in which
+    mappers a and b differ (empty: bit for bit the same)."""
+    from naruto_tpu_torch.utils import ckpt_io
+    from naruto_tpu_torch.utils.seeding import generator_states
+
+    bad = []
+    for (k, x), (_, y) in zip(ckpt_io.flatten_with_keys(a._full_state_tree()),
+                              ckpt_io.flatten_with_keys(b._full_state_tree())):
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else bool((x == y).all()))
+        if not same:
+            bad.append(k)
+    ga, gb = generator_states(a.gens), generator_states(b.gens)
+    bad += [f"generator {k}" for k in ga if ga[k] != gb[k]]
+    return bad
+
+
+def _pool_gib(torch, pool) -> float:
+    """GiB of the segments the graphs' memory pool holds."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) \
+        / 2 ** 30
+
+
+def memory_child(tmp: str, form: str) -> None:
+    """run_graph's memory check in a fresh process: a mapper of `form`
+    ("graph": Mapper._ba_impl, "eager": _ba_impl_eager) from tmp's
+    snapshot, the calls of GRAPH_MEMORY_CALLS on tmp's frame; the
+    process's peak device memory to tmp/memory_<form>.json."""
+    sys.meta_path.insert(0, BlockImports(("jax", "naruto_tpu")))
+    import torch
+
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    m = Mapper(make_config("Replica", "office0"), device="cuda")
+    m.load_full_state(os.path.join(tmp, "state.pkl"))
+    inp = torch.load(os.path.join(tmp, "call.pt"), map_location="cuda")
+    call = m._ba_impl_eager if form == "eager" else m._ba_impl
+    for bucket in GRAPH_MEMORY_CALLS:
+        call(bucket, inp["frame_rays"], inp["c2w"], inp["fid"])
+    torch.cuda.synchronize()
+    out = {"reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "pool_gib": (_pool_gib(torch, m._ba_graphs.pool)
+                        if form == "graph" else 0.0)}
+    with open(os.path.join(tmp, f"memory_{form}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_graph(torch, kernels, slice_res: dict) -> dict:
+    """Phase 15: the BA call as one captured CUDA graph per bucket against
+    the eager call, at office0's full width. Phase 4's mapper (22
+    keyframes, bucket 512 captured) is copied into an eager mapper through
+    its full state (save_full_state / load_full_state); then the calls of
+    GRAPH_CALLS run in each form in turns, the two mappers equal bit for
+    bit after every call (every leaf of the full state: field, optimizer
+    moments and counts, the uncertainty gradient sum, keyframes, poses,
+    volume; the generators; every loss). Printed for both forms: the host
+    ms of a call (ba_dispatch's), the device ms of a call behind a spin
+    kernel (queued_ms; the call's one wait for the device included), the
+    graph replay's own device ms, BA iters/s by naruto_tpu_torch.bench's
+    measure in turns, peak device memory, and graph launches a call.
+    Every BA iteration launches BA_LAUNCHES_PER_ITER."""
+    import statistics
+
+    from naruto_tpu_torch import bench
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    t_phase = time.perf_counter()
+    graph = slice_res["mapper"]
+    _, frame_rays, c2w, fid = slice_res["call"]
+    graphs = graph._ba_graphs
+    if graphs is None or 512 not in graphs.programs:
+        fail("phase 15: the slice's mapper has no captured BA graph")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_graph_")
+    snapshot = os.path.join(tmp.name, "state.pkl")
+    graph.save_full_state(snapshot)
+    eager = Mapper(graph.cfg, device="cuda")
+    eager.load_full_state(snapshot)
+    if _same_state(torch, graph, eager):
+        fail("phase 15: the eager copy differs from the graph's mapper")
+    per_iter = slice_res["per_iter"]
+    n_iter0 = len(per_iter)
+    count_ba_launches(kernels, eager, per_iter)
+    forms = {"graph": (graph, graph._ba_impl),
+             "eager": (eager, eager._ba_impl_eager)}
+    host = {f: [] for f in forms}
+    calls0, replays0 = graphs.calls, graphs.replays
+    kernels.reset_launch_counts()
+    for k, bucket in enumerate(GRAPH_CALLS):
+        order = list(forms) if k % 2 == 0 else list(forms)[::-1]
+        auxes = {}
+        for form in order:
+            m, call = forms[form]
+            prog = graphs.programs.get(bucket)
+            first = form == "graph" and (prog is None or prog.graph is None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            auxes[form] = call(bucket, frame_rays, c2w, fid)
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if first:
+                log(f"[graph] bucket {bucket}'s first call (capture, then "
+                    f"replay): {1e3 * dt:.1f} ms on the host")
+            else:
+                host[form].append(dt)
+        bad = _same_state(torch, graph, eager)
+        got, want = auxes["graph"], auxes["eager"]
+        if [list(a) for a in got] != [list(a) for a in want] or not all(
+                torch.equal(a[key], b[key]) for a, b in zip(got, want)
+                for key in a):
+            bad.append("losses")
+        if bad:
+            fail(f"phase 15: call {k} (bucket {bucket}): the graph and the "
+                 f"eager call differ in {bad[:8]}")
+    n_calls = len(GRAPH_CALLS)
+    replays = graphs.replays - replays0
+    log(f"[graph] {n_calls} BA calls in each form, in turns (buckets "
+        f"{GRAPH_CALLS}): after every call the two mappers equal bit for "
+        f"bit (every full-state leaf, the generators, every loss); "
+        f"{replays} graph launches in {graphs.calls - calls0} calls")
+    check_ba_launches(per_iter[n_iter0:])
+    want_iters = 2 * n_calls * graph.cfg.mapper.iters
+    if len(per_iter) - n_iter0 != want_iters:
+        fail(f"phase 15: {len(per_iter) - n_iter0} BA iterations counted, "
+             f"not {want_iters}")
+    counts = kernels.launch_counts()
+    log(f"[graph] every one of {want_iters} BA iterations (both forms) "
+        f"launched {BA_LAUNCHES_PER_ITER}; launches {counts}")
+    for form in forms:
+        log(f"[graph] {form}: a BA call's host ms (ba_dispatch's) median "
+            f"{1e3 * statistics.median(host[form]):.2f}, range "
+            f"{1e3 * min(host[form]):.2f}-{1e3 * max(host[form]):.2f} over "
+            f"{len(host[form])} calls")
+
+    # the device: each form's call behind a spin kernel, in turns; then the
+    # replay alone (after the comparisons: it steps the graph's mapper)
+    bucket = GRAPH_CALLS[-1]
+    queued = {f: [] for f in forms}
+    for form in ("graph", "eager", "eager", "graph"):
+        m, call = forms[form]
+        queued[form].append(queued_ms(
+            torch, lambda: call(bucket, frame_rays, c2w, fid),
+            GRAPH_QUEUED_REPS))
+    bad = _same_state(torch, graph, eager)
+    if bad:
+        fail(f"phase 15: the timed calls differ in {bad[:8]}")
+    prog = graphs.programs[bucket]
+    replay_ms = [queued_ms(torch, prog.graph.replay, GRAPH_QUEUED_REPS)
+                 for _ in range(2)]
+    for form in forms:
+        log(f"[graph] {form}: device ms a BA call (queued_ms, the setup's "
+            f"one wait for the device included), in turns: "
+            + ", ".join(f"{x:.3f}" for x in queued[form]))
+    log(f"[graph] the graph replay alone (queued_ms, {graph.cfg.mapper.iters}"
+        f" iterations): " + ", ".join(f"{x:.3f}" for x in replay_ms) + " ms")
+    cfg = graph.cfg
+    del eager, forms, graph, graphs, prog
+    slice_res.pop("mapper")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # device memory: a mapper of each form from the phase's starting state,
+    # alone in a fresh process (whose caching allocator holds nothing of
+    # the phases before), over GRAPH_MEMORY_CALLS
+    torch.save({"frame_rays": frame_rays, "c2w": c2w, "fid": fid},
+               os.path.join(tmp.name, "call.pt"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    peak = {}
+    for form in ("eager", "graph"):
+        run = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.memory_child({tmp.name!r}, {form!r})"],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        sys.stderr.write(run.stderr)
+        if run.returncode:
+            fail(f"phase 15: the {form} memory child exited with "
+                 f"{run.returncode}")
+        with open(os.path.join(tmp.name, f"memory_{form}.json")) as f:
+            peak[form] = json.load(f)
+    for form, p in peak.items():
+        log(f"[graph] {form}: a mapper alone in a fresh process over buckets"
+            f" {GRAPH_MEMORY_CALLS}: peak device memory reserved "
+            f"{p['reserved_gib']:.3f} GiB, allocated {p['allocated_gib']:.3f}"
+            f" GiB" + (f" (the graphs' pool at the end {p['pool_gib']:.3f} "
+                       f"GiB)" if form == "graph" else ""))
+    ratio = peak["graph"]["reserved_gib"] / peak["eager"]["reserved_gib"]
+    if ratio > GRAPH_MAX_PEAK:
+        fail(f"phase 15: the graph form's peak memory is {ratio:.3f} x the "
+             f"eager form's (at most {GRAPH_MAX_PEAK})")
+    log(f"[graph] the graph form's peak reserved memory is {ratio:.3f} x "
+        f"the eager form's")
+
+    # BA iters/s as naruto_tpu_torch.bench measures it, both forms in turns
+    res = bench.measure(cfg, GRAPH_BENCH_STEPS, GRAPH_BENCH_WINDOWS,
+                        settle=2, device="cuda", turbo=False, eager=True)
+    for name, form in (("parity", "graph"), ("eager", "eager")):
+        row = res[name]
+        log(f"[graph] bench's measure, {form}: {row['iters_per_sec']:.2f} "
+            f"iters/s (windows {row['iters_per_sec_windows']}), first call "
+            f"{row['compile_s']} s")
+    tmp.cleanup()
+    log(f"[graph] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts,
+            "host_ms": {f: 1e3 * statistics.median(v)
+                        for f, v in host.items()},
+            "queued_ms": queued, "replay_ms": replay_ms, "memory": peak,
+            "iters_per_sec": {"graph": res["parity"]["iters_per_sec"],
+                              "eager": res["eager"]["iters_per_sec"]}}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1362,10 +1644,14 @@ class ShapeRecorder:
     the run's gradients cancel. The callers reach the wrappers as module
     attributes (primitives.gather_rows, kernels.outer_cumsum_slots), so
     swapping those attributes sees every call; the wrappers themselves, and
-    their launch counts, are unchanged."""
+    their launch counts, are unchanged. A BA call's graph is captured after
+    the same call ran once eagerly, so every key of a captured call is
+    seen; the calls at a key are the eager ones (a replay calls no
+    wrapper)."""
 
     def __init__(self, torch, kernels, prims):
         self.torch = torch
+        self.kernels = kernels
         # launch-count name: (module, attribute, plain version, tolerance,
         # bytes and operations of the function, per-element scale of the
         # error or None for max|plain|)
@@ -1393,7 +1679,7 @@ class ShapeRecorder:
         self.seen = {}          # key -> [name, args, kwargs, calls]
 
     def _recording(self, name, fn):
-        torch = self.torch
+        torch, kernels = self.torch, self.kernels
 
         def part(a):
             return (tuple(a.shape), str(a.dtype)) \
@@ -1403,7 +1689,9 @@ class ShapeRecorder:
             return a.detach().clone() if isinstance(a, torch.Tensor) else a
 
         def call(*args, **kw):
-            if args[0].is_cuda:
+            # a capture records the call in a graph, which runs only at
+            # its replays, on the shapes the bucket's warm-up brought here
+            if args[0].is_cuda and not kernels.is_capturing():
                 key = (name,) + tuple(part(a) for a in args) + tuple(
                     (k, part(v)) for k, v in sorted(kw.items()))
                 rec = self.seen.get(key)
@@ -2832,8 +3120,9 @@ def run_sharded(torch, kernels, prims, root: str) -> tuple:
     ref_grads = to_host(mapper._ba_iteration(setup, draws, 0)[1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    # the eager call, as the ranks' sharded BA runs it
     for _ in range(SHARDED_STEPS):
-        mapper._ba_impl(bucket, frame_rays, c2w, fid)
+        mapper._ba_impl_eager(bucket, frame_rays, c2w, fid)
     torch.cuda.synchronize()
     one_ms = 1e3 * (time.perf_counter() - t0) / (SHARDED_STEPS * m.iters)
     rays = mapper._ba_n_rays(bucket)
@@ -3016,17 +3305,32 @@ def main() -> None:
             if "ptxas info" in line:
                 log(f"[build] {line.strip()}")
 
+    def done(phase: str) -> None:
+        log(f"[smoke] phase {phase} done, "
+            f"{time.perf_counter() - t_start:.1f} s in")
+
     kres = check_kernels(torch, kernels, dev)
+    done("2")
     from naruto_tpu_torch.config import make_config
     from naruto_tpu_torch.mapping.mapper import field_spec_from_config
 
     spec = field_spec_from_config(make_config("Replica", "office0")).hash_spec
     check_segment_sum(torch, segment, spec, dev)
     check_trilinear_vjp(torch, dev)
-    sres = run_slice(torch, kernels, args.profile)
+    done("3")
+    # phase 5 before the BA's graphs: once a process has captured one, the
+    # profiler loses the records of most traced cases (94 of phase 5's,
+    # each retaken five times, when it ran after phase 15)
     pres = check_primitives(torch, primitives, dev)
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
+    done("5")
+    sres = run_slice(torch, kernels, args.profile)
+    done("4")
+    gres = run_graph(torch, kernels, sres)
+    done("15")
+    del sres["call"]
+    torch.cuda.empty_cache()
     # the snapshots phases 6 and 10 write, for phase 11 (hundreds of MB:
     # in a temporary directory outside the checkout)
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -3058,8 +3362,10 @@ def main() -> None:
         phase7.update(poses=eng.mapper.poses.cpu().clone(),
                       run_s=eng.run_seconds, steps=eng.cfg.general.num_iter)
 
+    done("6")
     active, active_cases = run_active(torch, kernels, primitives, root,
                                       check=keep_active)
+    done("7")
     import yaml
 
     with open(os.path.join(root, PARITY_CFG)) as f:
@@ -3068,13 +3374,16 @@ def main() -> None:
         torch, kernels, primitives, root, "parity",
         over={"grid": parity_grid}, reference=PARITY_ROW,
         want=PARITY_LAUNCHES_PER_ITER)
+    done("8")
     settings, settings_cases = run_passive(
         torch, kernels, primitives, root, "settings", over=SETTINGS_OVER,
         num_iter=SETTINGS_STEPS, reference=None,
         want=SETTINGS_LAUNCHES_PER_ITER, check=check_tracking())
     track_path(torch, kernels)
+    done("9")
     raycast, raycast_cases, raycast_info = run_raycast(
         torch, kernels, primitives, root, keep.name)
+    done("10")
 
     def same_as_phase6(eng, row):
         if not torch.equal(eng.mapper.poses.cpu(), passive_keep["poses"]):
@@ -3094,13 +3403,18 @@ def main() -> None:
     resumed = {k: resumed_p[k] + resumed_a[k] for k in resumed_p}
     resumed_cases = {k: resumed_p_cases[k] + resumed_a_cases[k]
                      for k in resumed_p_cases}
+    done("11")
     replay, replay_cases, _ = run_replay(torch, kernels, primitives, root)
     passive_rc, passive_rc_cases = run_raycast_passive(
         torch, kernels, primitives, root, raycast_info["mesh"])
     keep.cleanup()
+    done("12")
     vis, vis_cases = run_vis(torch, kernels, primitives, root, phase7)
+    done("13")
     sharded, sharded_cases = run_sharded(torch, kernels, primitives, root)
-    for path, counts in (("raycast", raycast), ("resumed", resumed),
+    done("14")
+    for path, counts in (("graph", gres["launches"]), ("raycast", raycast),
+                         ("resumed", resumed),
                          ("replay", replay),
                          ("raycast_passive", passive_rc), ("vis", vis),
                          ("sharded", sharded)):
@@ -3136,7 +3450,7 @@ def main() -> None:
                 "worst_shape": worst["shape"],
                 "worst_rel_err": worst["rel_err"], "err_of": worst["err_of"]}
 
-    on_slice = sres["launches"]
+    on_slice, on_graph = sres["launches"], gres["launches"]
     # the fused scan: the BA runs its slot rows, and its full rows nowhere
     entries = [{
         "name": "outer_scan", "route": "cuda", "source": SOURCE["outer_scan"],
@@ -3146,7 +3460,8 @@ def main() -> None:
                                  "rows": on_slice["outer_scan_rows"]},
         "launches_by_path": {
             path: counts["outer_scan_slots"] + counts["outer_scan_rows"]
-            for path, counts, _ in (("slice", on_slice, None), *runs)},
+            for path, counts, _ in (("slice", on_slice, None),
+                                    ("graph", on_graph, None), *runs)},
         **summary(kres["slots"][0]), **hres["outer_scan_slots"],
         "epilogues": kres,
         **{f"{path}_shapes": {
@@ -3166,6 +3481,7 @@ def main() -> None:
             "launches": (on_slice if path == "slice"
                          else bench_launches)[name],
             "launches_by_path": {"slice": on_slice[name],
+                                 "graph": on_graph[name],
                                  "microbenchmarks": bench_launches[name],
                                  **{path: counts[name]
                                     for path, counts, _ in runs}},

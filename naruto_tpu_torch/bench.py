@@ -9,14 +9,20 @@ It times the workload of bench.py's `_measure`: `make_config("Replica",
 colour ramp), 22 keyframes added from it (the smallest current-ray bucket,
 512), a warm-up BA step (the first one builds and loads the CUDA kernels),
 `--settle` untimed steps, then chained BA steps between two
-`torch.cuda.synchronize()`. One BA step is `mapper.iters` (10) iterations.
+`torch.cuda.synchronize()`. One BA step is `mapper.iters` (10) iterations,
+one captured CUDA graph a step on the card (mapping/ba_graph.py; the first
+step of the bucket warms up and captures it).
 
 Two rows share the process: parity (the defaults) and turbo
 (configs/turbo.yaml: `smooth_every: 5`, `n_samples_d: 12`), reported
-beside it, never as it. iters/s of two processes on one card differ by
-more than most changes move it, so the rows are timed in turns inside one
-process, `--windows` windows of `--steps` steps each, the order of the two
-alternating from window to window; each row reports its median and range.
+beside it, never as it. `measure(..., eager=True)` adds a row that times
+the parity configuration's eager BA call (`Mapper._ba_impl_eager`, one
+Python iteration after another), the form the graph replaced
+(`chip_smoke.py` phase 15). iters/s of two
+processes on one card differ by more than most changes move it, so the
+rows are timed in turns inside one process, `--windows` windows of
+`--steps` steps each, the order of the rows alternating from window to
+window; each row reports its median and range.
 
 As in bench.py, the environment variable NARUTO_BENCH_CFG (a JSON dict of
 config overrides, e.g. '{"grid": {"layout": "vertex", ...}}' for the grid
@@ -67,12 +73,14 @@ def wall_frame(H: int, W: int):
 class _Row:
     """One configuration's mapper, driven to steady state and warmed up."""
 
-    def __init__(self, cfg, device: torch.device, settle: int):
+    def __init__(self, cfg, device: torch.device, settle: int,
+                 eager: bool = False):
         from naruto_tpu_torch.mapping.mapper import Mapper
 
         self.cfg = cfg
         self.device = device
         self.mapper = m = Mapper(cfg, device=device)
+        self._ba = m._ba_impl_eager if eager else m._ba_impl
         color, depth = wall_frame(m.H, m.W)
         self.frame_rays = m.frame_to_rays(color, depth)
         self.c2w = torch.eye(4, device=device)
@@ -90,8 +98,7 @@ class _Row:
 
     def _steps(self, n: int, fid0: int) -> None:
         for i in range(n):
-            self.mapper._ba_impl(self.bucket, self.frame_rays, self.c2w,
-                                 fid0 + i)
+            self._ba(self.bucket, self.frame_rays, self.c2w, fid0 + i)
 
     def window(self, n_steps: int) -> None:
         """Time n_steps chained BA steps; records iters/s."""
@@ -121,10 +128,12 @@ class _Row:
 
 
 def measure(cfg, n_steps: int, windows: int, settle: int = 10,
-            device="cuda", turbo: bool = True) -> Dict[str, Dict]:
-    """The parity row (`cfg`) and, with `turbo`, the turbo row, timed in
-    turns: `windows` windows of `n_steps` BA steps each. Returns {"parity":
-    ..., "turbo": ...} of `_Row.summary()` dicts, plus the process's peak
+            device="cuda", turbo: bool = True,
+            eager: bool = False) -> Dict[str, Dict]:
+    """The parity row (`cfg`), with `turbo` the turbo row and with `eager`
+    the parity configuration's eager call, timed in turns: `windows`
+    windows of `n_steps` BA steps each. Returns {"parity": ..., "turbo":
+    ..., "eager": ...} of `_Row.summary()` dicts, plus the process's peak
     device memory (GiB, every row's mapper resident) under
     "peak_memory_gib" on a card."""
     from naruto_tpu_torch.config.schema import deep_update
@@ -135,6 +144,8 @@ def measure(cfg, n_steps: int, windows: int, settle: int = 10,
     rows = {"parity": _Row(cfg, device, settle)}
     if turbo:
         rows["turbo"] = _Row(deep_update(cfg, TURBO), device, settle)
+    if eager:
+        rows["eager"] = _Row(cfg, device, settle, eager=True)
     order = list(rows)
     for w in range(windows):
         for name in (order if w % 2 == 0 else order[::-1]):

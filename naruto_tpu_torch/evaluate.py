@@ -55,8 +55,15 @@ def main(argv=None):
     mapper = None
     if args.ckpt:
         from naruto_tpu_torch.mapping.mapper import Mapper
+        from naruto_tpu_torch.utils import ckpt_io
 
-        mapper = Mapper(cfg, device=args.device)
+        # the pose table as long as the checkpoint's: it follows the run's
+        # general.num_iter, which need not be the preset's
+        arrays, _ = ckpt_io.load_arrays(args.ckpt)
+        n_poses = len(arrays["['poses']"])
+        mapper = Mapper(make_config(args.dataset, args.scene,
+                                    num_iter=n_poses - 1),
+                        device=args.device)
         mapper.load_ckpt(args.ckpt)
         poses = mapper.poses.cpu().numpy()
         if mapper.step > 0:           # drop unused trailing identity poses

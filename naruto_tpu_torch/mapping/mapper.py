@@ -23,9 +23,17 @@ naruto_tpu/mapping/mapper.py).
     uncertainty zeroed off-surface.
 
 The JAX ``lax.scan`` is a Python loop and its ``lax.cond``s are Python
-``if``s on the host-side iteration number. Every random draw is an
-argument: ``BADraws`` / ``FirstFrameDraws`` / ``TrackDraws`` per iteration
-and one U[0, 1) score per pixel for a keyframe insertion; in a run they come from one
+``if``s on the host-side iteration number. On a card in one process the
+whole BA call is one captured CUDA graph per current-ray bucket
+(mapping/ba_graph.py, the counterpart of ``_get_ba_jit``); on the CPU and
+in the sharded BA it is the eager loop (``_ba_impl_eager``), bit for bit
+the same. So every tensor the BA reads or writes keeps its address: the
+volume query, the loads and the optimizers write in place, and the
+optimizers take each step's bias corrections as device scalars
+(mapping/optim.py), one row per iteration made on the host for a call.
+Every random draw is an argument: ``BADraws`` / ``FirstFrameDraws`` /
+``TrackDraws`` per iteration and one U[0, 1) score per pixel for a
+keyframe insertion; in a run they come from one
 ``torch.Generator`` per draw site (utils/seeding.py), in the tests from
 replayed JAX key splits. The current-frame ray block is padded to one of
 ``CUR_BUCKETS`` and masked, as in the JAX package.
@@ -66,12 +74,14 @@ import torch
 from naruto_tpu_torch.config import MainConfig
 from naruto_tpu_torch.geometry.rays import get_camera_rays
 from naruto_tpu_torch.geometry.voxel import volume_shape, world_grid
+from naruto_tpu_torch.mapping.ba_graph import BAGraphs
 from naruto_tpu_torch.mapping.field import (FieldSpec, init_field_params,
                                             query_sdf, volume_maps)
 from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
                                                 sample_global_rays)
 from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
                                              total_loss)
+from naruto_tpu_torch.mapping.optim import Adam, EmbedAdam
 from naruto_tpu_torch.mapping.pose_opt import (const_speed_init,
                                                matrix_from_tensor,
                                                pose_to_tensor)
@@ -92,7 +102,6 @@ from naruto_tpu_torch.utils.timer import Timer
 # padded current-ray block sizes, as in the JAX package
 CUR_BUCKETS = (512, 2048, 8192)
 
-EMBED_B1, EMBED_B2, EMBED_EPS = 0.9, 0.99, 1e-15
 # the full-state header's key of the port's generator states (the JAX
 # package keeps its threefry key under "rng_key", which the port never
 # writes)
@@ -100,6 +109,14 @@ GENERATORS_KEY = "torch_generator_states"
 # the pose Adam (optax.adam's defaults but b2): rotation and translation
 # groups with their own learning rates
 POSE_BETAS, POSE_EPS = (0.9, 0.99), 1e-8
+# the columns of a mapping call's optimizer scalars (mapping/optim.py), one
+# row per iteration: the table's EmbedAdam (1 / (1 - b1^t), 1 / (1 - b2^t)),
+# then sqrt(1 - b2^t) and -lr / (1 - b1^t) of the decoder's and of the
+# uncertainty grid's Adam, then the pose Adam's sqrt(1 - b2^t) and its
+# rotation and translation step sizes; zeros where an optimizer takes no
+# step that iteration
+SC_EMBED, SC_DECODER, SC_UNCERT, SC_POSE = 0, 2, 4, 6
+N_SCALARS = 9
 
 
 class LazyVolumes:
@@ -198,29 +215,60 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 
 class BAPoses:
-    """The pose variables of one BA step with pose optimisation: every
+    """The pose variables of a BA call with pose optimisation: every
     keyframe slot's axis-angle and translation (slot 0 and the empty slots
-    masked: they keep their poses) and the current frame's, their Adam,
-    and the gradients accumulated since its last step."""
+    masked: they keep their poses) and the current frame's, their Adam
+    (rotation and translation groups), and the gradients accumulated since
+    its last step. Made once per mapper, at fixed addresses (a captured BA
+    call reads and writes them), and set anew at the start of every call
+    by ``begin``: a fresh Adam each call, as in the JAX package."""
 
-    def __init__(self, poses: torch.Tensor, c2w: torch.Tensor, num_kf: int,
-                 kf_count: int, m):
-        dev = poses.device
-        self.ids = torch.arange(num_kf, device=dev) * m.keyframe_every
+    def __init__(self, num_kf: int, num_poses: int, m, device):
+        self.ids = torch.arange(num_kf, device=device) * m.keyframe_every
         # slots past the pose table read its last row, as JAX's clamped
         # gather does; they are masked and never written back
-        self.fixed = poses[torch.clamp(self.ids, max=poses.shape[0] - 1)]
-        slot = torch.arange(num_kf, device=dev)
-        self.slot_mask = ((slot > 0) & (slot < kf_count)).to(
-            torch.float32)[:, None]
-        self.c2w, self.optim_cur = c2w, m.optim_cur
-        self.rot, self.trans = map(_leaf, pose_to_tensor(self.fixed))
-        self.rot_c, self.trans_c = map(_leaf, pose_to_tensor(c2w))
+        self._rows = torch.clamp(self.ids, max=num_poses - 1)
+        self._slot = torch.arange(num_kf, device=device)
+        self._n_back = sum(1 for k in range(num_kf)
+                           if k * m.keyframe_every < num_poses)
+        self.fixed = torch.zeros((num_kf, 4, 4), device=device)
+        self.slot_mask = torch.zeros((num_kf, 1), device=device)
+        self.optim_cur = m.optim_cur
+        self.c2w: Optional[torch.Tensor] = None
+        self.rot, self.trans = (torch.zeros((num_kf, 3), device=device,
+                                            requires_grad=True)
+                                for _ in range(2))
+        self.rot_c, self.trans_c = (torch.zeros((3,), device=device,
+                                                requires_grad=True)
+                                    for _ in range(2))
         self.leaves = [self.rot, self.trans, self.rot_c, self.trans_c]
-        self.opt = _pose_adam([self.rot, self.rot_c],
-                              [self.trans, self.trans_c], m.lr_rot,
-                              m.lr_trans)
+        self.opt_rot = Adam([self.rot, self.rot_c], m.lr_rot, POSE_BETAS,
+                            POSE_EPS)
+        self.opt_trans = Adam([self.trans, self.trans_c], m.lr_trans,
+                              POSE_BETAS, POSE_EPS)
         self.accum = [torch.zeros_like(t) for t in self.leaves]
+
+    def scalars(self, count: int) -> tuple:
+        """(sqrt(1 - b2^t), rotation step size, translation step size) of
+        pose step `count` of a call."""
+        bc2_sqrt, step_rot = self.opt_rot.scalars(count)
+        return bc2_sqrt, step_rot, self.opt_trans.scalars(count)[1]
+
+    @torch.no_grad()
+    def begin(self, poses: torch.Tensor, c2w: torch.Tensor, kf_count) -> None:
+        """A call's start: the keyframe slots' poses, the slot mask of
+        `kf_count` filled slots (an int, or a device scalar), the current
+        pose c2w; zero accumulators, a fresh Adam."""
+        self.fixed.copy_(poses[self._rows])
+        self.slot_mask.copy_(((self._slot > 0) & (self._slot < kf_count))
+                             .to(torch.float32)[:, None])
+        self.c2w = c2w
+        for leaf, value in zip(self.leaves, (*pose_to_tensor(self.fixed),
+                                             *pose_to_tensor(c2w))):
+            leaf.copy_(value)
+        torch._foreach_zero_(self.accum)
+        self.opt_rot.reset()
+        self.opt_trans.reset()
 
     def kf_matrices(self) -> torch.Tensor:
         mats = matrix_from_tensor(self.rot, self.trans)
@@ -238,54 +286,37 @@ class BAPoses:
             a += g * mask
 
     @torch.no_grad()
-    def step(self) -> None:
-        for p, a in zip(self.leaves, self.accum):
-            p.grad = a.clone()
-            a.zero_()
-        self.opt.step()
-        for p in self.leaves:
-            p.grad = None
+    def step(self, scal: torch.Tensor) -> None:
+        """One Adam step on the accumulated gradients; scal: the
+        iteration's row of optimizer scalars."""
+        a_rot, a_trans, a_rot_c, a_trans_c = self.accum
+        bc2_sqrt = scal[SC_POSE]
+        self.opt_rot.step([a_rot, a_rot_c], bc2_sqrt, scal[SC_POSE + 1])
+        self.opt_trans.step([a_trans, a_trans_c], bc2_sqrt,
+                            scal[SC_POSE + 2])
+        torch._foreach_zero_(self.accum)
 
     @torch.no_grad()
     def write_back(self, poses: torch.Tensor, frame_id: int) -> None:
-        keep = self.ids < poses.shape[0]
-        poses[self.ids[keep]] = self.kf_matrices()[keep]
+        n = self._n_back      # the slots inside the pose table
+        poses[self.ids[:n]] = self.kf_matrices()[:n]
         if self.optim_cur:
             poses[frame_id] = self.cur_matrix()
 
 
 class BASetup(NamedTuple):
-    """Per-mapping-step invariants of the BA iterations."""
+    """The inputs of a BA call's iterations. num_cur and kf_count are host
+    integers in the eager call and device scalars in the captured one;
+    n_valid (the current draws' bound) is the host's."""
     cur_cap: int
     frame_rays: torch.Tensor
     c2w: torch.Tensor
     valid_order: torch.Tensor   # valid current pixels first (stable)
     n_valid: int
-    num_cur: int
+    num_cur: object
+    scalars: torch.Tensor       # [iters, N_SCALARS] the optimizers' scalars
+    kf_count: object
     pose: Optional[BAPoses] = None   # with tracking on
-
-
-class EmbedAdam:
-    """Adam for the hash table: betas (0.9, 0.99), eps 1e-15, fp32 master,
-    updated in place."""
-
-    def __init__(self, params: Sequence[torch.Tensor], lr: float):
-        self.lr = lr
-        self.count = 0
-        self.mu = [torch.zeros_like(p) for p in params]
-        self.nu = [torch.zeros_like(p) for p in params]
-
-    @torch.no_grad()
-    def step(self, params: Sequence[torch.Tensor],
-             grads: Sequence[torch.Tensor]) -> None:
-        self.count += 1
-        bc1 = 1.0 / (1.0 - EMBED_B1 ** self.count)
-        bc2 = 1.0 / (1.0 - EMBED_B2 ** self.count)
-        for p, m, v, g in zip(params, self.mu, self.nu, grads):
-            m.mul_(EMBED_B1).add_(g, alpha=1.0 - EMBED_B1)
-            v.mul_(EMBED_B2).addcmul_(g, g, value=1.0 - EMBED_B2)
-            p.sub_((m * bc1) / (torch.sqrt(v * bc2) + EMBED_EPS),
-                   alpha=self.lr)
 
 
 def field_spec_from_config(cfg: MainConfig) -> FieldSpec:
@@ -325,28 +356,17 @@ def _i32(n) -> np.ndarray:
     return np.asarray(int(n), np.int32)
 
 
-def _adam_state(opt: Optional[torch.optim.Adam], params: Sequence):
-    """(count, exp_avg list, exp_avg_sq list) of a torch Adam over
-    `params` (zeros before its first step, and for no optimizer)."""
-    st = [opt.state.get(p, {}) if opt is not None else {} for p in params]
-    count = int(st[0]["step"]) if st and st[0] else 0
-    mu = [x["exp_avg"] if x else torch.zeros_like(p)
-          for x, p in zip(st, params)]
-    nu = [x["exp_avg_sq"] if x else torch.zeros_like(p)
-          for x, p in zip(st, params)]
-    return count, mu, nu
-
-
 @torch.no_grad()
-def _set_adam_state(opt: torch.optim.Adam, params: Sequence, count: int,
-                    mu: Sequence, nu: Sequence) -> None:
-    for p, m, v in zip(params, mu, nu):
-        opt.state.pop(p, None)
+def _set_adam_state(opt: Adam, count: int, mu: Sequence,
+                    nu: Sequence) -> None:
+    """A snapshot's Adam state, copied into the optimizer's moments (their
+    addresses stay: a captured BA call reads them)."""
+    opt.count = count
+    for dst, src in zip(opt.exp_avg + opt.exp_avg_sq, [*mu, *nu]):
         if count > 0:
-            opt.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(np.array(m)).to(p.device),
-                "exp_avg_sq": torch.from_numpy(np.array(v)).to(p.device)}
+            _copy_into(dst, src)
+        else:
+            dst.zero_()
 
 
 def _copy_into(dst: torch.Tensor, src) -> None:
@@ -444,18 +464,19 @@ class Mapper:
         for p in self._all_params():
             p.requires_grad_(True)
         self.embed_opt = EmbedAdam(self._groups["table"], m.lr_embed)
-        self.decoder_opt = torch.optim.Adam(
-            self._groups["decoder"], lr=m.lr_decoder, betas=(0.9, 0.99),
-            eps=1e-8, weight_decay=1e-6)
-        self.uncert_opt = (torch.optim.Adam(
-            self._groups["uncert"], lr=m.lr_uncert, betas=(0.9, 0.99),
-            eps=1e-8) if self.spec.uncert_grid else None)
+        self.decoder_opt = Adam(self._groups["decoder"], m.lr_decoder,
+                                (0.9, 0.99), 1e-8, weight_decay=1e-6)
+        self.uncert_opt = (Adam(self._groups["uncert"], m.lr_uncert,
+                                (0.9, 0.99), 1e-8)
+                           if self.spec.uncert_grid else None)
         self.uncert_accum = (torch.zeros_like(self.params["uncert_grid"])
                              if self.spec.uncert_grid else None)
 
         self.kf = KeyframeDB(self.num_kf, self.rays_per_kf, dev)
         self.poses = torch.eye(4, device=dev).repeat(num_frames + 1, 1, 1)
         self.uncert_vol = torch.zeros(self.vol_shape, device=dev)
+        self._ba_poses = (BAPoses(self.num_kf, num_frames + 1, m, dev)
+                          if self.track_enabled else None)
         self.step = 0
         # per-iteration losses (device scalars) of the last mapping call
         self.last_aux: List[Dict] = []
@@ -474,9 +495,24 @@ class Mapper:
         self._sharded_vol = (sharded_volume_query(self.mesh, self.spec)
                              if par.shard_volumes and self.mesh is not None
                              else None)
+        # the BA call as one captured CUDA graph per cur_cap bucket on a
+        # card in one process; the eager loop on the CPU and over ranks
+        self._ba_graphs = (BAGraphs(self) if dev.type == "cuda"
+                           and self._ba_mesh is None else None)
 
     def _all_params(self) -> List[torch.Tensor]:
         return [p for g in self._groups.values() for p in g]
+
+    def _ba_state(self) -> List[torch.Tensor]:
+        """The tensors a BA call steps: the field, the optimizers' moments
+        and the uncertainty gradient sum (the pose variables are set anew
+        at every call)."""
+        out = (self._all_params() + self.embed_opt.mu + self.embed_opt.nu
+               + self.decoder_opt.exp_avg + self.decoder_opt.exp_avg_sq)
+        if self.uncert_opt is not None:
+            out += (self.uncert_opt.exp_avg + self.uncert_opt.exp_avg_sq
+                    + [self.uncert_accum])
+        return out
 
     def update_step(self, step: int) -> None:
         self.step = step
@@ -566,13 +602,13 @@ class Mapper:
         return aux, grads
 
     @torch.no_grad()
-    def _apply_map_update(self, grads: Dict) -> None:
-        for p, g in zip(self._groups["decoder"], grads["decoder"]):
-            p.grad = g
-        self.decoder_opt.step()
-        for p in self._groups["decoder"]:
-            p.grad = None
-        self.embed_opt.step(self._groups["table"], grads["table"])
+    def _apply_map_update(self, grads: Dict, scal: torch.Tensor) -> None:
+        """The decoder's and the table's Adam steps; scal: the iteration's
+        row of optimizer scalars."""
+        self.decoder_opt.step(grads["decoder"], scal[SC_DECODER],
+                              scal[SC_DECODER + 1])
+        self.embed_opt.step(self._groups["table"], grads["table"],
+                            scal[SC_EMBED], scal[SC_EMBED + 1])
 
     @torch.no_grad()
     def _accum_uncert(self, grads: Dict) -> None:
@@ -580,14 +616,44 @@ class Mapper:
             self.uncert_accum += grads["uncert"][0]
 
     @torch.no_grad()
-    def _apply_uncert_update(self) -> None:
+    def _apply_uncert_update(self, scal: torch.Tensor) -> None:
         if not self.spec.uncert_grid:
             return
-        grid = self.params["uncert_grid"]
-        grid.grad = self.uncert_accum
-        self.uncert_opt.step()
-        grid.grad = None
-        self.uncert_accum = torch.zeros_like(grid)
+        self.uncert_opt.step([self.uncert_accum], scal[SC_UNCERT],
+                             scal[SC_UNCERT + 1])
+        self.uncert_accum.zero_()
+
+    def _scalars(self, iters: int, uncert_at, pose_at=()) -> torch.Tensor:
+        """The optimizer scalars of a call of `iters` iterations, from the
+        optimizers' counts now: the table and decoder step every
+        iteration, the uncertainty grid at the iterations `uncert_at`, the
+        pose Adam (fresh each call) at `pose_at`. [iters, N_SCALARS] on
+        the device, copied from pinned memory without a wait on a card."""
+        rows = np.zeros((iters, N_SCALARS), np.float64)
+        n_unc = n_pose = 0
+        for it in range(iters):
+            rows[it, SC_EMBED:SC_EMBED + 2] = EmbedAdam.scalars(
+                self.embed_opt.count + it + 1)
+            rows[it, SC_DECODER:SC_DECODER + 2] = self.decoder_opt.scalars(
+                self.decoder_opt.count + it + 1)
+            if it in uncert_at and self.uncert_opt is not None:
+                n_unc += 1
+                rows[it, SC_UNCERT:SC_UNCERT + 2] = self.uncert_opt.scalars(
+                    self.uncert_opt.count + n_unc)
+            if it in pose_at:
+                n_pose += 1
+                rows[it, SC_POSE:SC_POSE + 3] = self._ba_poses.scalars(n_pose)
+        host = torch.from_numpy(rows.astype(np.float32))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def _advance_counts(self, iters: int, uncert_steps: int) -> None:
+        """The optimizers' host counts after a call's steps."""
+        self.embed_opt.count += iters
+        self.decoder_opt.count += iters
+        if self.uncert_opt is not None:
+            self.uncert_opt.count += uncert_steps
 
     # -------------------------------------------------- first-frame mapping
     def _draw_importance(self, n: int) -> Optional[torch.Tensor]:
@@ -614,16 +680,21 @@ class Mapper:
         self.poses[0] = c2w
         pose = c2w.expand(n, 4, 4)
         mask = torch.ones((n,), device=self.device)
+        draws = list(draws)
+        iters = max(len(draws), 1)
+        # the uncertainty grid steps once, after the last iteration
+        scal = self._scalars(iters, {iters - 1})
         auxes = []
-        for d in draws:
+        for it, d in enumerate(draws):
             rays_o, rays_d, rgb, dep = _transform_rays(frame_rays[d.idx],
                                                        pose)
             aux, grads = self._grad_fn(rays_o, rays_d, rgb, dep, mask,
                                        d.z_noise, importance_u=d.importance_u)
-            self._apply_map_update(grads)
+            self._apply_map_update(grads, scal[it])
             self._accum_uncert(grads)
             auxes.append(aux)
-        self._apply_uncert_update()
+        self._apply_uncert_update(scal[iters - 1])
+        self._advance_counts(len(draws), 1)
         return auxes
 
     # ------------------------------------------------------------ global BA
@@ -636,8 +707,25 @@ class Mapper:
         return m.min_pixels_cur * (m.act_ray_oversample_mul if m.active_ray
                                    else 1)
 
-    def _ba_setup(self, cur_cap: int, frame_rays, c2w,
-                  frame_id: int) -> BASetup:
+    def _ba_steps(self) -> tuple:
+        """The iterations of a BA call at which the uncertainty grid and
+        the poses step."""
+        m = self.cfg.mapper
+        uncert = {it for it in range(m.iters)
+                  if self.spec.uncert_grid
+                  and (it + 1) % m.uncert_accum_iters == 0}
+        pose = ({it for it in range(m.iters)
+                 if (it + 1) % m.pose_accum_step == 0}
+                if self.track_enabled else set())
+        return uncert, pose
+
+    def _ba_inputs(self, cur_cap: int, frame_rays, c2w,
+                   frame_id: int) -> BASetup:
+        """A BA call's inputs, made on the host and enqueued: the current
+        pose written into the pose table, the valid pixels (one wait for
+        the device: their count bounds the current-ray draws), the host
+        integers and the optimizer scalars. The pose variables are not
+        set."""
         self.poses[frame_id] = c2w
         depth = frame_rays[:, 6]
         valid = (depth > 0.0) & (depth <= self.lw.depth_trunc)
@@ -645,10 +733,20 @@ class Mapper:
         valid_order = torch.argsort((~valid).to(torch.uint8), stable=True)
         num_cur = min(max(self._n_os() // max(self.kf.count, 1),
                           self._min_cur()), cur_cap)
-        pose = (BAPoses(self.poses, c2w, self.num_kf, self.kf.count,
-                        self.cfg.mapper) if self.track_enabled else None)
         return BASetup(cur_cap, frame_rays, c2w, valid_order, n_valid,
-                       min(max(num_cur, 0), n_valid), pose)
+                       min(max(num_cur, 0), n_valid),
+                       self._scalars(self.cfg.mapper.iters,
+                                     *self._ba_steps()),
+                       self.kf.count, self._ba_poses)
+
+    def _ba_setup(self, cur_cap: int, frame_rays, c2w,
+                  frame_id: int) -> BASetup:
+        """The eager BA call's setup: its inputs, and the pose variables
+        set for the call."""
+        setup = self._ba_inputs(cur_cap, frame_rays, c2w, frame_id)
+        if setup.pose is not None:
+            setup.pose.begin(self.poses, c2w, self.kf.count)
+        return setup
 
     def _ba_n_rays(self, cur_cap: int) -> int:
         m = self.cfg.mapper
@@ -734,8 +832,10 @@ class Mapper:
         return (*(cat(a, b) for a, b in zip(g, c)), mask)
 
     def _ba_iteration(self, setup: BASetup, draws: BADraws, it: int):
-        """One BA iteration: batch, loss, gradients, Adam steps.
-        Returns (aux, grads)."""
+        """One BA iteration: batch, loss, gradients, Adam steps with the
+        scalars of row `it` of setup.scalars. Returns (aux, grads). The
+        optimizers' host counts are the call's to advance
+        (_advance_counts), not the iteration's."""
         m = self.cfg.mapper
         batch = self._ba_batch(setup, draws)
         smooth = (draws.smooth_offset, draws.smooth_jitter,
@@ -755,27 +855,51 @@ class Mapper:
             *batch, draws.z_noise, smooth, scale,
             importance_u=draws.importance_u,
             pose_leaves=setup.pose.leaves if setup.pose else ())
-        self._apply_map_update(grads)
+        scal = setup.scalars[it]
+        self._apply_map_update(grads, scal)
         self._accum_uncert(grads)
         if self.spec.uncert_grid and (it + 1) % m.uncert_accum_iters == 0:
-            self._apply_uncert_update()
+            self._apply_uncert_update(scal)
         if setup.pose is not None:
             setup.pose.accumulate(grads["pose"])
             if (it + 1) % m.pose_accum_step == 0:
-                setup.pose.step()
+                setup.pose.step(scal)
         return aux, grads
+
+    def _ba_done(self, setup: BASetup, frame_id: int) -> None:
+        """A BA call's end on the host: the optimizers' counts advanced,
+        and with pose optimisation the optimised poses written back."""
+        self._advance_counts(self.cfg.mapper.iters, len(self._ba_steps()[0]))
+        if setup.pose is not None:
+            setup.pose.write_back(self.poses, frame_id)
 
     def _ba_impl(self, cur_cap: int, frame_rays, c2w, frame_id: int,
                  draws: Optional[Sequence[BADraws]] = None) -> List[Dict]:
-        """One global-BA mapping step; returns each iteration's losses.
-        With pose optimisation the optimised poses are written back."""
+        """One global-BA mapping step (`draws`: each iteration's, or None
+        for the generators'); returns each iteration's losses. With pose
+        optimisation the optimised poses are written back. On a card in
+        one process the call is the bucket's captured graph
+        (mapping/ba_graph.py: enqueued, not waited for; the losses are a
+        copy, valid once the device reaches them); on the CPU and with the
+        BA sharded over ranks, the eager loop. The two agree bit for
+        bit."""
+        if self._ba_graphs is None:
+            return self._ba_impl_eager(cur_cap, frame_rays, c2w, frame_id,
+                                       draws)
+        return self._ba_graphs(cur_cap, frame_rays, c2w, frame_id, draws)
+
+    def _ba_impl_eager(self, cur_cap: int, frame_rays, c2w, frame_id: int,
+                       draws: Optional[Sequence[BADraws]] = None
+                       ) -> List[Dict]:
+        """The eager BA call: one Python iteration after another, each
+        drawing its own draws. The form of the CPU and of the sharded BA;
+        on a card, what the captured graph is held against."""
         setup = self._ba_setup(cur_cap, frame_rays, c2w, frame_id)
         auxes = []
         for it in range(self.cfg.mapper.iters):
             d = draws[it] if draws is not None else self._draw_ba(setup)
             auxes.append(self._ba_iteration(setup, d, it)[0])
-        if setup.pose is not None:
-            setup.pose.write_back(self.poses, frame_id)
+        self._ba_done(setup, frame_id)
         return auxes
 
     # ------------------------------------------------------------ tracking
@@ -851,11 +975,13 @@ class Mapper:
                 sdf.reshape(self.vol_shape))
 
     def map_volumes(self):
-        """(uncert_vol, sdf_vol) device tensors; refreshes the cached
-        uncertainty volume the active-ray selection reads."""
+        """(uncert_vol, sdf_vol) device tensors. uncert_vol is the mapper's
+        own, which the active-ray selection reads, refreshed in place (a
+        captured BA call reads it at a fixed address): the next call
+        rewrites it, so read it, or its host copy, before then."""
         u, s = self._volumes_impl()
-        self.uncert_vol = u
-        return u, s
+        self.uncert_vol.copy_(u)
+        return self.uncert_vol, s
 
     def get_map_volumes(self):
         return tuple(v.cpu().numpy() for v in self.map_volumes())
@@ -1006,33 +1132,45 @@ class Mapper:
                 + "; ".join(mism))
 
     def load_ckpt(self, path: str) -> None:
-        """Params, poses and step from a save_ckpt file of either package."""
+        """Params, poses and step from a save_ckpt file of either package.
+        The pose table keeps its address (a captured BA call reads it): a
+        shorter table's poses fill its head and identities the rest (a run
+        with a smaller general.num_iter); a longer one is refused."""
         blob, meta = ckpt_io.load_tree(path, self._ckpt_tree())
+        poses = np.asarray(blob["poses"])
+        n = len(self.poses)
+        if poses.ndim != 3 or poses.shape[1:] != (4, 4) or len(poses) > n:
+            raise ValueError(
+                f"checkpoint poses of shape {poses.shape} do not fit this "
+                f"mapper's table of {n} (general.num_iter "
+                f"{self.cfg.general.num_iter}): build it with general."
+                f"num_iter >= {len(poses) - 1}")
         self.load_weights(blob["params"])
-        self.poses = torch.from_numpy(
-            np.asarray(blob["poses"], np.float32)).to(self.device)
+        self.poses[len(poses):] = torch.eye(4, device=self.device)
+        _copy_into(self.poses[:len(poses)], poses)
         self.step = int(meta.get("step", 0))
 
     # ---------------------------------------------------- full-state resume
     def _full_state_tree(self) -> Dict:
         """The mapper's state as the JAX package's MapperState tree (a dict
-        of its fields), under its leaf names: the decoder's torch Adam as
+        of its fields), under its leaf names: the decoder's Adam as
         optax's (add_decayed_weights, scale_by_adam, scale) chain state,
         the table's EmbedAdam as EmbedAdamState, the uncertainty grid's
         Adam as (scale_by_adam, scale); scalars where there is no
         uncertainty grid, as the JAX package keeps them."""
         node = ckpt_io.named_node
         table = self.params["table"]
-        dec = self._groups["decoder"]
         n_sdf = len(self.params["sdf_mlp"])
-        d_count, d_mu, d_nu = _adam_state(self.decoder_opt, dec)
+        d_count = self.decoder_opt.count
+        d_mu, d_nu = self.decoder_opt.exp_avg, self.decoder_opt.exp_avg_sq
 
         def dec_tree(leaves):
             return {"sdf_mlp": leaves[:n_sdf], "color_mlp": leaves[n_sdf:]}
 
         if self.spec.uncert_grid:
-            u_count, (u_mu,), (u_nu,) = _adam_state(self.uncert_opt,
-                                                    self._groups["uncert"])
+            u_count = self.uncert_opt.count
+            (u_mu,), (u_nu,) = (self.uncert_opt.exp_avg,
+                                self.uncert_opt.exp_avg_sq)
             u_accum = self.uncert_accum
         else:
             u_count = 0
@@ -1099,14 +1237,13 @@ class Mapper:
                             table_leaves(emb.mu) + table_leaves(emb.nu)):
             _copy_into(dst, src)
         dec = blob["map_opt_state"]["decoder"][1]
-        _set_adam_state(self.decoder_opt, self._groups["decoder"],
-                        int(dec.count),
+        _set_adam_state(self.decoder_opt, int(dec.count),
                         [*dec.mu["sdf_mlp"], *dec.mu["color_mlp"]],
                         [*dec.nu["sdf_mlp"], *dec.nu["color_mlp"]])
         if self.spec.uncert_grid:
             un = blob["uncert_opt_state"][0]
-            _set_adam_state(self.uncert_opt, self._groups["uncert"],
-                            int(un.count), [un.mu], [un.nu])
+            _set_adam_state(self.uncert_opt, int(un.count), [un.mu],
+                            [un.nu])
             _copy_into(self.uncert_accum, blob["uncert_accum"])
         kf = blob["kf"]
         _copy_into(self.kf.rays, kf.rays)

@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from naruto_tpu_torch.ops import device_const
+
 
 def axis_angle_to_matrix(rot: torch.Tensor) -> torch.Tensor:
     """rot [..., 3] axis-angle -> [..., 3, 3] via Rodrigues.
@@ -58,8 +60,10 @@ def matrix_from_tensor(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """(axis-angle [N, 3], translation [N, 3]) -> [N, 4, 4] c2w."""
     n = rot.shape[0]
     top = torch.cat([axis_angle_to_matrix(rot), trans[:, :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype,
-                          device=rot.device).expand(n, 1, 4)
+    # a cached device constant: a host copy would wait for the device, and
+    # a captured BA call cannot make one
+    bottom = device_const((0.0, 0.0, 0.0, 1.0), rot.dtype,
+                          rot.device).expand(n, 1, 4)
     return torch.cat([top, bottom], dim=1)
 
 

@@ -25,9 +25,16 @@ use (``build()`` compiles all of them at once, one nvcc each) into
 and bound with ctypes. ``launch`` is the one host path of every wrapper:
 one foreign call on the raw handle of the current stream, with a device
 guard only when the tensor's card is not the current one.
+
+Under a CUDA graph capture (``capturing``, mapping/ba_graph.py) a wrapper's
+call records its launch in the graph and runs nothing: the launch is
+counted in the capture's own tally, and every replay of the graph adds that
+tally to ``LAUNCHES`` (``add_launches``), so the counts stay those of
+kernels that ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -77,6 +84,12 @@ LAUNCHES = {"outer_scan_rows": 0, "outer_scan_slots": 0, "gather_rows": 0,
 BUILD_LOG = {src: {"seconds": None, "ptxas": ""} for src in ENTRY_POINTS}
 
 
+# the launches recorded by the capture under way (None: no capture); one
+# per process, not per thread: the backward of a captured call launches
+# from autograd's device thread
+_CAPTURE: dict | None = None
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -84,6 +97,34 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph captures the work inside: every wrapper's launch
+    is counted in the tally this yields, not in LAUNCHES (it runs at the
+    graph's replays, which add the tally with add_launches); the look-back
+    state a wrapper takes must exist already, and the graph's buffers are
+    kept for the process's life (scan_state)."""
+    global _CAPTURE
+    if _CAPTURE is not None:
+        raise RuntimeError("a capture is already under way")
+    _CAPTURE = dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _CAPTURE
+    finally:
+        _CAPTURE = None
+
+
+def is_capturing() -> bool:
+    return _CAPTURE is not None
+
+
+def add_launches(counts: dict) -> None:
+    """A replay of a captured graph launched `counts` (its capture's
+    tally)."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def _library_path(src: str) -> Path:
@@ -159,7 +200,7 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    (LAUNCHES if _CAPTURE is None else _CAPTURE)[name] += 1
 
 
 # As GROUP, HEADER and state_words in csrc/lookback.cuh, which checks the
@@ -168,6 +209,11 @@ _SCAN_GROUP, _SCAN_HEADER = 32, 4
 _SCAN_MIN_CAP, _SCAN_MIN_FLOATS = 16384, 1 << 18
 # (device index, raw stream) -> (zeroed int32 state buffer, tile capacity)
 _SCAN_STATES: dict = {}
+# the keys whose buffer a captured graph launches on, and the buffers of
+# those keys that a larger one replaced: a graph keeps its kernels'
+# addresses, so their memory is never freed
+_CAPTURED_KEYS: set = set()
+_RETIRED: list = []
 
 
 def scan_state(dev: torch.device, tiles: int, nf: int) -> tuple:
@@ -176,17 +222,32 @@ def scan_state(dev: torch.device, tiles: int, nf: int) -> tuple:
     and its capacity in tiles:
     made zeroed (one fill) at the stream's first call and when a call of
     `tiles` tiles of nf floats needs more room; each kernel leaves it ready
-    for the next call itself."""
+    for the next call itself.
+
+    Under a capture the buffer must exist and be large enough: one made
+    there would come from the graph's memory pool, its zero fill would be
+    replayed, and every replay could not share it with the kernels of
+    other graphs on the stream. Run the captured work once on its stream
+    first (mapping/ba_graph.py does)."""
     key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     floats = (tiles + tiles // _SCAN_GROUP) * nf
     buf, cap = _SCAN_STATES.get(key, (None, 0))
     if buf is None or tiles > cap or \
             _SCAN_HEADER + cap + cap // _SCAN_GROUP + 1 + floats > buf.numel():
+        if _CAPTURE is not None:
+            raise RuntimeError(
+                "a kernel's look-back state would be made inside a CUDA "
+                "graph capture; run the captured work once on the capture "
+                "stream first")
+        if key in _CAPTURED_KEYS:
+            _RETIRED.append(buf)
         cap = max(2 * tiles, cap, _SCAN_MIN_CAP)
         words = _SCAN_HEADER + cap + cap // _SCAN_GROUP + 1 + max(
             2 * floats, _SCAN_MIN_FLOATS)
         buf = torch.zeros(words, dtype=torch.int32, device=dev)
         _SCAN_STATES[key] = (buf, cap)
+    if _CAPTURE is not None:
+        _CAPTURED_KEYS.add(key)
     return buf, cap
 
 

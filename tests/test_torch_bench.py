@@ -118,3 +118,14 @@ def test_measure_one_configuration_alone():
     assert set(res) == {"parity", "peak_memory_gib"}
     line = bench.bench_result(res, "host", "host, 0 W")
     assert "turbo" not in line["extra"] and line["value"] > 0
+
+
+def test_measure_eager_row():
+    """With eager=True the parity configuration's eager BA call is a row of
+    its own (Mapper._ba_impl_eager), timed in turns with the parity row."""
+    cfg = make_config("Replica", "office0", num_iter=40, overrides=TINY)
+    res = bench.measure(cfg, n_steps=1, windows=2, settle=0, device="cpu",
+                        turbo=False, eager=True)
+    assert set(res) == {"parity", "eager", "peak_memory_gib"}
+    assert len(res["eager"]["iters_per_sec_windows"]) == 2
+    assert res["eager"]["bucket"] == res["parity"]["bucket"]

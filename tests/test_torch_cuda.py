@@ -1091,3 +1091,250 @@ def test_prefetched_frames_on_card(cuda_device):
         assert color.is_cuda and color.dtype == torch.uint8
         assert torch.equal(color, want[0]) and torch.equal(depth, want[1])
     assert any(float(d.max()) > 0 for _, d in got)
+
+
+# ------------------------------------------------ the BA as a CUDA graph
+GRAPH_BOUND = ((-2.0, 2.0), (-2.0, 2.0), (-2.0, 2.0))
+# the tiny 24x32 mapper of tests/test_torch_ba_graph.py: four BA
+# iterations, the uncertainty grid stepping at the second and fourth
+GRAPH_TINY = {"cam": {"H": 24, "W": 32, "fx": 20.0, "fy": 20.0, "cx": 15.5,
+                      "cy": 11.5, "far": 5.0},
+              "grid": {"n_levels": 4, "hash_size": 12, "voxel_sdf": 0.1},
+              "mapper": {"sample": 64, "iters": 4, "first_iters": 3,
+                         "min_pixels_cur": 4,
+                         "act_ray_num_uncert_sample": 8,
+                         "uncert_accum_iters": 2, "bound": GRAPH_BOUND,
+                         "marching_cubes_bound": GRAPH_BOUND,
+                         "voxel_size": 0.5},
+              "training": {"n_samples_d": 8, "n_range_d": 5,
+                           "smooth_pts": 4}}
+GRAPH_SETTINGS = {
+    "hybrid": {},
+    "vertex": {"grid": {"layout": "vertex", "n_levels": 16,
+                        "n_features_per_level": 2,
+                        "table_dtype": "float32"}},
+    "weights_carry": {"grid": {"sort_carry": "weights"}},
+    "importance": {"training": {"n_importance": 4}},
+    "smooth_sample": {"training": {"smooth_sample": 64}},
+    "pose": {"mapper": {"tracking_enable": True, "pose_accum_step": 2}},
+}
+# buckets of the calls held form against form: a bucket change and back,
+# each bucket's first call (warm-up, capture) and replays
+GRAPH_CALLS = (512, 512, 2048, 512, 2048)
+
+
+def _graph_cfg(name):
+    from naruto_tpu_torch.config import make_config
+
+    over = {k: {**v, **GRAPH_SETTINGS[name].get(k, {})}
+            for k, v in GRAPH_TINY.items()}
+    return make_config("Replica", "office0", num_iter=40, overrides=over)
+
+
+def _graph_frame(seed):
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(0.5, 3.0, (24, 32)).astype(np.float32)
+    depth[:3] = 0.0
+    return rng.uniform(0, 1, (24, 32, 3)).astype(np.float32), depth
+
+
+def _graph_pose(i):
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.02 * i, -0.01 * i, 0.0]
+    return c2w
+
+
+def _graph_mapper(cfg, dev):
+    """A card mapper after its first frame, three keyframes and a volume
+    query."""
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    m = Mapper(cfg, device=dev)
+    m.update_step(0)
+    m.online_recon_step(0, *_graph_frame(0), _graph_pose(0))
+    for s in (5, 10):
+        m.poses[s] = torch.from_numpy(_graph_pose(s)).to(dev)
+        m.add_keyframe(m.frame_to_rays(*_graph_frame(s)), s)
+    m.map_volumes()
+    return m
+
+
+def _graph_state(m) -> dict:
+    from naruto_tpu_torch.utils import ckpt_io
+    from naruto_tpu_torch.utils.seeding import generator_states
+
+    torch.cuda.synchronize()
+    out = {k: ckpt_io._to_numpy(x)
+           for k, x in ckpt_io.flatten_with_keys(m._full_state_tree())}
+    out.update({f"generator {k}": v
+                for k, v in generator_states(m.gens).items()})
+    return out
+
+
+def _assert_graph_equal(got_aux, want_aux, got_m, want_m, what):
+    assert [list(a) for a in got_aux] == [list(a) for a in want_aux], what
+    for a, b in zip(got_aux, want_aux):
+        for k in a:
+            assert torch.equal(a[k], b[k]), (what, k)
+    got, want = _graph_state(got_m), _graph_state(want_m)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{what} {k}")
+
+
+def _graph_call(m, eager: bool, bucket: int, k: int):
+    fid = 15 + k
+    fr = m.frame_to_rays(*_graph_frame(fid))
+    c2w = torch.from_numpy(_graph_pose(fid)).to(m.device)
+    call = m._ba_impl_eager if eager else m._ba_impl
+    return call(bucket, fr, c2w, fid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_SETTINGS))
+def test_ba_graph_equals_eager_on_card(cuda_device, name):
+    """Mapper._ba_impl on the card replays one captured graph per bucket,
+    and every call of GRAPH_CALLS (the first, which warms every bucket up,
+    each bucket's first, which captures, and the others, across bucket
+    changes) equals the eager loop's call from the same state bit for bit:
+    every state leaf, the generators, the poses written back and every
+    loss. Every call is one replay."""
+    from naruto_tpu_torch.mapping.mapper import CUR_BUCKETS
+
+    cfg = _graph_cfg(name)
+    graph = _graph_mapper(cfg, cuda_device)
+    eager = _graph_mapper(cfg, cuda_device)
+    graphs = graph._ba_graphs
+    assert graphs is not None and eager._ba_graphs is not None
+    for k, bucket in enumerate(GRAPH_CALLS):
+        got = _graph_call(graph, False, bucket, k)
+        want = _graph_call(eager, True, bucket, k)
+        _assert_graph_equal(got, want, graph, eager, f"call {k}")
+    assert sorted(graphs.programs) == sorted(CUR_BUCKETS)
+    assert sorted(b for b, p in graphs.programs.items()
+                  if p.graph is not None) == [512, 2048]
+    assert (graphs.calls, graphs.replays) == (len(GRAPH_CALLS),
+                                              len(GRAPH_CALLS))
+
+
+@pytest.mark.cuda
+def test_ba_graph_replays_after_load_full_state(cuda_device, tmp_path):
+    """A replay after load_full_state reads the loaded state (the load
+    writes into the addresses the graph holds): it equals an eager call on
+    another mapper loaded from the same snapshot."""
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    cfg = _graph_cfg("pose")
+    graph = _graph_mapper(cfg, cuda_device)
+    for k in range(2):
+        _graph_call(graph, False, 512, k)      # captured, then replayed
+    src = _graph_mapper(cfg, cuda_device)
+    _graph_call(src, True, 2048, 7)
+    path = str(tmp_path / "state.pkl")
+    src.save_full_state(path)
+    eager = Mapper(cfg, device=cuda_device)
+    graph.load_full_state(path)
+    eager.load_full_state(path)
+    replays = graph._ba_graphs.replays
+    for k in (3, 4):
+        got = _graph_call(graph, False, 512, k)
+        want = _graph_call(eager, True, 512, k)
+        _assert_graph_equal(got, want, graph, eager, f"call {k}")
+    assert graph._ba_graphs.replays == replays + 2
+
+
+@pytest.mark.cuda
+def test_ba_graph_launch_accounting(cuda_device):
+    """The warm-up's iterations launch what the eager call's do, a capture
+    launches nothing it counts, and each replay adds the launches its
+    capture recorded, per iteration, which are the eager call's; one graph
+    launch a call."""
+    from naruto_tpu_torch.mapping.mapper import CUR_BUCKETS
+    from naruto_tpu_torch.ops import kernels
+
+    cfg = _graph_cfg("hybrid")
+    iters = cfg.mapper.iters
+    graph = _graph_mapper(cfg, cuda_device)
+    eager = _graph_mapper(cfg, cuda_device)
+    kernels.reset_launch_counts()
+    _graph_call(eager, True, 512, 0)
+    torch.cuda.synchronize()
+    eager_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    _graph_call(graph, False, 512, 0)      # warm-up, capture, one replay
+    assert kernels.launch_counts() == {
+        k: n * (len(CUR_BUCKETS) + 1) for k, n in eager_counts.items()}
+    assert graph._ba_graphs.replays == 1
+    prog = graph._ba_graphs.programs[512]
+    per_iter = {k: n // iters for k, n in eager_counts.items()}
+    assert prog.launches_per_iter == [per_iter] * iters
+    assert per_iter == {"outer_scan_slots": 1, "outer_scan_rows": 0,
+                        "gather_rows": 4, "row_cumsum": 0,
+                        "sorted_segment_sum": 1}
+    for k in (1, 2):
+        kernels.reset_launch_counts()
+        replays = graph._ba_graphs.replays
+        _graph_call(graph, False, 512, k)
+        assert graph._ba_graphs.replays == replays + 1
+        assert kernels.launch_counts() == eager_counts
+
+
+@pytest.mark.cuda
+def test_ba_graph_failed_capture_raises(cuda_device):
+    """A capture that fails raises, and the bucket's later calls raise too,
+    without running the call eagerly: the state and the generators stay as
+    they were."""
+    from naruto_tpu_torch.ops import kernels
+
+    m = _graph_mapper(_graph_cfg("hybrid"), cuda_device)
+    before = _graph_state(m)
+    batch = m._ba_batch
+
+    def refuses_capture(setup, draws):
+        if kernels.is_capturing():
+            raise RuntimeError("refused inside the capture")
+        return batch(setup, draws)
+
+    m._ba_batch = refuses_capture
+    with pytest.raises(RuntimeError, match="refused inside the capture"):
+        _graph_call(m, False, 512, 0)
+    with pytest.raises(RuntimeError, match="failed to capture"):
+        _graph_call(m, False, 512, 1)
+    after = _graph_state(m)
+    # the calls wrote their poses into the table; nothing else moved
+    after["['poses']"][15:17] = before["['poses']"][15:17]
+    for k in before:
+        np.testing.assert_array_equal(after[k], before[k], err_msg=k)
+    assert m._ba_graphs.replays == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [1e-6, 0.0], ids=["decoder", "uncert"])
+def test_adam_equals_torch_adam_on_card(cuda_device, wd):
+    """The mapper's Adam with device-scalar corrections equals
+    torch.optim.Adam's update on the card (its multi-tensor form, whose
+    addcdiv fuses the product and the sum) bit for bit over 50 steps, at
+    the decoder's and the uncertainty grid's shapes."""
+    from naruto_tpu_torch.mapping.optim import Adam
+
+    rng = np.random.default_rng(5)
+    shapes = [(63, 32), (32, 16), (31, 32), (32, 3), (49, 56, 35)]
+    init = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(cuda_device) for s in shapes]
+    ref = [p.clone().requires_grad_(True) for p in init]
+    got = [p.clone() for p in init]
+    torch_adam = torch.optim.Adam(ref, lr=1e-2, betas=(0.9, 0.99), eps=1e-8,
+                                  weight_decay=wd)
+    ours = Adam(got, 1e-2, (0.9, 0.99), 1e-8, wd)
+    for count in range(1, 51):
+        grads = [torch.from_numpy((rng.standard_normal(s) * 10.0
+                                   ** rng.uniform(-6, 1)).astype(np.float32))
+                 .to(cuda_device) for s in shapes]
+        for p, g in zip(ref, grads):
+            p.grad = g.clone()
+        torch_adam.step()
+        scal = torch.tensor(ours.scalars(count), dtype=torch.float64).to(
+            torch.float32).to(cuda_device)
+        ours.step(grads, scal[0], scal[1])
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b.detach()), count

@@ -144,6 +144,47 @@ def test_timer_matches_jax():
     assert "[Mapper]" in summaries[0]
 
 
+@pytest.mark.parametrize("num_iter", [300, 3000])
+def test_evaluate_cli_reads_a_cut_runs_checkpoint(num_iter, tmp_path):
+    """evaluate --ckpt on the checkpoint of a run whose general.num_iter is
+    not the preset's (`run --num_iter N`), its pose table shorter (300) or
+    longer (3000) than the preset's: the trajectory of the checkpoint's
+    poses up to its step and the MAD of its field."""
+    from naruto_tpu.mesh.ply import write_ply
+    from naruto_tpu_torch import evaluate as tcli
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.mapping.mapper import Mapper
+
+    src = Mapper(make_config("Replica", "office0", num_iter=num_iter),
+                 device="cpu")
+    preset = Mapper(make_config("Replica", "office0"), device="cpu")
+    assert len(src.poses) != len(preset.poses)
+    for i in range(1, 6):
+        src.poses[i, :3, 3] = torch.tensor([0.1 * i, 0.02 * i, 0.0])
+    with torch.no_grad():
+        src.params["sdf_mlp"][0].add_(0.25)
+    src.step = 5
+    ckpt = str(tmp_path / "ckpt.pkl")
+    src.save_ckpt(ckpt)
+    v, f = sphere_mesh()
+    rec, gt = str(tmp_path / "rec.ply"), str(tmp_path / "gt.ply")
+    write_ply(rec, v, f)
+    write_ply(gt, v, f)
+    out = tmp_path / "t.txt"
+    tcli.main(["--rec", rec, "--gt", gt, "--ckpt", ckpt, "--n_samples",
+               "2000", "--out", str(out), "--device", "cpu"])
+    row = dict(zip(*[ln.split(",") for ln in
+                     out.read_text().strip().splitlines()[-2:]]))
+    want_traj = teval.eval_traj_length(src.poses[:6].numpy())
+    want_mad = teval.eval_mad(src, v, f, n_samples=2000)
+    assert want_traj > 0.5
+    np.testing.assert_allclose(float(row["traj_length_m"]), want_traj,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(row["mad_cm"]), want_mad, rtol=1e-5)
+    assert float(row["mad_cm"]) != pytest.approx(
+        teval.eval_mad(preset, v, f, n_samples=2000), rel=1e-3)
+
+
 def test_evaluate_cli(tmp_path):
     """The port's evaluate CLI on the host (--device cpu): the JAX CLI's row
     for the same meshes and no checkpoint."""
