@@ -1,0 +1,16 @@
+"""The cell rows' hash backward (outer_scan_slots): its bytes (work.py) at
+the HBM peak over its device time a launch in the traced segment, %.
+Nothing where the trace shows no such kernel."""
+import tracing
+import work
+
+
+def read(run):
+    if run.trace is None or run.kind != "map":
+        return None
+    nbytes = work.site_bytes(run.cfg, run.bucket).get("outer_scan_slots")
+    seen = tracing.kernel_time(run.trace, "outer_scan_kernel")
+    if nbytes is None or seen is None or seen[1] <= 0:
+        return None
+    n, s = seen
+    return 100.0 * (nbytes / work.PEAK_BYTES_S) / (s / n)
