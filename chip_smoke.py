@@ -724,6 +724,16 @@ def check_ba_launches(per_iter: list, want=None, what="BA") -> None:
              f"{wrong[0][1]}")
 
 
+def graph_totals() -> tuple:
+    """(BA calls, graph replays) of every bucket since the counts were
+    reset (mapping/ba_graph.py GRAPH_COUNTS)."""
+    from naruto_tpu_torch.mapping import ba_graph
+
+    counts = ba_graph.graph_counts().values()
+    return (sum(c["calls"] for c in counts),
+            sum(c["replays"] for c in counts))
+
+
 def run_slice(torch, kernels, profile_dir) -> dict:
     import numpy as np
 
@@ -746,7 +756,10 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     losses = []
     first_color = first_depth = None
 
+    from naruto_tpu_torch.mapping import ba_graph
+
     kernels.reset_launch_counts()
+    ba_graph.reset_graph_counts()
     iters_run = 0
     torch.cuda.synchronize()
     t_all = time.perf_counter()
@@ -835,11 +848,11 @@ def run_slice(torch, kernels, profile_dir) -> dict:
              f"{len(warm_ups)} of the warm-up")
     check_ba_launches(per_iter)
     check_ba_launches(warm_ups, what="warm-up")
-    graphs = mapper._ba_graphs
+    calls, replays = graph_totals()
     log(f"[slice] every one of {len(per_iter)} BA iterations and of the "
         f"{len(warm_ups)} warm-up iterations launched "
         f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
-        f"{graphs.replays} graph launches in {graphs.calls} BA calls")
+        f"{replays} graph launches in {calls} BA calls")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1009,7 +1022,7 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
     forms = {"graph": (graph, graph._ba_impl),
              "eager": (eager, eager._ba_impl_eager)}
     host = {f: [] for f in forms}
-    calls0, replays0 = graphs.calls, graphs.replays
+    calls0, replays0 = graph_totals()
     kernels.reset_launch_counts()
     for k, bucket in enumerate(GRAPH_CALLS):
         order = list(forms) if k % 2 == 0 else list(forms)[::-1]
@@ -1038,11 +1051,11 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
             fail(f"phase 15: call {k} (bucket {bucket}): the graph and the "
                  f"eager call differ in {bad[:8]}")
     n_calls = len(GRAPH_CALLS)
-    replays = graphs.replays - replays0
+    calls, replays = graph_totals()
     log(f"[graph] {n_calls} BA calls in each form, in turns (buckets "
         f"{GRAPH_CALLS}): after every call the two mappers equal bit for "
         f"bit (every full-state leaf, the generators, every loss); "
-        f"{replays} graph launches in {graphs.calls - calls0} calls")
+        f"{replays - replays0} graph launches in {calls - calls0} calls")
     check_ba_launches(per_iter[n_iter0:])
     want_iters = 2 * n_calls * graph.cfg.mapper.iters
     if len(per_iter) - n_iter0 != want_iters:

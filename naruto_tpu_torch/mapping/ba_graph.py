@@ -37,7 +37,17 @@ later call is one graph launch:
     the buckets' programs.
   * Launch accounting: the capture counts each iteration's kernel launches
     apart (ops/kernels.py ``capturing``), and each replay adds them to the
-    counts of launches that ran.
+    counts of launches that ran. ``GRAPH_COUNTS`` counts the calls, the
+    replays, the captures and the warm-up runs of each bucket.
+  * Tracing: a call is a ``ba.call`` span (utils/timer.py) whose children
+    are its phases on the host: ``ba.warm_up`` and ``ba.capture`` where
+    they happen, ``ba.inputs`` (with ``ba.wait``, the call's one wait for
+    the device), ``ba.draws``, ``ba.load`` (the static-buffer copies),
+    ``ba.launch``, ``ba.outputs`` and ``ba.done``. Every host wait on the
+    call's path is a ``ba.wait``. Inside the graph, timing events mark the
+    call's start and the end of each iteration's stages (``sample``,
+    ``forward``, ``backward``, ``step``): 1 + 4 x iters event nodes, whose
+    device times ``SPANS.stage_ms()`` reads after a replay.
   * The losses: one flat tensor of every iteration's aux values, which
     each replay rewrites; a call returns dicts of views into a copy of it.
 
@@ -51,11 +61,29 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from naruto_tpu_torch.ops import kernels
+from naruto_tpu_torch.utils.timer import SPANS, span, stage
 
 # the stream every mapper's warm-ups and captures run on, one per device:
 # the look-back state and the library workspaces of a stream are made at
 # its first use and kept, so the process makes them once
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+# per cur_cap bucket: BA calls, graph replays, captures and warm-up runs
+GRAPH_COUNTS: Dict[int, Dict[str, int]] = {}
+
+
+def _count(bucket: int, what: str) -> None:
+    GRAPH_COUNTS.setdefault(bucket, dict.fromkeys(
+        ("calls", "replays", "captures", "warm_ups"), 0))[what] += 1
+
+
+def reset_graph_counts() -> None:
+    GRAPH_COUNTS.clear()
+
+
+def graph_counts() -> Dict[int, Dict[str, int]]:
+    return {b: dict(c) for b, c in GRAPH_COUNTS.items()}
 
 
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
@@ -82,6 +110,8 @@ class _Program:
         self.failed: Optional[str] = None
         # kernel launches of each captured iteration
         self.launches_per_iter: List[Dict[str, int]] = []
+        # the (stage, CUDA event) marks the graph records
+        self.stages: List = []
         self._keys: List[List[str]] = []
         self._flat: Optional[torch.Tensor] = None
 
@@ -97,6 +127,7 @@ class _Program:
         from naruto_tpu_torch.mapping.mapper import BADraws
 
         m, st = self.mapper, self.setup
+        stage("start")
         if st.pose is not None:
             st.pose.begin(m.poses, st.c2w, st.kf_count)
         auxes = []
@@ -110,8 +141,11 @@ class _Program:
     def capture(self, pool, stream: torch.cuda.Stream) -> None:
         graph = torch.cuda.CUDAGraph()
         marks: List[Dict[str, int]] = []
+        with span("ba.wait"):
+            torch.cuda.synchronize()      # torch.cuda.graph's own wait
         try:
-            with kernels.capturing() as tally:
+            with kernels.capturing() as tally, \
+                    SPANS.stage_events() as stages:
                 # thread_local: the frame prefetcher's thread may copy and
                 # allocate pinned memory meanwhile
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -129,17 +163,21 @@ class _Program:
             self.launches_per_iter.append(
                 {k: mark[k] - before[k] for k in mark})
             before = mark
+        self.stages = stages
         self.graph = graph
 
     def replay(self) -> List[Dict]:
-        self.graph.replay()
-        for counts in self.launches_per_iter:
-            kernels.add_launches(counts)
-        values = self._flat.clone()
-        out, i = [], 0
-        for keys in self._keys:
-            out.append({k: values[i + j] for j, k in enumerate(keys)})
-            i += len(keys)
+        with span("ba.launch"):
+            self.graph.replay()
+            for counts in self.launches_per_iter:
+                kernels.add_launches(counts)
+            SPANS.replayed = self.stages
+        with span("ba.outputs"):
+            values = self._flat.clone()
+            out, i = [], 0
+            for keys in self._keys:
+                out.append({k: values[i + j] for j, k in enumerate(keys)})
+                i += len(keys)
         return out
 
 
@@ -157,8 +195,6 @@ class BAGraphs:
         self.inputs = None    # the static BASetup every program reads
         self.pool = None
         self.stream: Optional[torch.cuda.Stream] = None
-        self.calls = 0        # BA calls made
-        self.replays = 0      # graph launches among them
         self.warming = False  # in the warm-up (uncaptured iterations)
 
     def load(self, cur_cap: int, frame_rays, c2w, frame_id: int,
@@ -171,28 +207,32 @@ class BAGraphs:
         m = self.mapper
         setup = m._ba_inputs(cur_cap, frame_rays, c2w, frame_id)
         if draws is None:
-            draws = [m._draw_ba(setup) for _ in range(m.cfg.mapper.iters)]
-        if self.inputs is None:
-            dev = m.device
-            self.inputs = BASetup(
-                0, torch.empty_like(setup.frame_rays),
-                torch.empty_like(setup.c2w),
-                torch.empty_like(setup.valid_order), 0,
-                torch.zeros((), dtype=torch.int64, device=dev),
-                torch.empty_like(setup.scalars),
-                torch.zeros((), dtype=torch.int64, device=dev), setup.pose)
-        st = self.inputs
-        st.frame_rays.copy_(setup.frame_rays)
-        st.c2w.copy_(setup.c2w)
-        st.valid_order.copy_(setup.valid_order)
-        st.num_cur.fill_(setup.num_cur)
-        st.kf_count.fill_(setup.kf_count)
-        st.scalars.copy_(setup.scalars)
-        prog = self.programs.get(cur_cap)
-        if prog is None:
-            prog = self.programs[cur_cap] = _Program(
-                m, st._replace(cur_cap=cur_cap), draws)
-        prog.load(draws)
+            with span("ba.draws"):
+                draws = [m._draw_ba(setup)
+                         for _ in range(m.cfg.mapper.iters)]
+        with span("ba.load"):
+            if self.inputs is None:
+                dev = m.device
+                self.inputs = BASetup(
+                    0, torch.empty_like(setup.frame_rays),
+                    torch.empty_like(setup.c2w),
+                    torch.empty_like(setup.valid_order), 0,
+                    torch.zeros((), dtype=torch.int64, device=dev),
+                    torch.empty_like(setup.scalars),
+                    torch.zeros((), dtype=torch.int64, device=dev),
+                    setup.pose)
+            st = self.inputs
+            st.frame_rays.copy_(setup.frame_rays)
+            st.c2w.copy_(setup.c2w)
+            st.valid_order.copy_(setup.valid_order)
+            st.num_cur.fill_(setup.num_cur)
+            st.kf_count.fill_(setup.kf_count)
+            st.scalars.copy_(setup.scalars)
+            prog = self.programs.get(cur_cap)
+            if prog is None:
+                prog = self.programs[cur_cap] = _Program(
+                    m, st._replace(cur_cap=cur_cap), draws)
+            prog.load(draws)
         return prog, setup
 
     def warm_up(self, frame_rays, c2w, frame_id: int) -> None:
@@ -216,13 +256,16 @@ class BAGraphs:
 
         m = self.mapper
         state = m._ba_state()
-        saved = [t.detach().to("cpu", copy=True) for t in state]
+        with span("ba.wait"):
+            saved = [t.detach().to("cpu", copy=True) for t in state]
         gens, m.gens = m.gens, make_generators(0, m.device)
         self.warming = True
         try:
+            buckets = sorted(CUR_BUCKETS, reverse=True)
             progs = [self.load(b, frame_rays, c2w, frame_id)[0]
-                     for b in sorted(CUR_BUCKETS, reverse=True)]
-            for prog in progs:
+                     for b in buckets]
+            for b, prog in zip(buckets, progs):
+                _count(b, "warm_ups")
                 if self.stream is None:       # the CPU (the tests)
                     prog.run()
                 else:
@@ -233,36 +276,42 @@ class BAGraphs:
         finally:
             self.warming = False
             m.gens = gens
-            with torch.no_grad():
+            with torch.no_grad(), span("ba.wait"):
                 for t, v in zip(state, saved):
                     t.copy_(v)
 
     def __call__(self, cur_cap: int, frame_rays, c2w, frame_id: int,
                  draws: Optional[Sequence] = None) -> List[Dict]:
         m = self.mapper
-        if self.stream is None:
-            self.pool = torch.cuda.graph_pool_handle()
-            self.stream = capture_stream(m.device)
-            self.warm_up(frame_rays, c2w, frame_id)
-        prog = self.programs.get(cur_cap)
-        if prog is None:
-            raise ValueError(f"cur_cap {cur_cap} is no bucket of "
-                             f"{sorted(self.programs)}")
-        if prog.failed:
-            raise RuntimeError(f"the BA graph of bucket {cur_cap} failed to "
-                               f"capture ({prog.failed}); its calls do not "
-                               f"run eagerly")
-        if prog.graph is None:
-            # before the call's draws: a capture that fails leaves the
-            # generators, as everything else, as they were
-            prog.capture(self.pool, self.stream)
-        prog, setup = self.load(cur_cap, frame_rays, c2w, frame_id, draws)
-        self.calls += 1
-        auxes = self.replay(prog)
-        m._ba_done(setup, frame_id)
-        return auxes
+        with span("ba.call", cur_cap, call=True):
+            _count(cur_cap, "calls")
+            if not self.programs:
+                self.pool = torch.cuda.graph_pool_handle()
+                self.stream = capture_stream(m.device)
+                with span("ba.warm_up"):
+                    self.warm_up(frame_rays, c2w, frame_id)
+            prog = self.programs.get(cur_cap)
+            if prog is None:
+                raise ValueError(f"cur_cap {cur_cap} is no bucket of "
+                                 f"{sorted(self.programs)}")
+            if prog.failed:
+                raise RuntimeError(f"the BA graph of bucket {cur_cap} failed "
+                                   f"to capture ({prog.failed}); its calls "
+                                   f"do not run eagerly")
+            if prog.graph is None:
+                # before the call's draws: a capture that fails leaves the
+                # generators, as everything else, as they were
+                with span("ba.capture"):
+                    _count(cur_cap, "captures")
+                    prog.capture(self.pool, self.stream)
+            prog, setup = self.load(cur_cap, frame_rays, c2w, frame_id,
+                                    draws)
+            auxes = self.replay(prog)
+            with span("ba.done"):
+                m._ba_done(setup, frame_id)
+            return auxes
 
     def replay(self, prog: _Program) -> List[Dict]:
         """One graph launch: the call on the inputs loaded."""
-        self.replays += 1
+        _count(prog.setup.cur_cap, "replays")
         return prog.replay()

@@ -97,7 +97,7 @@ from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.seeding import (generator_states,
                                             make_generators,
                                             set_generator_states)
-from naruto_tpu_torch.utils.timer import Timer
+from naruto_tpu_torch.utils.timer import Timer, span, stage
 
 # padded current-ray block sizes, as in the JAX package
 CUR_BUCKETS = (512, 2048, 8192)
@@ -723,21 +723,24 @@ class Mapper:
                    frame_id: int) -> BASetup:
         """A BA call's inputs, made on the host and enqueued: the current
         pose written into the pose table, the valid pixels (one wait for
-        the device: their count bounds the current-ray draws), the host
-        integers and the optimizer scalars. The pose variables are not
-        set."""
-        self.poses[frame_id] = c2w
-        depth = frame_rays[:, 6]
-        valid = (depth > 0.0) & (depth <= self.lw.depth_trunc)
-        n_valid = max(int(valid.sum()), 1)
-        valid_order = torch.argsort((~valid).to(torch.uint8), stable=True)
-        num_cur = min(max(self._n_os() // max(self.kf.count, 1),
-                          self._min_cur()), cur_cap)
-        return BASetup(cur_cap, frame_rays, c2w, valid_order, n_valid,
-                       min(max(num_cur, 0), n_valid),
-                       self._scalars(self.cfg.mapper.iters,
-                                     *self._ba_steps()),
-                       self.kf.count, self._ba_poses)
+        the device, the ``ba.wait`` span: their count bounds the
+        current-ray draws), the host integers and the optimizer scalars.
+        The pose variables are not set."""
+        with span("ba.inputs"):
+            self.poses[frame_id] = c2w
+            depth = frame_rays[:, 6]
+            valid = (depth > 0.0) & (depth <= self.lw.depth_trunc)
+            with span("ba.wait"):
+                n_valid = max(int(valid.sum()), 1)
+            valid_order = torch.argsort((~valid).to(torch.uint8),
+                                        stable=True)
+            num_cur = min(max(self._n_os() // max(self.kf.count, 1),
+                              self._min_cur()), cur_cap)
+            return BASetup(cur_cap, frame_rays, c2w, valid_order, n_valid,
+                           min(max(num_cur, 0), n_valid),
+                           self._scalars(self.cfg.mapper.iters,
+                                         *self._ba_steps()),
+                           self.kf.count, self._ba_poses)
 
     def _ba_setup(self, cur_cap: int, frame_rays, c2w,
                   frame_id: int) -> BASetup:
@@ -835,9 +838,12 @@ class Mapper:
         """One BA iteration: batch, loss, gradients, Adam steps with the
         scalars of row `it` of setup.scalars. Returns (aux, grads). The
         optimizers' host counts are the call's to advance
-        (_advance_counts), not the iteration's."""
+        (_advance_counts), not the iteration's. Inside a graph's capture
+        the ends of its stages (sample, forward, backward, step) are timing
+        events (utils/timer.py ``stage``)."""
         m = self.cfg.mapper
         batch = self._ba_batch(setup, draws)
+        stage("sample")
         smooth = (draws.smooth_offset, draws.smooth_jitter,
                   draws.smooth_base, draws.smooth_diffc)
         smooth_every = max(int(self.cfg.training.smooth_every), 1)
@@ -864,6 +870,7 @@ class Mapper:
             setup.pose.accumulate(grads["pose"])
             if (it + 1) % m.pose_accum_step == 0:
                 setup.pose.step(scal)
+        stage("step")
         return aux, grads
 
     def _ba_done(self, setup: BASetup, frame_id: int) -> None:
@@ -894,13 +901,16 @@ class Mapper:
         """The eager BA call: one Python iteration after another, each
         drawing its own draws. The form of the CPU and of the sharded BA;
         on a card, what the captured graph is held against."""
-        setup = self._ba_setup(cur_cap, frame_rays, c2w, frame_id)
-        auxes = []
-        for it in range(self.cfg.mapper.iters):
-            d = draws[it] if draws is not None else self._draw_ba(setup)
-            auxes.append(self._ba_iteration(setup, d, it)[0])
-        self._ba_done(setup, frame_id)
-        return auxes
+        with span("ba.call", cur_cap, call=True):
+            setup = self._ba_setup(cur_cap, frame_rays, c2w, frame_id)
+            auxes = []
+            for it in range(self.cfg.mapper.iters):
+                with span("ba.draws"):
+                    d = (draws[it] if draws is not None
+                         else self._draw_ba(setup))
+                auxes.append(self._ba_iteration(setup, d, it)[0])
+            self._ba_done(setup, frame_id)
+            return auxes
 
     # ------------------------------------------------------------ tracking
     def _draw_track(self) -> TrackDraws:

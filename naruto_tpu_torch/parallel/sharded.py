@@ -31,6 +31,7 @@ from naruto_tpu_torch.mapping.losses import LossWeights, total_loss
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.parallel.mesh import (Mesh, all_reduce, data_sharding,
                                             gather_blocks, pad_to)
+from naruto_tpu_torch.utils.timer import stage
 
 
 def reduce_gradients(grads: Sequence[torch.Tensor], aux: Dict,
@@ -84,8 +85,10 @@ def data_parallel_grads(mesh: Optional[Mesh], loss_fn: Callable,
     if mesh is not None:
         rows = [None if r is None else data_sharding(mesh, r) for r in rows]
     loss, aux = loss_fn(*rows, group=mesh)
+    stage("forward")
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
         wrt, torch.autograd.grad(loss, wrt, allow_unused=True))]
+    stage("backward")
     aux = {k: v.detach() for k, v in aux.items()}
     if mesh is not None:
         grads, aux = reduce_gradients(grads, aux, mesh)

@@ -322,11 +322,20 @@ def test_offline_modes(tmp_path):
 # ---------------------------------------------------------------- profiling
 def test_device_trace_and_time_call(tmp_path):
     """device_trace writes a Chrome trace of the block on the CPU (the
-    card's kernels too where CUDA is); time_call gives a median."""
+    card's kernels too where CUDA is), with the program's spans in it as
+    user annotations around the operators they enclose."""
+    import json
+
+    from naruto_tpu_torch.utils.timer import span
+
     x = torch.randn(64, 64)
     with profiling.device_trace(str(tmp_path)):
-        (x @ x).sum()
+        with span("vis.mm"):
+            (x @ x).sum()
     trace = (tmp_path / "trace.json").read_text()
     assert "traceEvents" in trace and "aten::mm" in trace
-    t = profiling.time_call(torch.mm, x, x, iters=3)
-    assert 0 < t < 1.0
+    events = json.loads(trace)["traceEvents"]
+    (s,) = [e for e in events if e.get("name") == "vis.mm"]
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert s["cat"] == "user_annotation"
+    assert s["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= s["ts"] + s["dur"]
