@@ -195,6 +195,7 @@ phase 14).
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import importlib.abc
 import json
@@ -408,11 +409,22 @@ SHARDED_COLLECTIVES_PER_ITER = {"denominators": 1, "gradients": 1,
                                 "volumes": 0, "checksum": 0}
 SHARDED_TIMEOUT_S = 600
 PROFILED_PLANS = 3         # aggregations traced by the profiler, at most
+# the optimizer steps (csrc/adam.cu), one launch an optimizer step: every
+# BA iteration launches one embed_adam (the table) and one adam (the
+# decoders), and one adam more at each uncertainty-grid step and two at
+# each pose step (opt_rot, opt_trans)
+OPTIM_KERNELS = ("embed_adam", "adam")
+OPTIM_BYTES_PER_PARAM = 28  # p, g, m, v read; p, m, v written (f32)
+OPTIM_WARM_STEPS = 3        # kernel and plain chain from equal states
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+OPTIM_COLD_REPS = 10
 SOURCE = {
     "outer_scan": "naruto_tpu_torch/csrc/outer_cumsum.cu",
     "gather_rows": "naruto_tpu_torch/csrc/gather_rows.cu",
     "sorted_segment_sum": "naruto_tpu_torch/csrc/sorted_segment_sum.cu",
     "row_cumsum": "naruto_tpu_torch/csrc/row_cumsum.cu",
+    "embed_adam": "naruto_tpu_torch/csrc/adam.cu",
+    "adam": "naruto_tpu_torch/csrc/adam.cu",
 }
 REPLACES = {
     "outer_scan": ["naruto_tpu/ops/pallas_kernels.py:57",
@@ -473,11 +485,12 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def queued_ms(torch, fn, reps: int = 5) -> float:
+def queued_ms(torch, fn, reps: int = 5, before=None) -> float:
     """Median device milliseconds of fn() by CUDA events, with the host
     ahead of the device: a spin kernel holds the stream while fn's launches
     are enqueued, so the events time the device's work and not the host's
-    enqueue (fn must not synchronise)."""
+    enqueue (fn must not synchronise). `before()`, if given, is enqueued
+    before each call, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -485,6 +498,8 @@ def queued_ms(torch, fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
+        if before is not None:
+            before()
         a.record()
         fn()
         b.record()
@@ -673,8 +688,10 @@ def count_ba_launches(kernels, mapper, per_iter: list,
         before = kernels.launch_counts()
         out = iteration(setup, draws, it)
         after = kernels.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check_optim_launches(mapper, it, launched)
         (warm_ups if warming else per_iter).append(
-            {k: after[k] - before[k] for k in BA_LAUNCHES_PER_ITER})
+            {k: launched[k] for k in BA_LAUNCHES_PER_ITER})
         return out
 
     mapper._ba_iteration = counted
@@ -690,11 +707,25 @@ def count_ba_launches(kernels, mapper, per_iter: list,
                     for n in counts.values()):
                 fail("a graph replay counted other than its capture's "
                      "launches")
+            for it, counts in enumerate(prog.launches_per_iter):
+                check_optim_launches(mapper, it, counts)
             per_iter.extend({k: counts[k] for k in BA_LAUNCHES_PER_ITER}
                             for counts in prog.launches_per_iter)
             return out
 
         graphs.replay = replayed
+
+
+def check_optim_launches(mapper, it: int, launched: dict) -> None:
+    """Iteration `it` of a BA call of `mapper` launched the table's and the
+    decoders' optimizer steps, and the uncertainty grid's and the pose
+    groups' where the call steps them."""
+    uncert, pose = mapper._ba_steps()
+    want = {"embed_adam": 1, "adam": 1 + (it in uncert) + 2 * (it in pose)}
+    got = {k: launched[k] for k in OPTIM_KERNELS}
+    if got != want:
+        fail(f"BA iteration {it}'s optimizer steps launched {got}, not "
+             f"{want}")
 
 
 def count_track_launches(kernels, mapper, per_iter: list) -> None:
@@ -1568,6 +1599,123 @@ def check_host_costs(torch, kernels, prims, dev) -> dict:
             f"{k2:.2f}), plain {p_us:.2f} us/call ({p1:.2f}, {p2:.2f}); "
             f"{HOST_CALLS} calls enqueued back to back, in turns")
     return res
+
+
+def optimizer_cases(torch, root: str, dev) -> list:
+    """(kernel, what, leaves, lr, betas, eps, weight decay) of the cells'
+    optimizer steps, at office0's field: the tables of the hybrid and the
+    parity grid, the decoders and the uncertainty grid."""
+    import yaml
+
+    from naruto_tpu_torch.config import make_config
+    from naruto_tpu_torch.config.schema import deep_update
+    from naruto_tpu_torch.mapping.field import init_field_params
+    from naruto_tpu_torch.mapping.mapper import (_param_groups,
+                                                 field_spec_from_config)
+    from naruto_tpu_torch.mapping.optim import EMBED_B1, EMBED_B2, EMBED_EPS
+
+    hybrid = make_config("Replica", "office0")
+    with open(os.path.join(root, PARITY_CFG)) as f:
+        parity = deep_update(hybrid, {"grid": yaml.safe_load(f)["grid"]})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    groups = {tag: _param_groups(init_field_params(
+        field_spec_from_config(cfg), gen, dev))
+        for tag, cfg in (("hybrid", hybrid), ("parity", parity))}
+    m = hybrid.mapper
+    embed = ((EMBED_B1, EMBED_B2), EMBED_EPS, 0.0)
+    return [
+        ("embed_adam", "hybrid table", groups["hybrid"]["table"],
+         m.lr_embed, *embed),
+        ("embed_adam", "parity table", groups["parity"]["table"],
+         m.lr_embed, *embed),
+        ("adam", "decoders", groups["hybrid"]["decoder"], m.lr_decoder,
+         (0.9, 0.99), 1e-8, 1e-6),
+        ("adam", "uncertainty grid", groups["hybrid"]["uncert"],
+         m.lr_uncert, (0.9, 0.99), 1e-8, 0.0)]
+
+
+def check_optimizers(torch, root: str, dev) -> dict:
+    """The optimizer kernels (csrc/adam.cu) at the cells' shapes: each
+    kernel and its plain chain step copies of the same leaves with the same
+    gradients OPTIM_WARM_STEPS times, and must leave equal bits
+    (parameters and both moments); then the kernel, the plain chain and
+    torch.optim.Adam(fused=True) (the library's yardstick; the port never
+    calls it) are timed by the profiler's device time, with their device
+    launches a step, and by CUDA events; the kernel and the library also
+    with the L2 cache flushed before each step (the parity table and its
+    moments, 26 MB, stay in L2 when stepped back to back). Returns the
+    cases by kernel."""
+    from naruto_tpu_torch.mapping.optim import Adam, EmbedAdam
+    from naruto_tpu_torch.scripts.trace_summary import device_profile
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {k: [] for k in OPTIM_KERNELS}
+    for kernel, what, leaves, lr, betas, eps, wd in optimizer_cases(
+            torch, root, dev):
+        base = [p.detach().clone() for p in leaves]
+        grads = [torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+                 for p in base]
+        ker, pla = [p.clone() for p in base], [p.clone() for p in base]
+        if kernel == "embed_adam":
+            ko, po = EmbedAdam(ker, lr), EmbedAdam(pla, lr)
+            scal = torch.tensor(EmbedAdam.scalars(OPTIM_WARM_STEPS),
+                                dtype=torch.float64).float().to(dev)
+            ks = functools.partial(ko.step, ker, grads, scal[0], scal[1])
+            ps = functools.partial(po.step_plain, pla, grads, scal[0],
+                                   scal[1])
+            states = (ker + ko.mu + ko.nu, pla + po.mu + po.nu)
+        else:
+            ko = Adam(ker, lr, betas, eps, wd)
+            po = Adam(pla, lr, betas, eps, wd)
+            scal = torch.tensor(ko.scalars(OPTIM_WARM_STEPS),
+                                dtype=torch.float64).float().to(dev)
+            ks = functools.partial(ko.step, grads, scal[0], scal[1])
+            ps = functools.partial(po.step_plain, grads, scal[0], scal[1])
+            states = (ker + ko.exp_avg + ko.exp_avg_sq,
+                      pla + po.exp_avg + po.exp_avg_sq)
+        for _ in range(OPTIM_WARM_STEPS):
+            ks()
+            ps()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*states)):
+            fail(f"{kernel} {what}: the kernel's step differs from the "
+                 f"plain chain's")
+        lib_p = [p.clone().requires_grad_(True) for p in base]
+        for p, g in zip(lib_p, grads):
+            p.grad = g
+        lib = torch.optim.Adam(lib_p, lr=lr, betas=betas, eps=eps,
+                               weight_decay=wd, fused=True)
+        n = sum(p.numel() for p in base)
+        bound_ms, bound_by = bound(OPTIM_BYTES_PER_PARAM * n, 0.0)
+        case = {"what": what, "leaves": [list(p.shape) for p in base],
+                "params": n, "bound_ms": bound_ms, "bound_by": bound_by}
+        line = []
+        for form, fn in (("kernel", ks), ("plain", ps), ("library",
+                                                         lib.step)):
+            ms, launches = device_profile(fn)
+            case[f"{form}_device_ms"] = None if math.isnan(ms) else ms
+            case[f"{form}_launches"] = None if math.isnan(launches) \
+                else launches
+            case[f"{form}_ms"] = cuda_ms(fn, PRIM_REPS)
+            line.append(f"{form} " + ("not measured" if math.isnan(ms)
+                                      else f"{ms:.4f} ms") +
+                        f" ({launches:g} launches; events "
+                        f"{case[form + '_ms']:.4f})")
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+        for form, fn in (("kernel", ks), ("library", lib.step)):
+            case[f"{form}_cold_ms"] = queued_ms(torch, fn, OPTIM_COLD_REPS,
+                                                flush.zero_)
+            line.append(f"{form} L2 flushed {case[form + '_cold_ms']:.4f} "
+                        f"(events)")
+        case["roofline_pct"] = 100 * bound_ms / case["kernel_cold_ms"]
+        log(f"[optim] {kernel} {what} ({len(base)} leaves, {n:,} "
+            f"parameters): equal to the plain chain after "
+            f"{OPTIM_WARM_STEPS} steps; device time " + "; ".join(line)
+            + f"; bound {bound_ms:.5f} ms ({bound_by}, "
+            f"{OPTIM_BYTES_PER_PARAM} B a parameter), "
+            f"{case['roofline_pct']:.1f}% of it L2 flushed")
+        out[kernel].append(case)
+    return out
 
 
 def run_microbenchmarks(torch, kernels) -> dict:
@@ -2986,6 +3134,8 @@ def sharded_rank(mesh, payload) -> dict:
             reset_collective_counts()
             res = iteration(setup, draws, it)
             after = kernels.launch_counts()
+            check_optim_launches(mapper, it, {k: after[k] - before[k]
+                                              for k in OPTIM_KERNELS})
             per_iter.append(({k: after[k] - before[k]
                               for k in BA_LAUNCHES_PER_ITER},
                              collective_counts()))
@@ -3337,6 +3487,7 @@ def main() -> None:
     pres = check_primitives(torch, primitives, dev)
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
+    ores = check_optimizers(torch, root, dev)
     done("5")
     sres = run_slice(torch, kernels, args.profile)
     done("4")
@@ -3431,8 +3582,8 @@ def main() -> None:
                          ("replay", replay),
                          ("raycast_passive", passive_rc), ("vis", vis),
                          ("sharded", sharded)):
-        idle = [k for k in BA_LAUNCHES_PER_ITER
-                if BA_LAUNCHES_PER_ITER[k] and not counts[k]]
+        idle = [k for k in (*BA_LAUNCHES_PER_ITER, *OPTIM_KERNELS)
+                if BA_LAUNCHES_PER_ITER.get(k, 1) and not counts[k]]
         if idle:
             fail(f"the {path} path never launched {idle}")
     runs = (("passive", passive, passive_cases),
@@ -3506,6 +3657,16 @@ def main() -> None:
             entries[-1]["forms"] = pres["forms"] + [
                 c["forms"] for _, _, cases in runs for c in cases[name]
                 if "forms" in c]
+    for name in OPTIM_KERNELS:
+        # every BA iteration steps the table and the decoders
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": [], "launches": on_slice[name],
+            "launches_by_path": {"slice": on_slice[name],
+                                 "graph": on_graph[name],
+                                 **{path: counts[name]
+                                    for path, counts, _ in runs}},
+            "cases": ores[name]})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -56,6 +56,8 @@ never inside a capture; the pose write-back runs after the graph.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -145,7 +147,7 @@ class _Program:
             torch.cuda.synchronize()      # torch.cuda.graph's own wait
         try:
             with kernels.capturing() as tally, \
-                    SPANS.stage_events() as stages:
+                    SPANS.stage_events() as stages, _no_gc():
                 # thread_local: the frame prefetcher's thread may copy and
                 # allocate pinned memory meanwhile
                 with torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -179,6 +181,20 @@ class _Program:
                 out.append({k: values[i + j] for j, k in enumerate(keys)})
                 i += len(keys)
         return out
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """No cyclic garbage collection inside: a collection could destroy a
+    dead mapper's CUDA graph, which a capture under way refuses (the
+    capture then fails)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class BAGraphs:

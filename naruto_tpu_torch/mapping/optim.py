@@ -24,17 +24,27 @@ kernel computes it: on the CPU ``param + (step_size * m) / denom``, on a
 card ``param + step_size * (m / denom)`` with the product and the sum
 rounded once (nvcc fuses them; ``fused_add_``). Both then equal torch's
 Adam bit for bit (tests/test_torch_ba_graph.py on the CPU,
-tests/test_torch_cuda.py on the card), and the eager and the captured BA
-calls, which both take this path, equal each other.
+tests/test_torch_cuda.py on the card).
+
+On a card each ``step`` is one launch of a hand-written kernel over all of
+the optimizer's leaves (``csrc/adam.cu``: ``embed_adam``, ``adam``), which
+rounds every op as the chain above does on the card and reads the
+corrections through their device pointers; the eager and the captured BA
+calls both take it, and equal each other. The chain stays as each
+optimizer's ``step_plain``: the CPU runs it, and the card tests hold the
+kernels against it bit for bit.
 
 Counts are advanced by the caller (``count += n``) after a call: a capture
 must not advance host state that its replays do not.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from naruto_tpu_torch.ops import kernels
 
 EMBED_B1, EMBED_B2, EMBED_EPS = 0.9, 0.99, 1e-15
 
@@ -59,6 +69,18 @@ class EmbedAdam:
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor], bc1: torch.Tensor,
              bc2: torch.Tensor) -> None:
+        if not params[0].is_cuda:
+            self.step_plain(params, grads, bc1, bc2)
+            return
+        _launch_step("embed_adam", kernels.lib("adam").naruto_embed_adam,
+                     params, grads, self.mu, self.nu, bc1, bc2, EMBED_B1,
+                     1.0 - EMBED_B1, EMBED_B2, 1.0 - EMBED_B2, -self.lr,
+                     EMBED_EPS)
+
+    @torch.no_grad()
+    def step_plain(self, params: Sequence[torch.Tensor],
+                   grads: Sequence[torch.Tensor], bc1: torch.Tensor,
+                   bc2: torch.Tensor) -> None:
         for p, m, v, g in zip(params, self.mu, self.nu, grads):
             m.mul_(EMBED_B1).add_(g, alpha=1.0 - EMBED_B1)
             v.mul_(EMBED_B2).addcmul_(g, g, value=1.0 - EMBED_B2)
@@ -94,6 +116,23 @@ class Adam:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], bc2_sqrt: torch.Tensor,
              step_size: torch.Tensor) -> None:
+        if not self.params[0].is_cuda:
+            self.step_plain(grads, bc2_sqrt, step_size)
+            return
+        b1, b2 = self.betas
+        _launch_step("adam", kernels.lib("adam").naruto_adam, self.params,
+                     grads, self.exp_avg, self.exp_avg_sq, bc2_sqrt,
+                     step_size, self.weight_decay, 1 - b1, b2, 1 - b2,
+                     self.eps)
+
+    @torch.no_grad()
+    def step_plain(self, grads: Sequence[torch.Tensor],
+                   bc2_sqrt: torch.Tensor, step_size: torch.Tensor,
+                   card: Optional[bool] = None) -> None:
+        """The foreach chain, its last op in the form of the card's kernel
+        where `card` (by default where the parameters lie)."""
+        if card is None:
+            card = self.params[0].is_cuda
         b1, b2 = self.betas
         grads = list(grads)
         if self.weight_decay:
@@ -105,7 +144,7 @@ class Adam:
         denom = torch._foreach_sqrt(self.exp_avg_sq)
         torch._foreach_div_(denom, bc2_sqrt)
         torch._foreach_add_(denom, self.eps)
-        if self.params[0].is_cuda:
+        if card:
             # torch's CUDA kernel: param + step_size * (m / denom), the
             # product and the sum rounded once (a fused multiply-add)
             fused_add_(self.params, step_size,
@@ -115,6 +154,43 @@ class Adam:
             update = torch._foreach_mul(self.exp_avg, step_size)
             torch._foreach_div_(update, denom)
             torch._foreach_add_(self.params, update)
+
+
+def _launch_step(name: str, fn, params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor],
+                 exp_avg: Sequence[torch.Tensor],
+                 exp_avg_sq: Sequence[torch.Tensor], s0: torch.Tensor,
+                 s1: torch.Tensor, *consts: float) -> None:
+    """One launch of csrc/adam.cu's `fn` over every leaf (p, g, m, v), at
+    most 16 (the kernel refuses more): each a contiguous float32 tensor of
+    its parameter's shape on the parameter's card; s0 and s1 the step's
+    two float32 device scalars, read by the kernel when it runs; `consts`
+    the optimizer's constants."""
+    dev = params[0].device
+    if len(grads) != len(params):
+        raise ValueError(f"{name}: {len(params)} parameters, {len(grads)} "
+                         f"gradients")
+    leaves = list(zip(params, grads, exp_avg, exp_avg_sq))
+    for quad in leaves:
+        for t in quad:
+            if t.dtype != torch.float32 or t.device != dev \
+                    or not t.is_contiguous() or t.shape != quad[0].shape:
+                raise ValueError(
+                    f"{name}: every leaf must be a contiguous float32 tensor "
+                    f"of its parameter's shape {tuple(quad[0].shape)} on "
+                    f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}, "
+                    f"contiguous {t.is_contiguous()}")
+    for s in (s0, s1):
+        if s.dtype != torch.float32 or s.device != dev or s.numel() != 1:
+            raise ValueError(f"{name}: the step's scalars must be float32 "
+                             f"device scalars on {dev}; got {s.dtype} "
+                             f"{tuple(s.shape)} on {s.device}")
+    n = len(leaves)
+    ptrs = [(ctypes.c_void_p * n)(*[q[j].data_ptr() for q in leaves])
+            for j in range(4)]
+    numel = (ctypes.c_int64 * n)(*[q[0].numel() for q in leaves])
+    kernels.launch(name, fn, dev, *ptrs, numel, n, s0.data_ptr(),
+                   s1.data_ptr(), *consts)
 
 
 def fused_add_(params: Sequence[torch.Tensor], scale: torch.Tensor,

@@ -15,7 +15,8 @@ design answers it), with two store epilogues:
     backward needs, without the [M, ka*kb] prefix sum in device memory.
 
 The kernels of the hash-grid microbenchmarks are wrapped in
-``ops/primitives.py``.
+``ops/primitives.py``, the optimizer steps (``csrc/adam.cu``) in
+``mapping/optim.py``.
 
 Every wrapper takes its plain version for a tensor on the CPU (the tests
 run there) and launches its kernel for a CUDA tensor; it never falls back.
@@ -55,6 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_F32 = ctypes.c_float
 # the C entry points of each csrc/<source>.cu: name -> (argtypes, restype)
 ENTRY_POINTS = {
     "outer_cumsum": {
@@ -73,12 +75,19 @@ ENTRY_POINTS = {
     "row_cumsum": {
         "naruto_row_cumsum": ([_P, _P, _P, _I64, _I64, _I64, _I32, _P],
                               _I32)},
+    "adam": {
+        "naruto_embed_adam": ([_P, _P, _P, _P, _P, _I32, _P, _P]
+                              + [_F32] * 6 + [_P], _I32),
+        "naruto_adam": ([_P, _P, _P, _P, _P, _I32, _P, _P] + [_F32] * 5
+                        + [_P], _I32)},
 }
 
 # launches of each entry point since the last reset (plain versions do not
-# count); the fused scan counts each epilogue apart
+# count); the fused scan counts each epilogue apart; embed_adam and adam are
+# the optimizer steps of mapping/optim.py
 LAUNCHES = {"outer_scan_rows": 0, "outer_scan_slots": 0, "gather_rows": 0,
-            "sorted_segment_sum": 0, "row_cumsum": 0}
+            "sorted_segment_sum": 0, "row_cumsum": 0, "embed_adam": 0,
+            "adam": 0}
 # per source: nvcc's wall seconds (None: the library was already built) and
 # its -Xptxas=-v report
 BUILD_LOG = {src: {"seconds": None, "ptxas": ""} for src in ENTRY_POINTS}

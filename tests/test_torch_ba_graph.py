@@ -429,6 +429,80 @@ def test_adam_equals_torch_adam(name):
                 assert torch.equal(opt.exp_avg_sq[j], st["exp_avg_sq"])
 
 
+@pytest.mark.parametrize("name", ["decoder", "uncert"])
+def test_adam_card_form_equals_host_form_where_exact(name):
+    """The plain chain's card form (its last op ``param + step_size * (m /
+    denom)`` rounded once, fused_add_: what the card's kernel is held
+    against) equals the CPU chain (``param + (step_size * m) / denom``)
+    bit for bit wherever both are exact: with a power-of-two step size
+    the product is exact in either order, so each form rounds the same sum
+    once. Over 25 steps, parameters and both moments; with the real step
+    sizes the two forms part."""
+    m = make_config("Replica", "office0").mapper
+    rng = np.random.default_rng(4)
+    shapes = ([(63, 32), (32, 16), (31, 32), (32, 3)] if name == "decoder"
+              else [(5, 6, 7)])
+    wd = 1e-6 if name == "decoder" else 0.0
+    lr = m.lr_decoder if name == "decoder" else m.lr_uncert
+    init = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+
+    def run(step_of):
+        forms = [Adam([p.clone() for p in init], lr, (0.9, 0.99), 1e-8, wd)
+                 for _ in range(2)]
+        for count in range(1, 26):
+            grads = _grads(np.random.default_rng(count), shapes)
+            bc2_sqrt, step = _device_scalars(forms[0].scalars(count))
+            for opt, card in zip(forms, (True, False)):
+                opt.step_plain(grads, bc2_sqrt, step_of(step), card=card)
+        card, host = forms
+        return [torch.equal(a, b) for a, b in zip(
+            card.params + card.exp_avg + card.exp_avg_sq,
+            host.params + host.exp_avg + host.exp_avg_sq)]
+
+    assert all(run(lambda step: torch.tensor(-2.0 ** -7)))
+    assert not all(run(lambda step: step))
+
+
+@pytest.mark.parametrize("fault", ["non_contiguous", "float64", "shape",
+                                   "moment_shape", "scalar_dtype",
+                                   "scalar_shape", "device", "count"])
+def test_step_launch_refuses_bad_leaves(fault):
+    """The card kernels' launcher checks every leaf before it launches:
+    contiguous float32 tensors of the parameter's shape on its device, as
+    many gradients as parameters, float32 scalars of one element; each
+    fault raises (here on the CPU, where nothing could launch)."""
+    from naruto_tpu_torch.mapping.optim import _launch_step
+
+    params = [torch.zeros((6, 8)), torch.zeros((5,))]
+    grads = [torch.ones_like(p) for p in params]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    s0, s1 = torch.ones(()), torch.ones(())
+    if fault == "non_contiguous":
+        grads[0] = torch.ones((8, 6)).t()
+    elif fault == "float64":
+        grads[1] = grads[1].double()
+    elif fault == "shape":
+        grads[0] = grads[0].reshape(8, 6)
+    elif fault == "moment_shape":
+        nu[1] = torch.zeros((1, 5))
+    elif fault == "scalar_dtype":
+        s1 = s1.double()
+    elif fault == "scalar_shape":
+        s0 = torch.ones(2)
+    elif fault == "device":
+        grads[0] = grads[0].to("meta")
+    else:
+        grads = grads[:1]
+
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    with pytest.raises(ValueError):
+        _launch_step("embed_adam", no_launch, params, grads, mu, nu, s0, s1)
+
+
 def _exact_sum_f32(p: float, s: float, q: float) -> float:
     """p + s * q rounded once to float32 (ties to even), from exact
     rationals."""

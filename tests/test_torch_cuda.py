@@ -659,6 +659,30 @@ def test_primitives_launch_nothing_for_empty_outputs(cuda_device):
     assert out.shape == (5, 8) and not bool(out.any())
 
 
+@pytest.mark.cuda
+def test_optimizer_steps_are_one_launch_on_card(cuda_device):
+    """Each optimizer's step is one kernel on the device and nothing else
+    (no copy, no fill): the table's over its leaves, the decoders' over
+    four. Before the graph tests: once a process has captured a graph, the
+    tracer loses most records."""
+    from naruto_tpu_torch.mapping.optim import Adam, EmbedAdam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    table = _embed_leaves(cuda_device, gen)
+    grads = _embed_grads(cuda_device, gen)
+    scal = _card_scalars(EmbedAdam.scalars(3), cuda_device)
+    embed = EmbedAdam(table, 1e-2)
+    _only_kernel([lambda: embed.step(table, grads, scal[0], scal[1])],
+                 "multi_tensor_step")
+    shapes = ADAM_GROUPS["decoder"][0][0]
+    dec = [torch.randn(s, device=cuda_device, generator=gen) for s in shapes]
+    dgrads = [torch.randn_like(p) for p in dec]
+    adam = Adam(dec, 1e-2, (0.9, 0.99), 1e-8, 1e-6)
+    dscal = _card_scalars(adam.scalars(3), cuda_device)
+    _only_kernel([lambda: adam.step(dgrads, dscal[0], dscal[1])],
+                 "multi_tensor_step")
+
+
 # ------------------------------------------------- extraction, checkpoints
 MESH_BOUND = ((-1.0, 1.0), (-1.0, 1.0), (-1.0, 1.0))
 MESH_TINY = {"cam": {"H": 24, "W": 32, "fx": 20.0, "fy": 20.0, "cx": 15.5,
@@ -1228,6 +1252,43 @@ def test_ba_graph_equals_eager_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_ba_graph_capture_outlives_dead_graphs(cuda_device):
+    """A dead CUDA graph in a reference cycle (as a dropped mapper leaves
+    its graphs) that turns to garbage while a BA call is captured is not
+    collected inside the capture, whose graph it would invalidate: the
+    capture holds off the cyclic collector, and the call equals the eager
+    one."""
+    import gc
+
+    cfg = _graph_cfg("hybrid")
+    graph = _graph_mapper(cfg, cuda_device)
+    eager = _graph_mapper(cfg, cuda_device)
+    x = torch.zeros(4, device=cuda_device)
+    dead = [torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(dead[0]):
+        x += 1
+    iteration = graph._ba_iteration
+    thresholds = gc.get_threshold()
+
+    def dropping(setup, draws, it):
+        if kernels.is_capturing() and dead:
+            cycle = [dead.pop()]
+            cycle.append(cycle)
+            del cycle
+            gc.set_threshold(1)     # the next allocations would collect it
+        return iteration(setup, draws, it)
+
+    graph._ba_iteration = dropping
+    try:
+        got = _graph_call(graph, False, 512, 0)   # warm-up, capture, replay
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not dead and graph._ba_graphs.programs[512].graph is not None
+    want = _graph_call(eager, True, 512, 0)
+    _assert_graph_equal(got, want, graph, eager, "call 0")
+
+
+@pytest.mark.cuda
 def test_ba_graph_replays_after_load_full_state(cuda_device, tmp_path):
     """A replay after load_full_state reads the loaded state (the load
     writes into the addresses the graph holds): it equals an eager call on
@@ -1277,11 +1338,16 @@ def test_ba_graph_launch_accounting(cuda_device):
         k: n * (len(CUR_BUCKETS) + 1) for k, n in eager_counts.items()}
     assert _replays(512) == replays + 1
     prog = graph._ba_graphs.programs[512]
-    per_iter = {k: n // iters for k, n in eager_counts.items()}
-    assert prog.launches_per_iter == [per_iter] * iters
-    assert per_iter == {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                        "gather_rows": 4, "row_cumsum": 0,
-                        "sorted_segment_sum": 1}
+    # the decoders' Adam every iteration, the uncertainty grid's at its
+    # steps (no pose optimisation here)
+    uncert, pose = graph._ba_steps()
+    assert uncert and not pose
+    assert prog.launches_per_iter == [
+        {"outer_scan_slots": 1, "outer_scan_rows": 0, "gather_rows": 4,
+         "row_cumsum": 0, "sorted_segment_sum": 1, "embed_adam": 1,
+         "adam": 1 + (it in uncert)} for it in range(iters)]
+    assert eager_counts == {
+        k: sum(c[k] for c in prog.launches_per_iter) for k in eager_counts}
     for k in (1, 2):
         kernels.reset_launch_counts()
         replays = _replays(512)
@@ -1359,24 +1425,50 @@ def test_ba_graph_failed_capture_raises(cuda_device):
     assert _replays(512) == replays
 
 
+# ---------------------------------------------------- the optimizer steps
+def _card_scalars(values, dev) -> torch.Tensor:
+    """Host float64 scalars as the float32 device tensor a call's row
+    holds."""
+    return torch.tensor(values, dtype=torch.float64).to(torch.float32).to(dev)
+
+
+# (shapes, lr, weight decay) of the mapper's Adam groups at office0: the
+# decoders' four leaves, the uncertainty grid, each pose group (keyframe
+# slots and the current frame)
+ADAM_GROUPS = {
+    "decoder": ([[(80, 32), (32, 16), (63, 32), (32, 3)]], [1e-2], 1e-6),
+    "uncert": ([[(49, 56, 35)]], [1.0], 0.0),
+    "pose": ([[(100, 3), (3,)], [(100, 3), (3,)]], [1e-3, 1e-3], 0.0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("wd", [1e-6, 0.0], ids=["decoder", "uncert"])
-def test_adam_equals_torch_adam_on_card(cuda_device, wd):
-    """The mapper's Adam with device-scalar corrections equals
-    torch.optim.Adam's update on the card (its multi-tensor form, whose
-    addcdiv fuses the product and the sum) bit for bit over 50 steps, at
-    the decoder's and the uncertainty grid's shapes."""
+@pytest.mark.parametrize("name", list(ADAM_GROUPS))
+def test_adam_equals_torch_adam_on_card(cuda_device, name):
+    """The mapper's Adam (csrc/adam.cu's adam, one launch an optimizer step)
+    with device-scalar corrections equals torch.optim.Adam's update on the
+    card (its multi-tensor form, whose addcdiv fuses the product and the
+    sum) bit for bit over 50 steps, parameters and both moments: the
+    decoders (weight decay 1e-6, four leaves), the uncertainty grid and
+    the pose's two groups (opt_rot, opt_trans)."""
     from naruto_tpu_torch.mapping.optim import Adam
 
+    groups, lrs, wd = ADAM_GROUPS[name]
     rng = np.random.default_rng(5)
-    shapes = [(63, 32), (32, 16), (31, 32), (32, 3), (49, 56, 35)]
+    shapes = [s for g in groups for s in g]
     init = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to(cuda_device) for s in shapes]
     ref = [p.clone().requires_grad_(True) for p in init]
     got = [p.clone() for p in init]
-    torch_adam = torch.optim.Adam(ref, lr=1e-2, betas=(0.9, 0.99), eps=1e-8,
-                                  weight_decay=wd)
-    ours = Adam(got, 1e-2, (0.9, 0.99), 1e-8, wd)
+    spans, lo = [], 0
+    for g in groups:
+        spans.append((lo, lo + len(g)))
+        lo += len(g)
+    torch_adam = torch.optim.Adam(
+        [{"params": ref[a:b], "lr": lr} for (a, b), lr in zip(spans, lrs)],
+        betas=(0.9, 0.99), eps=1e-8, weight_decay=wd)
+    ours = [Adam(got[a:b], lr, (0.9, 0.99), 1e-8, wd)
+            for (a, b), lr in zip(spans, lrs)]
     for count in range(1, 51):
         grads = [torch.from_numpy((rng.standard_normal(s) * 10.0
                                    ** rng.uniform(-6, 1)).astype(np.float32))
@@ -1384,8 +1476,153 @@ def test_adam_equals_torch_adam_on_card(cuda_device, wd):
         for p, g in zip(ref, grads):
             p.grad = g.clone()
         torch_adam.step()
-        scal = torch.tensor(ours.scalars(count), dtype=torch.float64).to(
-            torch.float32).to(cuda_device)
-        ours.step(grads, scal[0], scal[1])
+        for opt, (a, b) in zip(ours, spans):
+            scal = _card_scalars(opt.scalars(count), cuda_device)
+            n0 = kernels.launch_counts()["adam"]
+            opt.step(grads[a:b], scal[0], scal[1])
+            assert kernels.launch_counts()["adam"] == n0 + 1
         for a, b in zip(got, ref):
             assert torch.equal(a, b.detach()), count
+        for opt, (a, _) in zip(ours, spans):
+            for j in range(len(opt.params)):
+                st = torch_adam.state[ref[a + j]]
+                assert torch.equal(opt.exp_avg[j], st["exp_avg"]), count
+                assert torch.equal(opt.exp_avg_sq[j], st["exp_avg_sq"]), \
+                    count
+
+
+# the hybrid table's three leaves (hash rows, the two dense grids) and the
+# parity table, in one launch, with a ragged leaf (numel % 4 = 1), one of
+# zero gradients and a misaligned one (a view one float into its buffer)
+EMBED_SHAPES = [(131_072, 64), (17, 17, 17, 8), (42, 42, 42, 8),
+                (814_897, 2), (1001,), (333, 3)]
+ZERO_GRAD_LEAF, MISALIGNED_LEAF = 4, 5
+
+
+def _embed_leaves(dev, gen):
+    leaves = []
+    for i, s in enumerate(EMBED_SHAPES):
+        n = int(np.prod(s))
+        buf = torch.empty(n + 1, device=dev)
+        x = buf[1:] if i == MISALIGNED_LEAF else buf[:n]
+        leaves.append(x.view(s).uniform_(-1e-4, 1e-4, generator=gen))
+    assert leaves[MISALIGNED_LEAF].data_ptr() % 16
+    return leaves
+
+
+def _embed_grads(dev, gen):
+    """Gradients whose magnitudes spread from 1e-30 to 1e3 (log-uniform,
+    so the squares underflow to subnormals and to zero), a tenth of them
+    zero, one leaf all zero."""
+    grads = []
+    for i, s in enumerate(EMBED_SHAPES):
+        mag = 10.0 ** torch.empty(s, device=dev).uniform_(-30, 3,
+                                                          generator=gen)
+        g = torch.randn(s, device=dev, generator=gen) * mag
+        g *= torch.rand(s, device=dev, generator=gen) > 0.1
+        grads.append(g.zero_() if i == ZERO_GRAD_LEAF else g)
+    return grads
+
+
+@pytest.mark.cuda
+def test_embed_adam_equals_plain_chain_on_card(cuda_device):
+    """The table's Adam (csrc/adam.cu's embed_adam) equals its plain chain
+    on the card bit for bit over 25 steps with device-scalar corrections:
+    parameters and both moments, at the hybrid table's three leaves and
+    the parity table's [814,897, 2] in one launch a step, beside a ragged,
+    an all-zero-gradient and a misaligned leaf."""
+    from naruto_tpu_torch.mapping.optim import EmbedAdam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    got = _embed_leaves(cuda_device, gen)
+    ref = [p.clone() for p in got]
+    opt, plain = EmbedAdam(got, 1e-2), EmbedAdam(ref, 1e-2)
+    for count in range(1, 26):
+        grads = _embed_grads(cuda_device, gen)
+        scal = _card_scalars(EmbedAdam.scalars(count), cuda_device)
+        n0 = kernels.launch_counts()["embed_adam"]
+        opt.step(got, grads, scal[0], scal[1])
+        assert kernels.launch_counts()["embed_adam"] == n0 + 1
+        plain.step_plain(ref, grads, scal[0], scal[1])
+        for a, b in zip(got + opt.mu + opt.nu, ref + plain.mu + plain.nu):
+            assert torch.equal(a, b), count
+    assert all(bool(torch.isfinite(p).all()) for p in got)
+
+
+@pytest.mark.cuda
+def test_optimizer_graph_replays_read_the_scalars(cuda_device):
+    """An optimizer step captured in a CUDA graph reads its corrections
+    when it runs: replays after writing the scalars of other step counts
+    each equal an eager step with those counts, bit for bit, for both
+    kernels; the capture counts its launch in its own tally."""
+    from naruto_tpu_torch.mapping.optim import Adam, EmbedAdam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    table = _embed_leaves(cuda_device, gen)
+    tgrads = _embed_grads(cuda_device, gen)
+    shapes = ADAM_GROUPS["decoder"][0][0]
+    dec = [torch.randn(s, device=cuda_device, generator=gen) for s in shapes]
+    dgrads = [torch.randn_like(p) for p in dec]
+    t_ref, d_ref = [p.clone() for p in table], [p.clone() for p in dec]
+    embed, embed_ref = EmbedAdam(table, 1e-2), EmbedAdam(t_ref, 1e-2)
+    adam = Adam(dec, 1e-2, (0.9, 0.99), 1e-8, 1e-6)
+    adam_ref = Adam(d_ref, 1e-2, (0.9, 0.99), 1e-8, 1e-6)
+    scal = torch.zeros(4, device=cuda_device)
+
+    def step():
+        embed.step(table, tgrads, scal[0], scal[1])
+        adam.step(dgrads, scal[2], scal[3])
+
+    # both kernels run once before the capture (their module loaded)
+    spare = [torch.zeros(4, device=cuda_device)]
+    EmbedAdam(spare, 1e-2).step(spare, spare, scal[0], scal[1])
+    Adam(spare, 1e-2, (0.9, 0.99), 1e-8).step(spare, scal[2], scal[3])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts()
+    with kernels.capturing() as tally, torch.cuda.graph(graph):
+        step()
+    assert kernels.launch_counts() == before
+    assert tally["embed_adam"] == 1 and tally["adam"] == 1
+    for count in (1, 7, 2):
+        scal.copy_(_card_scalars(EmbedAdam.scalars(count)
+                                 + adam.scalars(count), cuda_device))
+        graph.replay()
+        row = _card_scalars(EmbedAdam.scalars(count) + adam.scalars(count),
+                            cuda_device)
+        embed_ref.step(t_ref, tgrads, row[0], row[1])
+        adam_ref.step(dgrads, row[2], row[3])
+        torch.cuda.synchronize()
+        for a, b in zip(table + embed.mu + embed.nu + dec + adam.exp_avg
+                        + adam.exp_avg_sq,
+                        t_ref + embed_ref.mu + embed_ref.nu + d_ref
+                        + adam_ref.exp_avg + adam_ref.exp_avg_sq):
+            assert torch.equal(a, b), count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["non_contiguous", "float64", "shape",
+                                   "scalar_dtype"])
+def test_optimizer_step_refuses_bad_leaves_on_card(cuda_device, fault):
+    """The card's optimizer step raises, before any launch, on a leaf that
+    is not contiguous, not float32 or not of its parameter's shape, and on
+    corrections that are not float32 device scalars."""
+    from naruto_tpu_torch.mapping.optim import EmbedAdam
+
+    params = [torch.zeros((6, 8), device=cuda_device),
+              torch.zeros((5,), device=cuda_device)]
+    grads = [torch.ones_like(p) for p in params]
+    scal = _card_scalars(EmbedAdam.scalars(1), cuda_device)
+    if fault == "non_contiguous":
+        grads[0] = torch.ones((8, 6), device=cuda_device).t()
+    elif fault == "float64":
+        grads[1] = grads[1].double()
+    elif fault == "shape":
+        grads[0] = grads[0].reshape(8, 6)
+    else:
+        scal = scal.double()
+    opt = EmbedAdam(params, 1e-2)
+    n0 = kernels.launch_counts()["embed_adam"]
+    with pytest.raises(ValueError):
+        opt.step(params, grads, scal[0], scal[1])
+    assert kernels.launch_counts()["embed_adam"] == n0
