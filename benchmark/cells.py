@@ -7,9 +7,12 @@ that name, so a later kind is a new file. A kind's cell:
 * ``setup()`` builds the program, runs the checked calls and keeps in
   ``obs`` what the comparison reads: the losses of the checked calls, the
   first moments of every parameter after the first one, the parameters
-  after the last, and the initial weights;
+  after the last, and the initial weights; where its unit queries the map
+  volumes, also ``volumes``: the (sdf, uncertainty) host copies of the
+  set-up query and of each checked call's;
 * ``unit()`` runs one unit of the window's work (through ``_timed``) and
-  adds what it completed to ``work``;
+  adds what it completed to ``work``, counted in ``units`` (``"iters"``:
+  BA iterations, which ``map_iters_per_s`` reads in any kind);
 * ``begin_window()`` and ``readings()`` (optional) mark its own state as
   the window opens and return what its metric readers read beside the
   window's clock;
@@ -24,6 +27,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 import inputs
@@ -126,7 +130,23 @@ def fault_half(mapper) -> None:
     mapper._grad_fn = half
 
 
-FAULTS = {"state": fault_state, "half": fault_half}
+def fault_stale(mapper) -> None:
+    """The map volumes one mapping step late: each volume query hands out
+    what the query before it computed, so the planner (and the next call's
+    active-ray selection) reads the previous step's volumes."""
+    inner = mapper._volumes_impl
+    last: List = []
+
+    def late():
+        now = inner()
+        out = last[0] if last else now
+        last[:] = [now]
+        return out
+
+    mapper._volumes_impl = late
+
+
+FAULTS = {"state": fault_state, "half": fault_half, "stale": fault_stale}
 
 
 # ----------------------------------------------------------------- base
@@ -144,6 +164,11 @@ class Cell:
         self.root, self.tmp, self.fault = root, tmp, fault
         self.traj = scene.load_trajectory(
             os.path.join(root, traffic["trajectory"]))
+        if "shift" in traffic:
+            # metres added to every pose's translation, to place the
+            # recorded path inside another scene's room
+            for p in self.traj:
+                p[:3, 3] += np.asarray(traffic["shift"], np.float32)
         self.work = 0                # units of work done in the window
         self.unit_s: List[float] = []
         self.events: Optional[list] = None   # CUDA event pairs per unit

@@ -18,16 +18,40 @@ against the plain reference's, on the same weights, frames and draws.
   reference moment is under a thousandth of the median leaf's are left
   out: their gradient is nought to rounding and they move by round-off.
 
-A gap of norms, not the norm of a difference: the table's first Adam
-steps move each entry by the learning rate on the sign of its gradient,
-and an entry whose gradient is nought to rounding takes either sign in
-two summation orders.
+Where both sides' observations carry ``volumes`` (the map volumes the
+planner reads: the set-up query at the initial weights, then the volumes
+after each checked call, as (sdf, uncertainty) host tensors), also:
+
+* ``volume_sdf_gap``: the worst, over the volumes, of the norm of the
+  SDF's difference over the reference SDF's norm, over every voxel;
+* ``volume_band_gap``: the worst share of voxels inside the surface band
+  (``reference.SURFACE_BAND``, where the uncertainty volume is nonzero) in
+  one volume and outside it in the other;
+* ``volume_uncert_gap``: the worst norm of the uncertainty's difference
+  on the voxels both place in the band, over the reference's norm there;
+* ``volume_first_gap``: the larger of the set-up volume's SDF and
+  uncertainty gaps: the volume query at the initial weights, before any
+  step.
+
+A gap of norms for the leaves, not the norm of a difference: the table's
+first Adam steps move each entry by the learning rate on the sign of its
+gradient, and an entry whose gradient is nought to rounding takes either
+sign in two summation orders. The volumes take the norm of the
+difference over all their voxels: after training, the entries that such
+a sign moves (eps 1e-15 makes it a full step) shift the SDF and the
+uncertainty of the few voxels that read them by a large share of the
+largest value, so a largest difference is as large on a sound run as on
+a broken one, while a volume a step late departs by about its own norm.
 """
 from __future__ import annotations
 
 import math
 import statistics
 from typing import Dict, List, Optional
+
+import torch
+
+from reference import SURFACE_BAND
 
 QUIET_LEAF = 1e-3
 
@@ -66,9 +90,51 @@ def gaps(prog: Dict, ref: Dict) -> Dict[str, float]:
     d_ref = _norms([p - i for p, i in zip(ref["params"], prog["init"])])
     tp, tr = prog["losses"][0][0], ref["losses"][0][0]
     first = max(_gap(tp[k], tr[k]) for k in tr if k in tp)
-    return {"first_loss_gap": first, "loss_gap": loss,
-            "moment_gap": _worst(m_prog, m_ref),
-            "change_gap": _worst(d_prog, d_ref, keep)}
+    out = {"first_loss_gap": first, "loss_gap": loss,
+           "moment_gap": _worst(m_prog, m_ref),
+           "change_gap": _worst(d_prog, d_ref, keep)}
+    per = volume_gaps(prog, ref)
+    out.update({k: max(v) for k, v in per.items()})
+    if per:
+        out["volume_first_gap"] = max(per["volume_sdf_gap"][0],
+                                      per["volume_uncert_gap"][0])
+    return out
+
+
+def _band(sdf: torch.Tensor) -> torch.Tensor:
+    return (sdf >= SURFACE_BAND[0]) & (sdf < SURFACE_BAND[1])
+
+
+def _rel_norm(diff: torch.Tensor, ref: torch.Tensor) -> float:
+    """|diff| over |ref| (2-norms); inf where diff holds a non-finite
+    value."""
+    if not bool(torch.isfinite(diff).all()):
+        return math.inf
+    return float(diff.norm()) / max(float(ref.norm()), 1e-30)
+
+
+def volume_gaps(prog: Dict, ref: Dict) -> Dict[str, List[float]]:
+    """The three volume numbers of each volume (see above); empty where
+    either side carries no volumes."""
+    if "volumes" not in prog or "volumes" not in ref:
+        return {}
+    vp, vr = prog["volumes"], ref["volumes"]
+    if len(vp) != len(vr):
+        raise ValueError(f"{len(vp)} program volumes, {len(vr)} reference")
+    out: Dict[str, List[float]] = {"volume_sdf_gap": [],
+                                   "volume_band_gap": [],
+                                   "volume_uncert_gap": []}
+    for (sp, up), (sr, ur) in zip(vp, vr):
+        sp, up, sr, ur = (t.double() for t in (sp, up, sr, ur))
+        bp, br = _band(sp), _band(sr)
+        both = bp & br
+        out["volume_sdf_gap"].append(_rel_norm(sp - sr, sr))
+        out["volume_band_gap"].append(
+            float((bp != br).double().mean())
+            if bool(torch.isfinite(sp).all()) else math.inf)
+        out["volume_uncert_gap"].append(_rel_norm((up - ur)[both],
+                                                  ur[both]))
+    return out
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
@@ -80,7 +146,8 @@ def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
 
 def detail(prog: Dict, ref: Dict) -> Dict[str, list]:
     """Per checked call, the largest loss gap, and the first iteration's;
-    per leaf, the moment and change gaps (for setting limits)."""
+    per leaf, the moment and change gaps; per volume, the volume numbers
+    (``volumes_*_gap``; for setting limits)."""
     calls = [max(_gap(a["total"], b["total"]) for a, b in zip(cp, cr))
              for cp, cr in zip(prog["losses"], ref["losses"])]
     tp, tr = prog["losses"][0][0], ref["losses"][0][0]
@@ -90,9 +157,11 @@ def detail(prog: Dict, ref: Dict) -> Dict[str, list]:
     d_prog = _norms([p - i for p, i in zip(prog["params"], prog["init"])])
     d_ref = _norms([p - i for p, i in zip(ref["params"], prog["init"])])
     dmed = statistics.median(d_ref)
+    per = volume_gaps(prog, ref)
     return {"call_loss_gaps": calls, "first_term_gaps": first,
             "leaf_moment_gaps": [abs(p - r) / max(r, med, 1e-30)
                                  for p, r in zip(m_prog, m_ref)],
             "leaf_change_gaps": [abs(p - r) / max(r, dmed, 1e-30)
                                  for p, r in zip(d_prog, d_ref)],
-            "leaf_moment_norms": m_ref}
+            "leaf_moment_norms": m_ref,
+            **{k.replace("volume_", "volumes_"): v for k, v in per.items()}}

@@ -24,24 +24,30 @@ TINY = {"cam": {"H": 24, "W": 32, "fx": 16.0, "fy": 16.0, "cx": 15.5,
         "mapper": {"sample": 64, "iters": 2, "first_iters": 8,
                    "min_pixels_cur": 8, "act_ray_num_uncert_sample": 16},
         "training": {"n_range_d": 5, "n_samples_d": 8, "smooth_pts": 8}}
-TINY_TRAFFIC = {"map": {"keyframes": {"first": 0, "every": 5, "count": 4},
-                        "current": 20, "checked_calls": 2}}
+TINY_TRAFFIC = {k: {"keyframes": {"first": 0, "every": 5, "count": 4},
+                    "current": 20, "checked_calls": 2}
+                for k in ("map", "mapstep")}
+# a kind's own sizes: a mapping step's calls long enough for the
+# uncertainty grid to step (every uncert_accum_iters = 5th iteration)
+TINY_KIND = {"map": {}, "mapstep": {"mapper": {"iters": 5}}}
 # <configuration>.<traffic>: the cells of BENCHMARK.json
 CELLS = ("office0_hybrid.map", "office0_parity.map")
 
 
-def tiny_cell(cell: str, seed: int, tmp: str, fault=None):
-    """The cell <configuration>.<traffic> on the CPU at the tiny size."""
+def tiny_cell(cell: str, seed: int, tmp: str, fault=None, traffic=None):
+    """The cell <configuration>.<traffic> on the CPU at the tiny size;
+    `traffic`: keys merged into the traffic file's."""
     import cells
     import run
 
     config, name = cell.split(".")
     cfg = run.load_json(os.path.join(HERE, "configs", config + ".json"))
-    traffic = run.load_json(os.path.join(HERE, "traffic", name + ".json"))
-    traffic = cells.merged(traffic, TINY_TRAFFIC[name])
-    return cells.kind(traffic["kind"], ROOT)(
-        cells.merged(cfg["config"], TINY), traffic, seed, "cpu", ROOT, tmp,
-        fault=fault)
+    given = run.load_json(os.path.join(HERE, "traffic", name + ".json"))
+    given = cells.merged(cells.merged(given, TINY_TRAFFIC[name]),
+                         traffic)
+    config = cells.merged(cells.merged(cfg["config"], TINY), TINY_KIND[name])
+    return cells.kind(given["kind"], ROOT)(
+        config, given, seed, "cpu", ROOT, tmp, fault=fault)
 
 
 @pytest.fixture

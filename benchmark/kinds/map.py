@@ -47,13 +47,12 @@ class Cell(cells.Cell):
         self.c2w = self.pose(cur)
         cells.sync(self.dev)
         self.mark("keyframes")
-        m.map_volumes()
+        self.query()
         self.bucket = m._pick_bucket(m.kf.count)
         self.iters = pcfg.mapper.iters
         losses = []
         for j in range(t["checked_calls"]):
-            losses.append(cells.terms(m._ba_impl(self.bucket, self.frame_rays,
-                                                 self.c2w, cur)))
+            losses.append(cells.terms(self.call()))
             if j == 0:
                 self.obs["moments"] = cells.host(cells.program_moments(m))
             cells.sync(self.dev)
@@ -66,9 +65,17 @@ class Cell(cells.Cell):
         k = self.traffic["keyframes"]
         return [k["first"] + k["every"] * i for i in range(k["count"])]
 
+    def query(self) -> None:
+        """The map volumes, as set-up computes them once."""
+        self.mapper.map_volumes()
+
+    def call(self) -> List[Dict]:
+        """One unit's work: a BA call; each iteration's loss terms."""
+        return self.mapper._ba_impl(self.bucket, self.frame_rays, self.c2w,
+                                    self.traffic["current"])
+
     def unit(self) -> None:
-        self._timed(lambda: self.mapper._ba_impl(
-            self.bucket, self.frame_rays, self.c2w, self.traffic["current"]))
+        self._timed(self.call)
         self.work += self.iters
 
     def readings(self) -> Dict:
@@ -92,11 +99,21 @@ class Cell(cells.Cell):
             r.poses[fid] = self.pose(fid)
             r.add_keyframe(r.frame_rays(*room.frame(self.traj[fid])))
         rays = r.frame_rays(*room.frame(self.traj[cur]))
-        r.volumes()
         out = {"losses": [], "init": init}
+        self.ref_query(r, out)
         for j in range(self.traffic["checked_calls"]):
-            out["losses"].append(r.ba(r.bucket(), rays, self.pose(cur), cur))
+            out["losses"].append(self.ref_call(r, rays, self.pose(cur), cur,
+                                               out))
             if j == 0:
                 out["moments"] = cells.ref_flat(r.state(), ".m")
         out["params"] = cells.ref_flat(r.state())
         return out
+
+    def ref_query(self, r: plain.Mapping, out: Dict) -> None:
+        """The reference's counterpart of query()."""
+        r.volumes()
+
+    def ref_call(self, r: plain.Mapping, rays, c2w, cur: int,
+                 out: Dict) -> List[Dict[str, float]]:
+        """The reference's counterpart of call()."""
+        return r.ba(r.bucket(), rays, c2w, cur)

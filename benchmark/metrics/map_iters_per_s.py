@@ -1,8 +1,9 @@
 """BA iterations completed in the window over the window's seconds (the
-clock stops after a synchronize)."""
+clock stops after a synchronize), in every kind whose unit completes BA
+iterations (its ``units`` is ``"iters"``)."""
 
 
 def read(run):
-    if run.kind != "map":
+    if run.units != "iters":
         return None
     return run.work / run.elapsed_s

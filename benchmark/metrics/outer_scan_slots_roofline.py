@@ -1,12 +1,13 @@
 """The cell rows' hash backward (outer_scan_slots): its bytes (work.py) at
 the HBM peak over its device time a launch in the traced segment, %.
-Nothing where the trace shows no such kernel."""
+Nothing where the trace shows no such kernel, or the
+unit completes no BA iterations."""
 import tracing
 import work
 
 
 def read(run):
-    if run.trace is None or run.kind != "map":
+    if run.trace is None or run.units != "iters":
         return None
     nbytes = work.site_bytes(run.cfg, run.bucket).get("outer_scan_slots")
     seen = tracing.kernel_time(run.trace, "outer_scan_kernel")

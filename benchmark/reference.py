@@ -7,8 +7,9 @@ weights, the frames and the draws' generators come from the benchmark
 (``inputs.py``, ``scene.py``), and every table, keyframe slot, pose and
 volume it reads it works out itself. Gradients come from autograd; the one
 hand-written backward is the hash table's gather, so that its cotangent
-rows are summed in float32 (``index_add_``), as the configuration's
-float32 master table is.
+rows are summed in float32, as the configuration's float32 master table
+is, and in a fixed order (``_sum_rows``), so that a seed's numbers repeat
+from run to run.
 
 Precision is the configuration's: float32 everywhere with TF32 off, the
 table's rows gathered in ``grid.table_dtype`` and each weighted corner row
@@ -34,6 +35,7 @@ LOWER = {torch.float32: torch.bfloat16, torch.bfloat16: torch.float8_e4m3fn}
 EMBED_BETAS, EMBED_EPS = (0.9, 0.99), 1e-15
 DECODER_BETAS, DECODER_EPS, DECODER_WD = (0.9, 0.99), 1e-8, 1e-6
 SURFACE_BAND = (0.0, 0.5)
+VOLUME_BLOCK = 1 << 18      # voxels a block of the reference's volume query
 
 
 # ----------------------------------------------------------- grid sizes
@@ -127,9 +129,25 @@ def quant(x: torch.Tensor, dtype) -> torch.Tensor:
     return (x / scale).to(dtype).to(torch.float32) * scale
 
 
+def _sum_rows(idx: torch.Tensor, g: torch.Tensor, rows: int) -> torch.Tensor:
+    """[rows, F] float32: row i the sum of the rows of g whose idx is i, in
+    a fixed order (torch's deterministic index_put_: on a card a stable
+    sort by row, then each row's terms in turn), not by atomic adds, whose
+    order changes from run to run."""
+    d = g.new_zeros((rows, g.shape[-1]), dtype=torch.float32)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        d.index_put_((idx,), g.float(), accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+    return d
+
+
 class _Gather(torch.autograd.Function):
     """rows = quant(table)[idx]; the cotangent rows summed into a float32
-    table by index_add_."""
+    table by _sum_rows."""
 
     @staticmethod
     def forward(ctx, table, idx, dtype):
@@ -140,9 +158,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        d = g.new_zeros((ctx.rows, g.shape[-1]), dtype=torch.float32)
-        d.index_add_(0, idx, g)
-        return d, None, None
+        return _sum_rows(idx, g, ctx.rows), None, None
 
 
 class _Round(torch.autograd.Function):
@@ -487,9 +503,14 @@ class Mapping:
         self.kf_count += 1
 
     def volumes(self) -> torch.Tensor:
-        u, s = self.field.volumes(self.grid01)
-        self.uncert_vol = u.reshape(self.vol_shape)
-        return s.reshape(self.vol_shape)
+        """The SDF volume; the uncertainty volume into ``uncert_vol``. In
+        blocks of VOLUME_BLOCK voxels, so that a large scene's grid
+        fits."""
+        parts = [self.field.volumes(self.grid01[i:i + VOLUME_BLOCK])
+                 for i in range(0, self.grid01.shape[0], VOLUME_BLOCK)]
+        self.uncert_vol = torch.cat([u for u, _ in parts]).reshape(
+            self.vol_shape)
+        return torch.cat([s for _, s in parts]).reshape(self.vol_shape)
 
     def _step(self, loss) -> None:
         """Backward, the table's and the decoder's Adam steps; the

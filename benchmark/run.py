@@ -29,8 +29,9 @@ needs. A run:
 seed and no result: the program's (the default), the control's
 (``--control``: the reference one step below the stated precisions,
 in the program's place), or the
-program's with a fault planted (``--fault state|half``); the limits
-are set from these.
+program's with a fault planted (``--fault state|half|stale``); the
+limits are set from these. Where the cell's unit queries the map volumes,
+each line also carries the volume numbers (checks.py).
 """
 from __future__ import annotations
 
@@ -143,7 +144,7 @@ def window(cell, seconds: float, trace: bool) -> SimpleNamespace:
     return out
 
 
-def measure(args, entries: dict, cell, tmp: str) -> dict:
+def measure(args, entries: dict, cell, tmp: str, root: str = ROOT) -> dict:
     """One timed (or traced) run of the opened cell: its result line."""
     import torch
 
@@ -169,18 +170,19 @@ def measure(args, entries: dict, cell, tmp: str) -> dict:
         trace = tracing.record(lambda: [cell.unit() for _ in range(n)],
                                os.path.join(tmp, "trace.json"))
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    run = SimpleNamespace(kind=cell.traffic["kind"], cfg=cell.cfg,
-                          traffic=cell.traffic, setup_s=setup_s,
-                          peak_bytes=peak, trace=trace, **vars(win))
+    run = SimpleNamespace(kind=cell.traffic["kind"], units=cell.units,
+                          cfg=cell.cfg, traffic=cell.traffic,
+                          setup_s=setup_s, peak_bytes=peak, trace=trace,
+                          **vars(win))
     cell.free()
     ref = cell.reference()
     numbers = checks.gaps(cell.obs, ref)
-    limits = load_json(os.path.join(ROOT, "benchmark", "limits",
+    limits = load_json(os.path.join(root, "benchmark", "limits",
                                     entries["cell"]["name"] + ".json"))
     group = "per_layer" if args.trace else "end_to_end"
     metrics = {}
     for m in entries[group]:
-        v = reader(m["name"])(run)
+        v = reader(m["name"], root)(run)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     device = {"platform": "gpu",
@@ -235,7 +237,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--readings", default=None)
     ap.add_argument("--control", action="store_true")
-    ap.add_argument("--fault", choices=("state", "half"))
+    ap.add_argument("--fault", choices=("state", "half", "stale"))
     args = ap.parse_args(argv)
     # the program's kernel caches, at fixed paths inside the checkout
     os.environ.setdefault("TRITON_CACHE_DIR",

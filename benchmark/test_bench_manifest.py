@@ -2,6 +2,7 @@
 a cell's configuration, traffic and metrics by name alone."""
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -9,7 +10,9 @@ import shutil
 
 import pytest
 
+import cells
 import run
+from conftest import TINY
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -107,7 +110,8 @@ def test_a_new_cell_config_traffic_and_metric_are_found_from_files(tmp_path):
     """A later change adds files and entries only: a configuration, a
     kind of traffic, a traffic mix, a per-layer metric and a cell over
     them, in a copy of the benchmark, are found by name without editing a
-    file that is there."""
+    file that is there. A run of a kind whose unit completes BA iterations
+    reports map_iters_per_s; a run of a kind with other units does not."""
     root = tmp_path / "checkout"
     shutil.copytree(HERE, root / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -119,49 +123,67 @@ def test_a_new_cell_config_traffic_and_metric_are_found_from_files(tmp_path):
     cfg = json.loads((root / "benchmark/configs/office0_hybrid.json")
                      .read_text())
     cfg["name"] = "office1_hybrid"
+    cfg["config"] = cells.merged(cfg["config"], TINY)   # runs on the CPU
     cfg["config"]["general"]["scene"] = "office1"
     (root / "benchmark/configs/office1_hybrid.json").write_text(
         json.dumps(cfg))
     traffic = json.loads((root / "benchmark/traffic/map.json").read_text())
     traffic["current"] = 300
     traffic["keyframes"]["count"] = 60
-    traffic["kind"] = "map_calls"
-    (root / "benchmark/kinds/map_calls.py").write_text(
-        "import os\nimport cells\n"
-        "ROOT = os.path.dirname(os.path.dirname(os.path.dirname("
-        "os.path.abspath(__file__))))\n\n\n"
-        "class Cell(cells.kind('map', ROOT)):\n    units = 'calls'\n")
-    (root / "benchmark/traffic/map_early.json").write_text(
-        json.dumps(traffic))
+    traffic["checked_calls"] = 1
+    kinds = {"map_calls": "iters", "map_rounds": "calls"}
+    for kind, units in kinds.items():
+        (root / f"benchmark/kinds/{kind}.py").write_text(
+            "import os\nimport cells\n"
+            "ROOT = os.path.dirname(os.path.dirname(os.path.dirname("
+            "os.path.abspath(__file__))))\n\n\n"
+            f"class Cell(cells.kind('map', ROOT)):\n    units = {units!r}\n")
+        (root / f"benchmark/traffic/{kind}.json").write_text(
+            json.dumps(dict(traffic, kind=kind)))
+        (root / f"benchmark/limits/office1_hybrid.{kind}.json").write_text(
+            json.dumps({"loss_gap": 1.0}))
+        b["workloads"].append({"name": f"office1_hybrid.{kind}",
+                               "config": "office1_hybrid", "traffic": kind,
+                               "chips": 1, "why": "x"})
     (root / "benchmark/metrics/calls.map.py").write_text(
         "def read(run):\n    return float(len(run.unit_s))\n")
-    (root / "benchmark/limits/office1_hybrid.map_early.json").write_text(
-        json.dumps({"loss_gap": 1.0}))
     b["configs"].append({"name": "office1_hybrid", "source": "x",
                          "file": "benchmark/configs/office1_hybrid.json",
                          "reduced": [], "why": "x"})
-    b["workloads"].append({"name": "office1_hybrid.map_early",
-                           "config": "office1_hybrid",
-                           "traffic": "map_early", "chips": 1, "why": "x"})
     b["per_layer"].append({"name": "calls.map", "unit": "calls",
                            "better": "higher", "source": "host_clock",
                            "layer": "BA dispatch", "moves": "map_iters_per_s",
-                           "workloads": ["office1_hybrid.map_early"]})
+                           "workloads": [f"office1_hybrid.{k}"
+                                         for k in kinds]})
     for m in b["end_to_end"]:
         if m["name"] == "map_iters_per_s":
-            m["workloads"].append("office1_hybrid.map_early")
+            m["workloads"] += [f"office1_hybrid.{k}" for k in kinds]
     (root / "BENCHMARK.json").write_text(json.dumps(b))
 
-    entries = run.cell_entries(run.manifest(str(root)),
-                               "office1_hybrid.map_early")
-    assert [m["name"] for m in entries["per_layer"]] == ["calls.map"]
-    assert "map_iters_per_s" in [m["name"] for m in entries["end_to_end"]]
-    cell = run.open_cell(entries, 5, "cpu", str(tmp_path), root=str(root))
-    assert cell.cfg["general"]["scene"] == "office1"
-    assert cell.traffic["current"] == 300 and len(cell.keyframe_ids()) == 60
-    assert cell.units == "calls"
-    reader = run.reader("calls.map", root=str(root))
-    assert reader(type("R", (), {"unit_s": [0.1, 0.2]})) == 2.0
+    for kind, units in kinds.items():
+        cell_name = f"office1_hybrid.{kind}"
+        entries = run.cell_entries(run.manifest(str(root)), cell_name)
+        assert [m["name"] for m in entries["per_layer"]] == ["calls.map"]
+        assert "map_iters_per_s" in [m["name"]
+                                     for m in entries["end_to_end"]]
+        cell = run.open_cell(entries, 5, "cpu", str(tmp_path),
+                             root=str(root))
+        assert cell.cfg["general"]["scene"] == "office1"
+        assert cell.traffic["current"] == 300
+        assert len(cell.keyframe_ids()) == 60
+        assert cell.units == units
+        reader = run.reader("calls.map", root=str(root))
+        assert reader(type("R", (), {"unit_s": [0.1, 0.2]})) == 2.0
+        args = argparse.Namespace(seconds=0.2, trace=0)
+        out = run.measure(args, entries, cell, str(tmp_path), root=str(root))
+        assert out["correct"] and out["attempted"] > 0
+        got = out["metrics"]
+        if units == "iters":
+            assert got["map_iters_per_s"]["value"] > 0
+            assert got["map_iters_per_s"]["unit"] == "iters/s"
+        else:
+            assert "map_iters_per_s" not in got
+        assert "setup_s" in got
 
 
 @pytest.mark.parametrize("name", ["map_iters_per_s", "peak_mem_gib",

@@ -46,6 +46,7 @@ def test_rate_is_all_work_over_all_window_time():
     # deadline included, over the time until it ended
     assert win.elapsed_s >= 0.3 and win.elapsed_s >= sum(win.unit_s)
     rate = run.reader("map_iters_per_s")(SimpleNamespace(kind="map",
+                                                         units="iters",
                                                          **vars(win)))
     assert rate == pytest.approx(win.work / win.elapsed_s)
     assert rate < 10 / 0.01
@@ -59,8 +60,9 @@ def test_rate_is_all_work_over_all_window_time():
     ("idle_share.map", "map"), ("outer_scan_slots_roofline", "map"),
     ("sorted_segment_sum_roofline", "map")])
 def test_a_reader_with_nothing_to_read_returns_nothing(name, kind):
-    r = SimpleNamespace(kind=kind, unit_s=[], unit_device_ms=[],
-                        trace=None, work=0, elapsed_s=1.0)
+    r = SimpleNamespace(kind=kind, units="iters" if kind == "map" else
+                        "calls", unit_s=[], unit_device_ms=[], trace=None,
+                        work=0, elapsed_s=1.0)
     assert run.reader(name)(r) is None
 
 
@@ -84,5 +86,5 @@ def test_trace_summary_busy_idle_and_gaps():
     assert b["device_ops"][0][0] == "a"
     assert tracing.kernel_time(s, "a<") == (2, pytest.approx(350e-6))
     assert tracing.kernel_time(s, "nothing") is None
-    r = SimpleNamespace(kind="map", trace=s)
+    r = SimpleNamespace(kind="map", units="iters", trace=s)
     assert run.reader("idle_share.map")(r) == pytest.approx(60.0)
