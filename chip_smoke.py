@@ -787,10 +787,11 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     losses = []
     first_color = first_depth = None
 
-    from naruto_tpu_torch.mapping import ba_graph
+    from naruto_tpu_torch.mapping import ba_graph, field
 
     kernels.reset_launch_counts()
     ba_graph.reset_graph_counts()
+    field.reset_volume_counts()
     iters_run = 0
     torch.cuda.synchronize()
     t_all = time.perf_counter()
@@ -883,7 +884,8 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     log(f"[slice] every one of {len(per_iter)} BA iterations and of the "
         f"{len(warm_ups)} warm-up iterations launched "
         f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
-        f"{replays} graph launches in {calls} BA calls")
+        f"{replays} graph launches in {calls} BA calls; volume queries "
+        f"{field.volume_counts()}")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
     peak = torch.cuda.max_memory_allocated() / 2 ** 30

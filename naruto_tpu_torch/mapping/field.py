@@ -10,6 +10,12 @@ Wiring: h = HashGrid(x01) [L*F]; p = OneBlob(x01) [3*bins];
 sdf MLP([h, p]) -> [sdf, geo(15)]; colour MLP([p, geo]) -> rgb;
 uncertainty = trilinear sample of the learnable grid (align_corners=False).
 Raw output channels [rgb(3), sdf, uncert]; SDF in truncation units.
+
+The map volumes (``chunked_volume_maps``) query the voxel grid in chunks
+of ``VOLUME_CHUNK`` points, each written into volumes allocated before
+the first, so a large scene's query holds one chunk's intermediates, not
+the whole grid's (the vertex grid's encode takes ~8.5 KB a point);
+``VOLUME_COUNTS`` counts the queries, their chunks and their voxels.
 The query points carry gradients (to the poses they came from) only where
 ``diff_positions`` is set, as in the JAX package: with tracking on.
 """
@@ -17,7 +23,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +32,7 @@ from naruto_tpu_torch.geometry.voxel import volume_shape
 from naruto_tpu_torch.ops import device_const
 from naruto_tpu_torch.ops.encoding import (HashGridSpec, hash_encode,
                                            init_hash_table)
-from naruto_tpu_torch.ops.grid_sample import trilinear_sample
+from naruto_tpu_torch.ops.grid_sample import cell_pack, trilinear_sample
 from naruto_tpu_torch.ops.mlp import init_mlp_params, mlp_apply
 from naruto_tpu_torch.ops.one_blob import one_blob_encode
 
@@ -120,20 +126,23 @@ def _points(spec: FieldSpec, *x01: torch.Tensor):
     return x01 if spec.diff_positions else tuple(x.detach() for x in x01)
 
 
-def query_uncert(params: Params, x01: torch.Tensor) -> torch.Tensor:
-    """Raw (pre-softplus) uncertainty from the learnable grid."""
-    return trilinear_sample(params["uncert_grid"], x01, align_corners=False)
+def query_uncert(params: Params, x01: torch.Tensor,
+                 cells: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Raw (pre-softplus) uncertainty from the learnable grid; `cells`: its
+    cell_pack(), where the caller holds it."""
+    return trilinear_sample(params["uncert_grid"], x01, align_corners=False,
+                            cells=cells)
 
 
 def _heads(params: Params, x01: torch.Tensor, h: torch.Tensor,
-           spec: FieldSpec):
+           spec: FieldSpec, cells: Optional[torch.Tensor] = None):
     """(sdf, geo, raw uncert, one-blob p) from hash features h."""
     p = one_blob_encode(x01, spec.pos_n_bins)
     out = mlp_apply(params["sdf_mlp"], torch.cat([h, p], dim=-1))
     sdf = out[:, 0]
     if spec.pred_uncert:
         return sdf, out[:, 1:-1], out[:, -1], p
-    uncert = (query_uncert(params, x01) if spec.uncert_grid
+    uncert = (query_uncert(params, x01, cells) if spec.uncert_grid
               else torch.zeros_like(sdf))
     return sdf, out[:, 1:], uncert, p
 
@@ -163,11 +172,12 @@ def field_query_plus_embed(params: Params, x01: torch.Tensor,
 
 
 def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
-              with_uncert: bool = False):
+              with_uncert: bool = False,
+              cells: Optional[torch.Tensor] = None):
     """SDF (and optionally raw uncertainty) at x01 [N, 3]."""
     x01, = _points(spec, x01)
     h = hash_encode(params["table"], x01, spec.hash_spec)
-    sdf, _, uncert, _ = _heads(params, x01, h, spec)
+    sdf, _, uncert, _ = _heads(params, x01, h, spec, cells)
     return (sdf, uncert) if with_uncert else sdf
 
 
@@ -175,11 +185,55 @@ def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
 SURFACE_BAND = (0.0, 0.5)
 
 
-def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec):
+def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
+                cells: Optional[torch.Tensor] = None):
     """(sdf, uncert_map) at x01 [N, 3]: the uncertainty softplus(u) + 0.01
     on the surface band SURFACE_BAND of the SDF, zero off it (the mapper's
-    volumes, which the planner reads)."""
-    sdf, uncert = query_sdf(params, x01, spec, with_uncert=True)
+    volumes, which the planner reads); `cells`: the uncertainty grid's
+    cell_pack(), where the caller holds it."""
+    sdf, uncert = query_sdf(params, x01, spec, with_uncert=True, cells=cells)
     uncert_map = torch.nn.functional.softplus(uncert) + 0.01
     on_surface = (sdf >= SURFACE_BAND[0]) & (sdf < SURFACE_BAND[1])
     return sdf, torch.where(on_surface, uncert_map, 0.0)
+
+
+# points a chunk of the map-volume query. On an H100, jiraiya's 306^3
+# voxels on the vertex grid take 665-707 ms at 2^17-2^21 points a chunk
+# (the uncertainty grid packed once), while the peak grows ~8.5 KB a point
+# of a chunk: 2^20 adds 9.7 GiB, under half a 24 GB card (PERF.md §6)
+VOLUME_CHUNK = 1 << 20
+# map-volume queries, their chunks and their voxels since the last reset
+VOLUME_COUNTS = {"queries": 0, "chunks": 0, "voxels": 0}
+
+
+def reset_volume_counts() -> None:
+    for k in VOLUME_COUNTS:
+        VOLUME_COUNTS[k] = 0
+
+
+def volume_counts() -> Dict[str, int]:
+    return dict(VOLUME_COUNTS)
+
+
+def chunked_volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
+                        sdf: Optional[torch.Tensor] = None,
+                        uncert: Optional[torch.Tensor] = None):
+    """volume_maps at x01 [N, 3] in chunks of VOLUME_CHUNK points, each
+    written into sdf and uncert ([N] each, allocated where not given), the
+    uncertainty grid cell-packed once for all of them. Each point's values
+    are the one-batch query's, bit for bit where one chunk holds every
+    point, else to the rounding of reductions laid out by the chunk's
+    size."""
+    n = x01.shape[0]
+    sdf = x01.new_empty(n) if sdf is None else sdf
+    uncert = x01.new_empty(n) if uncert is None else uncert
+    cells = (cell_pack(params["uncert_grid"])
+             if spec.uncert_grid and not spec.pred_uncert else None)
+    for lo in range(0, n, VOLUME_CHUNK):
+        s, u = volume_maps(params, x01[lo:lo + VOLUME_CHUNK], spec, cells)
+        sdf[lo:lo + s.shape[0]].copy_(s)
+        uncert[lo:lo + s.shape[0]].copy_(u)
+        VOLUME_COUNTS["chunks"] += 1
+    VOLUME_COUNTS["queries"] += 1
+    VOLUME_COUNTS["voxels"] += n
+    return sdf, uncert

@@ -20,7 +20,7 @@ naruto_tpu/mapping/mapper.py).
     against the frozen field, on ``track_sample`` pixels away from the
     border; the lowest-loss iterate is kept (``track_best``).
   * volumes: the field's SDF and uncertainty on the planner's voxel grid,
-    uncertainty zeroed off-surface.
+    uncertainty zeroed off-surface, queried in fixed-size chunks.
 
 The JAX ``lax.scan`` is a Python loop and its ``lax.cond``s are Python
 ``if``s on the host-side iteration number. On a card in one process the
@@ -75,8 +75,8 @@ from naruto_tpu_torch.config import MainConfig
 from naruto_tpu_torch.geometry.rays import get_camera_rays
 from naruto_tpu_torch.geometry.voxel import volume_shape, world_grid
 from naruto_tpu_torch.mapping.ba_graph import BAGraphs
-from naruto_tpu_torch.mapping.field import (FieldSpec, init_field_params,
-                                            query_sdf, volume_maps)
+from naruto_tpu_torch.mapping.field import (FieldSpec, chunked_volume_maps,
+                                            init_field_params, query_sdf)
 from naruto_tpu_torch.mapping.keyframes import (KeyframeDB, add_keyframe,
                                                 sample_global_rays)
 from naruto_tpu_torch.mapping.losses import (LossWeights, smoothness_points,
@@ -97,7 +97,7 @@ from naruto_tpu_torch.utils.printer import InfoPrinter
 from naruto_tpu_torch.utils.seeding import (generator_states,
                                             make_generators,
                                             set_generator_states)
-from naruto_tpu_torch.utils.timer import Timer, span, stage
+from naruto_tpu_torch.utils.timer import SPANS, Timer, span, stage
 
 # padded current-ray block sizes, as in the JAX package
 CUR_BUCKETS = (512, 2048, 8192)
@@ -124,7 +124,9 @@ class LazyVolumes:
     give the device tensors (the planner's aggregation reads them there);
     ``host(i)`` gives volume i as host numpy, copied on its first read into
     pinned memory on a side stream behind the event recorded when the
-    volumes were enqueued, and timed as [Mapper] ``volumes_wait``. A step
+    volumes were enqueued, and timed as [Mapper] ``volumes_wait``: the wait
+    for the volumes on the device, then the copy alone, the span
+    ``volumes.host`` (its ``arg`` the volume's index). A step
     whose consumers never read a host copy never waits for the device, and
     a volume no one reads on the host is never copied. ``ready()`` waits
     for the volumes on the device, no copy. The values are those of an
@@ -166,7 +168,9 @@ class LazyVolumes:
         if self._np[i] is None:
             with (self._timer.time("volumes_wait", "Mapper") if self._timer
                   else contextlib.nullcontext()):
-                self._np[i] = self._pull(self._dev[i])
+                self.ready()
+                with span("volumes.host", i):
+                    self._np[i] = self._pull(self._dev[i])
         return self._np[i]
 
     def __getitem__(self, i: int) -> torch.Tensor:
@@ -977,10 +981,13 @@ class Mapper:
     # --------------------------------------------------------- map volumes
     @torch.no_grad()
     def _volumes_impl(self):
+        """(uncert_map, sdf) of the voxel grid, each a new volume that the
+        query's chunks write into (field.py ``chunked_volume_maps``)."""
         if self._sharded_vol is not None:
             sdf, uncert_map = self._sharded_vol(self.params, self.grid01)
         else:
-            sdf, uncert_map = volume_maps(self.params, self.grid01, self.spec)
+            sdf, uncert_map = chunked_volume_maps(self.params, self.grid01,
+                                                  self.spec)
         return (uncert_map.reshape(self.vol_shape),
                 sdf.reshape(self.vol_shape))
 
@@ -988,9 +995,12 @@ class Mapper:
         """(uncert_vol, sdf_vol) device tensors. uncert_vol is the mapper's
         own, which the active-ray selection reads, refreshed in place (a
         captured BA call reads it at a fixed address): the next call
-        rewrites it, so read it, or its host copy, before then."""
-        u, s = self._volumes_impl()
-        self.uncert_vol.copy_(u)
+        rewrites it, so read it, or its host copy, before then. The
+        query and the refresh are the span ``volumes.query``, with its
+        device time on a card."""
+        with SPANS.timed("volumes.query", self.device):
+            u, s = self._volumes_impl()
+            self.uncert_vol.copy_(u)
         return self.uncert_vol, s
 
     def get_map_volumes(self):

@@ -15,6 +15,8 @@ device.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from naruto_tpu_torch.ops import device_const, primitives
@@ -45,8 +47,10 @@ def _corner_data(shape, coords: torch.Tensor):
     return cell, w, frac
 
 
-def _cell_pack(vol: torch.Tensor) -> torch.Tensor:
-    """[X, Y, Z] -> [(X-1)(Y-1)(Z-1), 8]: the 8 corner values of each cell."""
+def cell_pack(vol: torch.Tensor) -> torch.Tensor:
+    """[X, Y, Z] -> [(X-1)(Y-1)(Z-1), 8]: the 8 corner values of each cell,
+    which every sample of vol gathers from (a caller that samples one
+    volume in many batches packs it once)."""
     X, Y, Z = vol.shape
     return torch.stack([vol[dx:dx + X - 1, dy:dy + Y - 1, dz:dz + Z - 1]
                         for dx, dy, dz in _CORNERS], dim=-1).reshape(-1, 8)
@@ -54,9 +58,10 @@ def _cell_pack(vol: torch.Tensor) -> torch.Tensor:
 
 class _Trilerp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vol, coords):
+    def forward(ctx, vol, coords, cells):
         cell, w, frac = _corner_data(vol.shape, coords)
-        vals = primitives.gather_rows(_cell_pack(vol), cell)   # [N, 8]
+        cells = cell_pack(vol) if cells is None else cells
+        vals = primitives.gather_rows(cells, cell)   # [N, 8]
         ctx.save_for_backward(cell, w, frac, vals)
         ctx.vol_shape = tuple(vol.shape)
         return torch.sum(vals * w, dim=-1)
@@ -73,7 +78,7 @@ class _Trilerp(torch.autograd.Function):
             d_cell = dense_segment_sum(cell, g[:, None] * w, n_cells,
                                        pack_bf16=False)
             d_cell = d_cell.reshape(X - 1, Y - 1, Z - 1, 8)
-            # exact transpose of _cell_pack: each corner block adds into the
+            # exact transpose of cell_pack: each corner block adds into the
             # vertex grid at its corner offset
             d_vol = g.new_zeros((X, Y, Z))
             for k, (dx, dy, dz) in enumerate(_CORNERS):
@@ -87,20 +92,23 @@ class _Trilerp(torch.autograd.Function):
             p = torch.stack([t[..., 1] * t[..., 2], t[..., 0] * t[..., 2],
                              t[..., 0] * t[..., 1]], dim=-1)   # [N, 8, 3]
             d_coords = torch.einsum("n,nc,ca,nca->na", g, vals, sign, p)
-        return d_vol, d_coords
+        return d_vol, d_coords, None
 
 
-def _trilerp(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    return _Trilerp.apply(vol, coords)
+def _trilerp(vol: torch.Tensor, coords: torch.Tensor,
+             cells: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _Trilerp.apply(vol, coords, cells)
 
 
 def trilinear_sample(vol: torch.Tensor, pts01: torch.Tensor,
-                     align_corners: bool = False) -> torch.Tensor:
-    """Sample vol [X, Y, Z] at normalized points pts01 [N, 3] in [0, 1]^3."""
+                     align_corners: bool = False,
+                     cells: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample vol [X, Y, Z] at normalized points pts01 [N, 3] in [0, 1]^3;
+    `cells`: vol's cell_pack(), where the caller holds it already."""
     shape = device_const(tuple(vol.shape), pts01.dtype, pts01.device)
     g = pts01 * 2.0 - 1.0
     if align_corners:
         coords = (g + 1.0) / 2.0 * (shape - 1.0)
     else:
         coords = ((g + 1.0) * shape - 1.0) / 2.0
-    return _trilerp(vol, coords)
+    return _trilerp(vol, coords, cells)

@@ -26,7 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from naruto_tpu_torch.mapping.field import FieldSpec, volume_maps
+from naruto_tpu_torch.mapping.field import FieldSpec, chunked_volume_maps
 from naruto_tpu_torch.mapping.losses import LossWeights, total_loss
 from naruto_tpu_torch.mapping.render import RenderConfig, render_rays
 from naruto_tpu_torch.parallel.mesh import (Mesh, all_reduce, data_sharding,
@@ -122,8 +122,9 @@ def sharded_grad_step(mesh: Mesh, spec: FieldSpec, rc: RenderConfig,
 
 def sharded_volume_query(mesh: Mesh, spec: FieldSpec):
     """The dense (sdf, uncert_map) query with the flattened voxel axis split
-    across the ranks (padded to a multiple of their number); returns the
-    whole volume on every rank."""
+    across the ranks (padded to a multiple of their number), each rank's
+    share in chunks (field.py ``chunked_volume_maps``); returns the whole
+    volume on every rank."""
 
     @torch.no_grad()
     def query(params, x01: torch.Tensor):
@@ -133,8 +134,8 @@ def sharded_volume_query(mesh: Mesh, spec: FieldSpec):
         hi = min(lo + per, n)
         block = torch.zeros((per, 2), dtype=torch.float32, device=x01.device)
         if hi > lo:
-            block[:hi - lo] = torch.stack(
-                volume_maps(params, x01[lo:hi], spec), -1)
+            chunked_volume_maps(params, x01[lo:hi], spec, block[:hi - lo, 0],
+                                block[:hi - lo, 1])
         full = gather_blocks(block, n, mesh, "volumes")
         return full[:, 0], full[:, 1]
 

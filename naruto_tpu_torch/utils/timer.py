@@ -14,6 +14,12 @@ while one records, each span also enters
 ``torch.profiler.record_function(name)``, so that it lands in the trace as
 a ``user_annotation`` on the clock of the card's kernels.
 
+Device spans. ``SPANS.timed(name, device)`` is a span that, on a card,
+also records a CUDA timing event pair on the current stream around what
+it enqueues (the map-volume query's ``volumes.query``); the store keeps
+the last ``DEVICE_CAPACITY`` pairs and reads them only on request
+(``SPANS.device_ms(name)``, which synchronizes).
+
 Timer. Behavioral parity with the reference Timer (src/utils/timer.py:30-135):
 named start/end accumulators organised in groups, a summary printed at run
 end with median and mean per item, plus a context-manager API. Each section
@@ -42,6 +48,8 @@ from torch.autograd import profiler as _profiler
 
 # records the store keeps: the spans of ~8,000 BA calls, 8 a call
 CAPACITY = 1 << 16
+# CUDA event pairs of device spans the store keeps (one a mapping step)
+DEVICE_CAPACITY = 1 << 12
 
 
 class Span(NamedTuple):
@@ -69,10 +77,13 @@ class _Open:
 
 class SpanStore:
     """The last `capacity` spans of the process, each thread's open spans,
-    and the stage marks of the BA graphs."""
+    the event pairs of the device spans and the stage marks of the BA
+    graphs."""
 
     def __init__(self, capacity: int = CAPACITY):
         self._ring: deque = deque(maxlen=capacity)
+        # (span id, name, start event, end event) of the device spans
+        self._device: deque = deque(maxlen=DEVICE_CAPACITY)
         self._ids = count()
         self._local = threading.local()
         self._stages: Optional[list] = None
@@ -117,6 +128,29 @@ class SpanStore:
     def records(self) -> List[Span]:
         """The spans kept, in the order they ended."""
         return list(self._ring)
+
+    @contextmanager
+    def timed(self, name: str, device: torch.device):
+        """A span; on a card also a CUDA event pair on the current stream
+        around the work it enqueues, kept for device_ms()."""
+        with self.open(name) as s:
+            if device.type != "cuda":
+                yield
+                return
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            yield
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            self._device.append((s.id, name, e0, e1))
+
+    def device_ms(self, name: str) -> List[float]:
+        """The device ms of each kept device span named `name`, in the
+        order they were opened."""
+        pairs = [(a, b) for _, n, a, b in self._device if n == name]
+        if pairs:
+            torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in pairs]
 
     @contextmanager
     def stage_events(self):
