@@ -29,7 +29,8 @@ right after 4):
      too, phase 14's sharded BA the eager loop. Every BA iteration must
      launch each kernel entry point of the path its fixed number of times
      (BA_LAUNCHES_PER_ITER; a replayed iteration, what its capture
-     recorded);
+     recorded); the volume queries and their query_inputs launches (none
+     on the hybrid grid) are printed;
  15. the graph, run right after phase 4 on its mapper: an eager copy made
      through the full state, then the calls of GRAPH_CALLS (a bucket
      change and back) in both forms in turns, equal bit for bit after
@@ -59,7 +60,9 @@ right after 4):
      bound, index_add_ and torch.sort (SegmentForms); the host's cost per
      call of every wrapper and plain version; then both ported microbenchmark
      scripts run in this process, and their launch counts show every
-     kernel ran;
+     kernel ran; the optimizer steps; the vertex grid's SDF decoder input
+     (csrc/query_inputs.cu) against its plain version bit for bit at
+     office0's 96,040 voxels and jiraiya's first 2^20-voxel chunk, timed;
   6. the passive run: the port's Engine on configs/ab/passive_traj_ab.yaml
      (1,000 steps of data/traj_ab/traj.txt on the analytic office0 room,
      the full-width defaults of phase 4) through run() and finalize(), as
@@ -425,6 +428,7 @@ SOURCE = {
     "row_cumsum": "naruto_tpu_torch/csrc/row_cumsum.cu",
     "embed_adam": "naruto_tpu_torch/csrc/adam.cu",
     "adam": "naruto_tpu_torch/csrc/adam.cu",
+    "query_inputs": "naruto_tpu_torch/csrc/query_inputs.cu",
 }
 REPLACES = {
     "outer_scan": ["naruto_tpu/ops/pallas_kernels.py:57",
@@ -885,7 +889,10 @@ def run_slice(torch, kernels, profile_dir) -> dict:
         f"{len(warm_ups)} warm-up iterations launched "
         f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
         f"{replays} graph launches in {calls} BA calls; volume queries "
-        f"{field.volume_counts()}")
+        f"{field.volume_counts()}, query_inputs launches "
+        f"{counts['query_inputs']}")
+    if counts["query_inputs"]:
+        fail("the hybrid grid's volume queries launched query_inputs")
     its = WINDOW_STEPS * m.iters / elapsed
     rays = m.sample + bucket // 4
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1717,6 +1724,40 @@ def check_optimizers(torch, root: str, dev) -> dict:
             f"{OPTIM_BYTES_PER_PARAM} B a parameter), "
             f"{case['roofline_pct']:.1f}% of it L2 flushed")
         out[kernel].append(case)
+    return out
+
+
+def check_query_inputs(torch, dev) -> list:
+    """csrc/query_inputs.cu against its plain version (the encode and the
+    one-blob concatenated) on the same card tensors, bit for bit, on the
+    vertex grid with random tables: office0's 96,040 voxels and jiraiya's
+    first 2^20-voxel chunk, both timed, the chunk also by the profiler.
+    Returns the cases."""
+    from naruto_tpu_torch.ops import encoding
+    from naruto_tpu_torch.scripts import probe_query_inputs as probe
+
+    out = []
+    for name, scene, n in (("office0 grid", ("Replica", "office0"), None),
+                           ("jiraiya chunk", ("NARUTO", "jiraiya"),
+                            probe.CHUNK)):
+        spec, x = probe.scene(*scene)
+        x = x[:n].contiguous()
+        hs, bins = spec.hash_spec, spec.pos_n_bins
+        table = probe.random_table(hs, 5)
+        cols = hs.output_dim + 3 * bins
+
+        def kern():
+            return encoding.vertex_query_inputs(table, x, hs, bins)
+
+        def plain():
+            return encoding.vertex_query_inputs_plain(table, x, hs, bins)
+
+        if not torch.equal(kern(), plain()):
+            fail(f"query_inputs {name}: the kernel differs from the chain")
+        out.append(kernel_case(
+            torch, "query_inputs", f"{name} [{x.shape[0]}, {cols}]", kern,
+            plain, 0.0, nbytes=x.shape[0] * (12 + 4 * cols)
+            + table.numel() * 4, profiled=n is not None, deterministic=True))
     return out
 
 
@@ -3490,6 +3531,7 @@ def main() -> None:
     hres = check_host_costs(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
     ores = check_optimizers(torch, root, dev)
+    qres = check_query_inputs(torch, dev)
     done("5")
     sres = run_slice(torch, kernels, args.profile)
     done("4")
@@ -3669,6 +3711,16 @@ def main() -> None:
                                  **{path: counts[name]
                                     for path, counts, _ in runs}},
             "cases": ores[name]})
+    # the vertex grid's no-grad queries: phase 8's volumes and final mesh
+    entries.append({
+        "name": "query_inputs", "route": "cuda",
+        "source": SOURCE["query_inputs"], "replaces": [],
+        "launches": parity["query_inputs"],
+        "launches_by_path": {"slice": on_slice["query_inputs"],
+                             "graph": on_graph["query_inputs"],
+                             **{path: counts["query_inputs"]
+                                for path, counts, _ in runs}},
+        **summary(qres[1]), "cases": qres})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

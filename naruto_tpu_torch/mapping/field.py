@@ -14,8 +14,11 @@ Raw output channels [rgb(3), sdf, uncert]; SDF in truncation units.
 The map volumes (``chunked_volume_maps``) query the voxel grid in chunks
 of ``VOLUME_CHUNK`` points, each written into volumes allocated before
 the first, so a large scene's query holds one chunk's intermediates, not
-the whole grid's (the vertex grid's encode takes ~8.5 KB a point);
-``VOLUME_COUNTS`` counts the queries, their chunks and their voxels.
+the whole grid's; ``VOLUME_COUNTS`` counts the queries, their chunks and
+their voxels. A query that asks no gradient on a card takes the SDF
+decoder's input from one kernel on the vertex grid with float32 gathers
+(``_decoder_input``, ``ops/encoding.py::vertex_query_inputs``): the
+encode's chain held ~8.5 KB a point of intermediates.
 The query points carry gradients (to the poses they came from) only where
 ``diff_positions`` is set, as in the JAX package: with tracking on.
 """
@@ -31,7 +34,9 @@ import torch
 from naruto_tpu_torch.geometry.voxel import volume_shape
 from naruto_tpu_torch.ops import device_const
 from naruto_tpu_torch.ops.encoding import (HashGridSpec, hash_encode,
-                                           init_hash_table)
+                                           init_hash_table,
+                                           query_inputs_refusal,
+                                           vertex_query_inputs)
 from naruto_tpu_torch.ops.grid_sample import cell_pack, trilinear_sample
 from naruto_tpu_torch.ops.mlp import init_mlp_params, mlp_apply
 from naruto_tpu_torch.ops.one_blob import one_blob_encode
@@ -134,25 +139,41 @@ def query_uncert(params: Params, x01: torch.Tensor,
                             cells=cells)
 
 
-def _heads(params: Params, x01: torch.Tensor, h: torch.Tensor,
-           spec: FieldSpec, cells: Optional[torch.Tensor] = None):
-    """(sdf, geo, raw uncert, one-blob p) from hash features h."""
+def _decoder_input(params: Params, x01: torch.Tensor, spec: FieldSpec):
+    """(the SDF decoder's input [h, p] [N, L*F + 3*bins], the one-blob p).
+    One kernel writes it where the points lie on a card and
+    ``query_inputs_refusal`` names no reason: the vertex grid with float32
+    gathers, no gradient asked (the map volumes, the mesh, predict_sdf);
+    else the encode and the one-blob concatenated (the BA, tracking, the
+    CPU, the hybrid and cell layouts)."""
+    if x01.is_cuda and not query_inputs_refusal(
+            params["table"], x01, spec.hash_spec, spec.pos_n_bins):
+        inp = vertex_query_inputs(params["table"], x01, spec.hash_spec,
+                                  spec.pos_n_bins)
+        return inp, inp[:, spec.hash_dim:]
+    h = hash_encode(params["table"], x01, spec.hash_spec)
     p = one_blob_encode(x01, spec.pos_n_bins)
-    out = mlp_apply(params["sdf_mlp"], torch.cat([h, p], dim=-1))
+    return torch.cat([h, p], dim=-1), p
+
+
+def _heads(params: Params, x01: torch.Tensor, inp: torch.Tensor,
+           spec: FieldSpec, cells: Optional[torch.Tensor] = None):
+    """(sdf, geo, raw uncert) from the SDF decoder's input inp = [h, p]."""
+    out = mlp_apply(params["sdf_mlp"], inp)
     sdf = out[:, 0]
     if spec.pred_uncert:
-        return sdf, out[:, 1:-1], out[:, -1], p
+        return sdf, out[:, 1:-1], out[:, -1]
     uncert = (query_uncert(params, x01, cells) if spec.uncert_grid
               else torch.zeros_like(sdf))
-    return sdf, out[:, 1:], uncert, p
+    return sdf, out[:, 1:], uncert
 
 
 def field_query(params: Params, x01: torch.Tensor,
                 spec: FieldSpec) -> torch.Tensor:
     """Full raw query -> [N, 5]: [rgb(3) pre-sigmoid, sdf, uncert]."""
     x01, = _points(spec, x01)
-    h = hash_encode(params["table"], x01, spec.hash_spec)
-    sdf, geo, uncert, p = _heads(params, x01, h, spec)
+    inp, p = _decoder_input(params, x01, spec)
+    sdf, geo, uncert = _heads(params, x01, inp, spec)
     rgb = mlp_apply(params["color_mlp"], torch.cat([p, geo], dim=-1))
     return torch.cat([rgb, sdf[:, None], uncert[:, None]], dim=-1)
 
@@ -165,7 +186,9 @@ def field_query_plus_embed(params: Params, x01: torch.Tensor,
     n = x01.shape[0]
     h_all = hash_encode(params["table"], torch.cat([x01, x01_extra]),
                         spec.hash_spec)
-    sdf, geo, uncert, p = _heads(params, x01, h_all[:n], spec)
+    p = one_blob_encode(x01, spec.pos_n_bins)
+    sdf, geo, uncert = _heads(params, x01, torch.cat([h_all[:n], p], dim=-1),
+                              spec)
     rgb = mlp_apply(params["color_mlp"], torch.cat([p, geo], dim=-1))
     raw = torch.cat([rgb, sdf[:, None], uncert[:, None]], dim=-1)
     return raw, h_all[n:]
@@ -176,8 +199,8 @@ def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
               cells: Optional[torch.Tensor] = None):
     """SDF (and optionally raw uncertainty) at x01 [N, 3]."""
     x01, = _points(spec, x01)
-    h = hash_encode(params["table"], x01, spec.hash_spec)
-    sdf, _, uncert, _ = _heads(params, x01, h, spec, cells)
+    sdf, _, uncert = _heads(params, x01, _decoder_input(params, x01, spec)[0],
+                            spec, cells)
     return (sdf, uncert) if with_uncert else sdf
 
 
@@ -198,9 +221,11 @@ def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
 
 
 # points a chunk of the map-volume query. On an H100, jiraiya's 306^3
-# voxels on the vertex grid take 665-707 ms at 2^17-2^21 points a chunk
-# (the uncertainty grid packed once), while the peak grows ~8.5 KB a point
-# of a chunk: 2^20 adds 9.7 GiB, under half a 24 GB card (PERF.md §6)
+# voxels on the vertex grid take 103 / 63 / 62 / 61 / 60 ms at 2^18-2^22
+# points a chunk (the decoder input from one kernel, the uncertainty grid
+# packed once), while the peak grows ~0.7 KB a point of a chunk: 2^20
+# adds 0.68 GiB (the encode's chain held ~8.5 KB a point, 9.7 GiB at 2^20;
+# it still runs on the hybrid and cell grids; PERF.md §6)
 VOLUME_CHUNK = 1 << 20
 # map-volume queries, their chunks and their voxels since the last reset
 VOLUME_COUNTS = {"queries": 0, "chunks": 0, "voxels": 0}

@@ -18,17 +18,25 @@ segment sum of ``ops/segment.py`` (the hand-written kernels of
 gradient with respect to the points (the pose's, when poses are optimised)
 is the product rule over the corner weights, on the features gathered
 again; each of the two runs only where an input asks for it.
+
+``vertex_query_inputs`` writes the SDF decoder's whole input, the hash
+features and the one-blob, for a query that asks no gradient: on a card in
+one launch of ``csrc/query_inputs.cu`` (vertex layout, float32 gathers),
+bit for bit its plain version, the encode and the one-blob concatenated.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from naruto_tpu_torch.ops import device_const, primitives
+from naruto_tpu_torch.ops import device_const, kernels, primitives
+from naruto_tpu_torch.ops.one_blob import one_blob_encode
 
 # instant-ngp hash primes (pi1 = 1 keeps a dense-ish x ordering)
 _PRIMES = (1, 2654435761, 805459861)
@@ -381,3 +389,78 @@ def hash_encode(table, x: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
     """Encode points x [N, 3] in [0, 1] -> [N, L*F] f32 features;
     differentiable in the table and in x."""
     return _HashEncode.apply(x, spec, *table_leaves(table))
+
+
+def query_inputs_refusal(table, x: torch.Tensor, spec: HashGridSpec,
+                         n_bins: int) -> str:
+    """Why ``csrc/query_inputs.cu`` cannot write the decoder input of this
+    query ('' where it can): it takes the vertex layout with float32
+    gathers, 2 features a level (tcnn's), an even count of at most 32
+    levels and a multiple of 4 bins (whole 16-byte stores), float32
+    points, and no gradient through the table or the points."""
+    if spec.layout != "vertex":
+        return f"the {spec.layout} layout"
+    if spec.gather_dtype != "float32":
+        return f"{spec.gather_dtype} gathers"
+    if spec.n_features != 2 or spec.n_levels > 32 or spec.n_levels % 2 \
+            or n_bins % 4 or n_bins < 4:
+        return (f"{spec.n_levels} levels of {spec.n_features} features "
+                f"and {n_bins} bins")
+    if x.dtype != torch.float32:
+        return f"{x.dtype} points"
+    if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad):
+        return "a gradient through the table or the points"
+    return ""
+
+
+def vertex_query_inputs_plain(table, x: torch.Tensor, spec: HashGridSpec,
+                              n_bins: int) -> torch.Tensor:
+    return torch.cat([hash_encode(table, x, spec),
+                      one_blob_encode(x, n_bins)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_words(spec: HashGridSpec):
+    """(R, dense, offset) a level, int32, for the kernel's parameters."""
+    words = [w for r, d, off in zip(spec.resolutions, spec.dense_mask,
+                                    spec.level_offsets)
+             for w in (r, int(d), off)]
+    return (ctypes.c_int32 * len(words))(*words)
+
+
+def vertex_query_inputs(table, x: torch.Tensor, spec: HashGridSpec,
+                        n_bins: int) -> torch.Tensor:
+    """The SDF decoder's input at x [N, 3] in [0, 1]: [N, L*F + 3*n_bins]
+    f32, the hash features, then the one-blob. On the CPU the plain
+    version; on a card one launch, bit for bit the plain version there, or
+    a ValueError where ``query_inputs_refusal`` names a reason."""
+    if not x.is_cuda:
+        return vertex_query_inputs_plain(table, x, spec, n_bins)
+    why = query_inputs_refusal(table, x, spec, n_bins)
+    if why:
+        raise ValueError(f"no query_inputs kernel for {why}")
+    tbl = _gather_table(table, spec)
+    if x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"points must be [N, 3], got {tuple(x.shape)}")
+    x = x.contiguous()
+    n = x.shape[0]
+    if tbl.shape != (spec.total_entries, 2) or not tbl.is_contiguous() \
+            or tbl.data_ptr() % 8 or tbl.device != x.device:
+        raise ValueError(f"table {tuple(tbl.shape)} must be contiguous, "
+                         f"8-byte aligned and on {x.device}")
+    out = torch.empty((n, spec.output_dim + 3 * n_bins), dtype=torch.float32,
+                      device=x.device)
+    if n:
+        # one_blob_encode's edges, and torch's division by the host scalar
+        # sigma * sqrt(2): a product with its f32 reciprocal
+        edges = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float32,
+                               device=x.device)
+        inv = np.float32(1.0) / np.float32(1.0 / n_bins * math.sqrt(2.0))
+        words = _level_words(spec)
+        kernels.launch(
+            "query_inputs",
+            kernels.lib("query_inputs").naruto_vertex_query_inputs, x.device,
+            x.data_ptr(), tbl.data_ptr(), edges.data_ptr(), out.data_ptr(),
+            n, ctypes.addressof(words), spec.n_levels,
+            spec.table_size - 1, n_bins, float(inv))
+    return out

@@ -16,7 +16,8 @@ design answers it), with two store epilogues:
 
 The kernels of the hash-grid microbenchmarks are wrapped in
 ``ops/primitives.py``, the optimizer steps (``csrc/adam.cu``) in
-``mapping/optim.py``.
+``mapping/optim.py``, the vertex grid's SDF decoder input
+(``csrc/query_inputs.cu``) in ``ops/encoding.py``.
 
 Every wrapper takes its plain version for a tensor on the CPU (the tests
 run there) and launches its kernel for a CUDA tensor; it never falls back.
@@ -80,14 +81,19 @@ ENTRY_POINTS = {
                               + [_F32] * 6 + [_P], _I32),
         "naruto_adam": ([_P, _P, _P, _P, _P, _I32, _P, _P] + [_F32] * 5
                         + [_P], _I32)},
+    "query_inputs": {
+        "naruto_vertex_query_inputs": (
+            [_P, _P, _P, _P, _I64, _P, _I32, _I64, _I32, _F32, _P],
+            _I32)},
 }
 
 # launches of each entry point since the last reset (plain versions do not
 # count); the fused scan counts each epilogue apart; embed_adam and adam are
-# the optimizer steps of mapping/optim.py
+# the optimizer steps of mapping/optim.py, query_inputs the vertex grid's
+# no-grad SDF decoder input (ops/encoding.py)
 LAUNCHES = {"outer_scan_rows": 0, "outer_scan_slots": 0, "gather_rows": 0,
             "sorted_segment_sum": 0, "row_cumsum": 0, "embed_adam": 0,
-            "adam": 0}
+            "adam": 0, "query_inputs": 0}
 # per source: nvcc's wall seconds (None: the library was already built) and
 # its -Xptxas=-v report
 BUILD_LOG = {src: {"seconds": None, "ptxas": ""} for src in ENTRY_POINTS}

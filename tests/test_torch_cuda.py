@@ -1345,7 +1345,8 @@ def test_ba_graph_launch_accounting(cuda_device):
     assert prog.launches_per_iter == [
         {"outer_scan_slots": 1, "outer_scan_rows": 0, "gather_rows": 4,
          "row_cumsum": 0, "sorted_segment_sum": 1, "embed_adam": 1,
-         "adam": 1 + (it in uncert)} for it in range(iters)]
+         "adam": 1 + (it in uncert), "query_inputs": 0}
+        for it in range(iters)]
     assert eager_counts == {
         k: sum(c[k] for c in prog.launches_per_iter) for k in eager_counts}
     for k in (1, 2):
@@ -1626,3 +1627,153 @@ def test_optimizer_step_refuses_bad_leaves_on_card(cuda_device, fault):
     with pytest.raises(ValueError):
         opt.step(params, grads, scal[0], scal[1])
     assert kernels.launch_counts()["embed_adam"] == n0
+
+
+# ------------------------------------- the vertex grid's SDF decoder input
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["office0 grid", "jiraiya chunk",
+                                  "random points"])
+def test_query_inputs_equal_the_chain_on_card(cuda_device, case):
+    """csrc/query_inputs.cu's [n, 80] equals the encode and one-blob chain
+    on the same card tensors bit for bit, in one launch: office0's 96,040
+    voxels, the first 2^20-voxel chunk of jiraiya's 306^3 grid, and 4,913
+    random points, a tenth with a coordinate on a face (0 or 1)."""
+    from naruto_tpu_torch.scripts import probe_query_inputs as probe
+
+    if case == "office0 grid":
+        spec, x = probe.scene("Replica", "office0")
+    else:
+        spec, x = probe.scene("NARUTO", "jiraiya")
+        x = (x[:probe.CHUNK].contiguous() if case == "jiraiya chunk"
+             else probe.random_points(4913, 7))
+    table = probe.random_table(spec.hash_spec, 5)
+    assert probe.compare(case, table, x, spec.hash_spec, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,bins", [(2, 8), (4, 4)])
+def test_query_inputs_small_grids_on_card(cuda_device, levels, bins):
+    """Grids of 2 and 4 levels with 8 and 4 bins (rows of 28 and 20
+    columns: other strides and stores than the vertex grid's 80) equal the
+    chain bit for bit."""
+    from naruto_tpu_torch.ops.encoding import HashGridSpec
+    from naruto_tpu_torch.scripts import probe_query_inputs as probe
+
+    spec = HashGridSpec(n_levels=levels, log2_table_size=12,
+                        finest_resolution=200)
+    assert probe.compare(f"L{levels}F2, {bins} bins",
+                         probe.random_table(spec, 8),
+                         probe.random_points(3001, 9), spec, bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["office0", "jiraiya"])
+def test_query_inputs_volumes_equal_the_chain_on_card(cuda_device, scene,
+                                                      monkeypatch):
+    """The chunked map query through the kernel gives the chain's SDF and
+    uncertainty volumes bit for bit (the decoder's GEMM reads the same
+    bits at the same shape): office0's 96,040 voxels in one chunk, and
+    jiraiya's first 1,500,000 voxels in a chunk of 2^20 and a short one."""
+    from naruto_tpu_torch.mapping import field
+    from naruto_tpu_torch.ops import encoding
+    from naruto_tpu_torch.scripts import probe_query_inputs as probe
+
+    spec, x = probe.scene(*(("Replica", "office0") if scene == "office0"
+                            else ("NARUTO", "jiraiya")))
+    x = x[:1_500_000].contiguous()
+    params = field.init_field_params(
+        spec, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    params["table"].normal_(generator=torch.Generator(
+        device="cuda").manual_seed(4))
+    params["uncert_grid"].normal_(generator=torch.Generator(
+        device="cuda").manual_seed(5))
+    for p in encoding.table_leaves(params["table"]):
+        p.requires_grad_(True)
+    field.reset_volume_counts()
+    n0 = kernels.launch_counts()["query_inputs"]
+    with torch.no_grad():
+        got = field.chunked_volume_maps(params, x, spec)
+    assert kernels.launch_counts()["query_inputs"] - n0 == \
+        field.volume_counts()["chunks"] == (1 if scene == "office0" else 2)
+    monkeypatch.setattr(field, "query_inputs_refusal",
+                        lambda *a: "the chain, for this test")
+    with torch.no_grad():
+        want = field.chunked_volume_maps(params, x, spec)
+    assert kernels.launch_counts()["query_inputs"] - n0 == \
+        (1 if scene == "office0" else 2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert 0 < int((got[1] > 0).sum()) < got[1].numel()
+
+
+def _jiraiya_tiny_cfg():
+    """jiraiya's bound, 0.02 m volumes (306^3) and vertex grid, on the
+    graph tests' 24x32 frames and BA settings."""
+    from naruto_tpu_torch.config import make_config
+
+    mapper = {k: v for k, v in GRAPH_TINY["mapper"].items()
+              if k not in ("bound", "marching_cubes_bound", "voxel_size")}
+    return make_config("NARUTO", "jiraiya", num_iter=40, overrides={
+        "cam": GRAPH_TINY["cam"], "grid": GRAPH_SETTINGS["vertex"]["grid"],
+        "mapper": mapper, "training": GRAPH_TINY["training"]})
+
+
+@pytest.mark.cuda
+def test_query_inputs_launch_once_a_chunk_on_card(cuda_device):
+    """At jiraiya's volumes on the vertex grid a map query launches the
+    kernel once a chunk (28 of 2^20 voxels); a BA call, eager or a graph
+    replay, never (its forward asks the table's gradient); the hybrid
+    grid's query never."""
+    from naruto_tpu_torch.mapping import field
+
+    m = _graph_mapper(_jiraiya_tiny_cfg(), cuda_device)
+    assert m.grid01.shape[0] == 306 ** 3
+    kernels.reset_launch_counts()
+    field.reset_volume_counts()
+    m.map_volumes()
+    torch.cuda.synchronize()
+    assert field.volume_counts()["chunks"] == -(-306 ** 3 // field.VOLUME_CHUNK)
+    assert kernels.launch_counts()["query_inputs"] == \
+        field.volume_counts()["chunks"]
+    kernels.reset_launch_counts()
+    _graph_call(m, True, 512, 0)
+    _graph_call(m, False, 512, 1)
+    _graph_call(m, False, 512, 2)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["query_inputs"] == 0 and counts["embed_adam"] > 0
+    hybrid = _graph_mapper(_graph_cfg("hybrid"), cuda_device)
+    kernels.reset_launch_counts()
+    hybrid.map_volumes()
+    assert kernels.launch_counts()["query_inputs"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["table_grad", "points_grad", "hybrid",
+                                   "bfloat16"])
+def test_query_inputs_refuse_on_card(cuda_device, fault):
+    """The wrapper raises, before any launch, where a gradient is asked or
+    the grid is not the vertex layout with float32 gathers."""
+    import dataclasses
+
+    from naruto_tpu_torch.ops import encoding
+    from naruto_tpu_torch.scripts import probe_query_inputs as probe
+
+    spec = encoding.HashGridSpec(n_levels=4, n_features=2,
+                                 log2_table_size=12, finest_resolution=64)
+    table = probe.random_table(spec, 1)
+    x = probe.random_points(100, 2)
+    if fault == "table_grad":
+        table.requires_grad_(True)
+    elif fault == "points_grad":
+        x.requires_grad_(True)
+    else:
+        spec = dataclasses.replace(
+            spec, **({"layout": "hybrid"} if fault == "hybrid"
+                     else {"gather_dtype": "bfloat16"}))
+        table = encoding.init_hash_table(spec, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+    n0 = kernels.launch_counts()["query_inputs"]
+    with pytest.raises(ValueError):
+        encoding.vertex_query_inputs(table, x, spec, 16)
+    assert kernels.launch_counts()["query_inputs"] == n0
