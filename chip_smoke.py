@@ -3,182 +3,88 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Phases (any failure exits non-zero, and nothing is printed as a result;
-they run in this order but for 5, which runs before 4, and 15, which runs
-right after 4):
+Phases, in this order (any failure exits non-zero, and nothing is printed
+as a result). Each kernel's sweeps of shapes, layouts, index types and
+refusals are tests/test_torch_cuda.py's (`pytest tests/test_torch_cuda.py`
+on the card); throughput is the benchmark's (`python3 benchmark/run.py`).
   1. device and build: torch/CUDA versions, the card's name and power
      limit, every kernel of the port compiled from csrc/ (one nvcc per
      source, all started together);
-  2. the fused hash-backward scan, both epilogues (full rows, slot rows)
-     against their plain PyTorch versions on the same card tensors, at the
-     mapping step's shape (M = 493,568 rows, 8 x 8, 204,089 slots) and at
-     small shapes; two calls must agree bit for bit; both timed (CUDA
-     events, and the profiler's device time);
-  3. segment sums: the hash-grid backward's segment sum, and the
-     uncertainty grid's trilinear VJP (sort, sorted_segment_sum fed the
-     sort permutation), through the kernels on the card against the same
-     functions through the plain versions on the host, at the mapping
-     step's point counts, table size and (49, 56, 35) grid;
-  4. the slice: the mapper's online entry point at the full Replica/office0
-     defaults (680x1200 frames rendered by the analytic simulator, L4F8
-     hybrid hash grid, active-ray BA with 43 samples per ray), steps 0..10;
-     the keyframe store filled to 22 keyframes; a warm window of BA steps
-     timed as bench.py times the JAX package (mapping iterations / s).
-     From here on a BA call on the card is one captured CUDA graph per
-     bucket (naruto_tpu_torch/mapping/ba_graph.py); phases 6-13 run it
-     too, phase 14's sharded BA the eager loop. Every BA iteration must
-     launch each kernel entry point of the path its fixed number of times
-     (BA_LAUNCHES_PER_ITER; a replayed iteration, what its capture
-     recorded); the volume queries and their query_inputs launches (none
-     on the hybrid grid) are printed;
- 15. the graph, run right after phase 4 on its mapper: an eager copy made
-     through the full state, then the calls of GRAPH_CALLS (a bucket
-     change and back) in both forms in turns, equal bit for bit after
-     every call (every full-state leaf, the generators, every loss); each
-     form's host ms a call (ba_dispatch's), device ms a call (queued_ms),
-     BA iters/s by naruto_tpu_torch.bench's measure in turns, and peak
-     device memory (a mapper of each form alone in a fresh process over
-     GRAPH_MEMORY_CALLS: the graph form's reserved peak, its graphs' pool
-     included, at most GRAPH_MAX_PEAK times the eager form's); the
-     replay's device ms;
-     graph launches a call;
-  5. the primitives: the kernels gather_rows, sorted_segment_sum
-     (bf16-rounded and exact f32) and row_cumsum against their plain
-     versions on the same card tensors at the microbenchmark scripts' sizes
-     (M = 3,000,000 updates, 201,088 slots, a 65,536-row level table), at
-     the BA path's shapes and at ragged small M, both timed (CUDA events,
-     and at the large shapes also the profiler's device time);
-     sorted_segment_sum also on key layouts that stress its tiling (one key
-     on most rows, empty leading and trailing slots, long gaps, M beside a
-     tile multiple); two row_cumsum or sorted_segment_sum calls must agree
-     bit for bit. sorted_segment_sum fed a sort permutation at the BA's
-     and at the vertex layout's shapes ([15,789,952, 2] into 814,897
-     slots, keys from the parity grid's corner rows of points along rays):
-     against its plain version, and bit for bit against the pair it
-     replaces (gather_rows by the permutation, then the sum of the
-     gathered rows), both forms timed in turns by the profiler beside the
-     bound, index_add_ and torch.sort (SegmentForms); the host's cost per
-     call of every wrapper and plain version; then both ported microbenchmark
-     scripts run in this process, and their launch counts show every
-     kernel ran; the optimizer steps; the vertex grid's SDF decoder input
-     (csrc/query_inputs.cu) against its plain version bit for bit at
-     office0's 96,040 voxels and jiraiya's first 2^20-voxel chunk, timed;
-  6. the passive run: the port's Engine on configs/ab/passive_traj_ab.yaml
-     (1,000 steps of data/traj_ab/traj.txt on the analytic office0 room,
-     the full-width defaults of phase 4) through run() and finalize(), as
-     `python -m naruto_tpu_torch.run` drives it: the final mesh at
-     mesh.voxel_final (the field's dense query in chunks of 2^20 points,
-     marching tets, vertex colours), the checkpoint, and the metric row.
-     The row must hold the trajectory's length (33.179382 m within 1e-4),
-     completion ratio >= 99.0% and MAD <= 0.572 cm (the JAX package's
-     0.472 cm plus 0.1 cm), and every BA iteration of the run must launch
-     BA_LAUNCHES_PER_ITER. It prints the row beside the JAX package's, the
-     run's wall time and timer sections, and the final extraction's seconds
-     by stage (one extraction chunk's device time and kernels:
-     `python -m naruto_tpu_torch.scripts.probe_passive`). Every kernel
-     wrapper call of the run is counted by its shapes, and the inputs of
-     the first call at each shape are kept: the BA's at every keyframe
-     bucket, the volumes', the snapshots', the final extraction's (2^20-
-     point chunks and the ragged last one), the colours' and the MAD's.
-     After the run each is held against its plain version on those inputs.
-  7. the active run: configs/Replica/office0/naruto.yaml, 2,000 steps at
-     ACTIVE_SEED, through run() and finalize(): the planner's gates, the
-     aggregation's device time a plan, the launch check and the replays of
-     phase 6;
-  8. the parity grid: phase 6's run, uncut, with the grid: section of
-     configs/parity.yaml (the vertex layout: 16 levels of 2 features, an
-     f32 table of 814,897 rows); its row held to the JAX package's for the
-     same poses (trajectory within 1e-4 m, ratio >= 99.0%, MAD <= its
-     0.459 cm + 0.1 cm), PARITY_LAUNCHES_PER_ITER in every BA iteration,
-     and the replays of phase 6 (the vertex backward's segment sum over
-     15.8M rows of F = 2 fed the sort permutation, the forward's gather of
-     [814,897, 2] f32 rows); at each key of the vertex backward's segment
-     sum, on the run's own keys, permutation and values, the two forms are
-     also timed in turns (SegmentForms), in a fresh process (forms_apart);
-  9. the remaining settings: phase 6's run with tracking (schema defaults:
-     10 iterations of 1,024 rays a frame), n_importance 12, smooth_sample
-     4,096 and the weights carry on the default hybrid grid, cut to
-     SETTINGS_STEPS steps: every pose finite, SETTINGS_LAUNCHES_PER_ITER in
-     every BA iteration and TRACK_LAUNCHES_PER_ITER in every tracking
-     iteration, and the replays; the tracked poses against the
-     trajectory's are printed beside its largest steps (10-degree turns,
-     beyond what 10 tracking iterations can move a pose). Then the mapper
-     with the same settings tracks TRACK_PATH_STEPS frames of a
-     constant-speed path at half a tracking call's reach: the tracked
-     translations within MAX_TRACK_RMSE_CM (RMSE) and MAX_TRACK_ERR_CM
-     (worst frame) of the path's.
- 10. the raycast run: office0's analytic room synthesised as a mesh at
-     mesh.voxel_eval (naruto_tpu_torch/scripts/make_scene_assets.py, to a
-     temporary directory), then phase 7's run on it through the raycast
-     simulator (the C++ BVH renderer on the host) at RAYCAST_SEED, with
-     phase 7's gates, launch check and replays; its ground truth is the
-     mesh. The row is printed beside the JAX package's raycast rows, with
-     the host's ms a frame, the wall, the peak memory; at the first
-     RENDER_CHECK_POSES rendered poses the renderer is held against the
-     analytic scene (median depth difference, the ERP probe's closest
-     distance) and against itself (two renders, bit for bit).
- 11. resume: phase 6 writes its snapshot at PASSIVE_SNAPSHOT_STEP (its row
-     must stay the row without snapshots); a fresh Engine resumes from it
-     and must end with phase 6's poses bit for bit and its row digit for
-     digit. Phase 10 writes its snapshot at RAYCAST_SNAPSHOT_STEP; a fresh
-     Engine resumes from it until RESUME_STEPS_AFTER_RRT steps after the
-     RRT's first draw, with phase 10's poses bit for bit until that draw.
-     The snapshots' sizes and the seconds to write and to load them are
-     printed.
- 12. replay: the image codec (utils/image_io.py, native/image_codec.cpp)
-     held to its contracts at 680x1200 (PNG uint8 and uint16 round trips
-     exact, a JPEG round trip of an analytic frame at >= CODEC_MIN_PSNR_DB,
-     jet equal to matplotlib's values pinned in JET_PINNED), with its
-     decode and encode ms; then the first REPLAY_STEPS poses of
-     data/traj_ab/traj.txt captured from the analytic office0 room by
-     sim/scripted.py (frame JPEGs, 16-bit depth PNGs, traj.txt) into a
-     temporary directory, and phase 6's run cut to REPLAY_STEPS steps: on
-     the analytic simulator, then over sim.method replay of the capture
-     (with the analytic run's gt_mesh.ply beside it as mesh.ply) four
-     times, in the order of FORMS: its frames prefetched (sim/prefetch.py:
-     decoded on a worker thread, copied from pinned memory on a stream of
-     their own) or inline (the simulator's host_frame hidden). The
-     replayed trajectory must be the analytic one within TRAJ_TOL, its
-     ratio within REPLAY_RATIO_PTS points and its MAD within REPLAY_MAD_CM
-     of the analytic run's; every replayed run's poses bit for bit and row
-     digit for digit the first's; the replays of phase 6 on the analytic
-     run and the first replayed one. Then the passive trajectory cut to
-     RAYCAST_PASSIVE_STEPS steps with tracking on (every frame consumed)
-     over phase 10's mesh through the raycast simulator, in the same four
-     forms and with the same gates. The ms a frame to capture (render +
-     encode) and to replay (decode + copy), and each run's wall,
-     Simulation section (the frame wait), ba_dispatch and tracking
-     medians, are printed.
- 13. --enable_vis: phase 7's run (ACTIVE_SEED, its configuration) for
-     VIS_STEPS steps with vis.enable_all_vis and vis.vis_rgbd, then every
-     mode of visualization/offline.py on its visualization/ directory
-     (traj, mesh_evo on both mesh kinds, video, replay at stride
-     VIS_REPLAY_STRIDE with its AVI) and export_pose on the run's
-     checkpoint. VIS_STEPS files in each per-step directory and
-     VIS_STEPS / save_mesh_freq in each mesh directory; every PNG and AVI
-     frame decodes to its shape; the uncertainty meshes' colours lie on
-     the jet table; export_pose's array equals the run's poses, and the
-     VIS_STEPS poses equal phase 7's first VIS_STEPS bit for bit (the
-     saver only renders frames and reads the field).
- 14. data-parallel: phase 4's mapper at full width (office0, steps 0..5,
-     the keyframe store filled to SHARDED_KEYFRAMES) on SHARDED_RANKS
-     ranks spawned on the one card (naruto_tpu_torch/parallel/dryrun.py's
-     worker; the backend that parallel/mesh.py's rule picks, Gloo where
-     ranks share a card), with parallel.shard_rays and shard_volumes: one
-     BA iteration's gradients from the same state and draws against the
-     single-process gradient (SHARDED_GRAD_TOL), the (49, 56, 35) volume
-     query against the unsharded one (SHARDED_VOL_TOL) on SHARDED_RANKS
-     and on SHARDED_PAD_RANKS ranks (which pads the voxel axis), then
-     SHARDED_STEPS BA steps, then SHARDED_SITE_STEPS with each collective
-     timed alone, after which the field and the table's Adam moments must
-     be bit-identical across ranks; every BA iteration of a rank launches
-     BA_LAUNCHES_PER_ITER and makes SHARDED_COLLECTIVES_PER_ITER, a volume
-     query one collective. The wall of a BA iteration at 1 rank and at
-     SHARDED_RANKS (ranks sharing one card: not a scaling figure), and the
-     collectives' share of it; every (kernel, shape) of rank 0 at
-     the half-batch shapes replayed against its plain version; then phase
-     7's run (ACTIVE_SEED) cut to SHARDED_ACTIVE_STEPS steps on
-     SHARDED_RANKS ranks, equal poses on every rank, rank 0's row.
+  2. the kernel table (PERF.md section 6): each kernel against its plain
+     version on the same card tensors at the main path's shapes that its
+     row quotes, then timed (check_table): the fused scan's epilogues at
+     the mapping step's shape (K1, K2), gather_rows (P2, P6),
+     sorted_segment_sum fed the sort permutation at the BA's trilinear VJP
+     (P7) and the vertex backward ([15,789,952, 2] into 814,897 slots, P1)
+     and at the scripts' [3M, 8], row_cumsum (P4); both ported
+     microbenchmark scripts in this process (every kernel must launch);
+     the optimizer steps (O1, O2); the vertex grid's SDF decoder input
+     (Q1) bit for bit at office0's voxels and jiraiya's first chunk;
+  3. the slice: the mapper's online entry point at the full Replica/office0
+     defaults (680x1200 analytic frames, L4F8 hybrid grid, 43 samples per
+     ray), steps 0..10, then the keyframe store filled to 22 keyframes and
+     two BA calls at its bucket. From here on a BA call on the card is one
+     captured CUDA graph per bucket (mapping/ba_graph.py), but in phase
+     13's sharded BA. Every BA iteration must launch each kernel its
+     fixed number of times (BA_LAUNCHES_PER_ITER; a replayed iteration,
+     what its capture recorded), and the SDF in front of the first view's
+     surface must exceed the SDF at it;
+  4. the graph, on phase 3's mapper: an eager copy made through the full
+     state, then the calls of GRAPH_CALLS in both forms in turns, equal bit
+     for bit after every call (every full-state leaf, the generators,
+     every loss) and launching BA_LAUNCHES_PER_ITER; a mapper of each form
+     alone in a fresh process over GRAPH_MEMORY_CALLS: the graph form's
+     peak reserved memory at most GRAPH_MAX_PEAK times the eager form's;
+  5. the passive run: the port's Engine on PASSIVE_CFG (1,000 steps of
+     data/traj_ab/traj.txt in the analytic office0 room) through run() and
+     finalize(), as `python -m naruto_tpu_torch.run` drives it: its row
+     must hold the trajectory's length (TRAJ_TOL), a completion ratio of
+     at least MIN_RATIO_PCT and the JAX package's MAD plus MAD_MARGIN_CM
+     at most (REFERENCE_ROW), and every
+     BA iteration must launch BA_LAUNCHES_PER_ITER. The inputs of the first
+     call of every kernel wrapper at each shape are kept (ShapeRecorder)
+     and, after the run, each is held against its plain version: the same
+     replays close phases 6-13;
+  6. the active run: ACTIVE_CFG, 2,000 steps at ACTIVE_SEED: the planner's
+     states and plans, and the row's MIN_*/MAX_ACTIVE_* gates;
+  7. the parity grid: phase 5's run with configs/parity.yaml's vertex grid,
+     its row held as phase 5's to the JAX package's PARITY_ROW, and
+     PARITY_LAUNCHES_PER_ITER in every BA iteration;
+  8. the remaining settings: phase 5's run with SETTINGS_OVER, cut to
+     SETTINGS_STEPS steps: every pose finite, SETTINGS_LAUNCHES_PER_ITER
+     in every BA iteration and TRACK_LAUNCHES_PER_ITER in every tracking
+     one; then TRACK_PATH_STEPS frames of a constant-speed path at half a
+     tracking call's reach, tracked within MAX_TRACK_RMSE_CM (RMSE) and
+     MAX_TRACK_ERR_CM (worst frame) of the path;
+  9. the raycast run: office0's analytic room as a mesh, then phase 6's run
+     on it through the raycast simulator, with phase 6's gates; at the
+     first RENDER_CHECK_POSES poses the renderer is held against the
+     analytic scene and against itself (two renders, bit for bit);
+ 10. resume: phase 5 (whose row with snapshots must be PORT_PASSIVE_ROW,
+     its row without) resumed from its PASSIVE_SNAPSHOT_STEP snapshot (its
+     poses bit for bit, its row digit for digit), phase 9 from its
+     RAYCAST_SNAPSHOT_STEP one (its poses bit for bit until the RRT's
+     first draw);
+ 11. replay: the image codec's contracts at 680x1200 (PNG round trips
+     exact, JPEG at CODEC_MIN_PSNR_DB, jet as JET_PINNED); REPLAY_STEPS
+     frames captured by sim/scripted.py and phase 5's run on them, on the
+     analytic simulator and replayed in each of FORMS (prefetched or
+     inline): the poses within TRAJ_TOL, ratio and MAD within
+     REPLAY_RATIO_PTS and REPLAY_MAD_CM, every replayed run's poses and row
+     the first's; then RAYCAST_PASSIVE_STEPS steps with tracking over
+     phase 9's mesh, in the same forms, with TRACKED_*_LAUNCHES_PER_ITER;
+ 12. --enable_vis: phase 6's run for VIS_STEPS steps with every artifact,
+     then every mode of visualization/offline.py and export_pose: the
+     files counted and decoded, the uncertainty meshes' colours on the jet
+     table, the poses phase 6's bit for bit;
+ 13. data-parallel: phase 3's mapper on SHARDED_RANKS ranks spawned on the
+     card (Gloo): one BA iteration's gradients against the single process
+     (SHARDED_GRAD_TOL), the volume query on SHARDED_RANKS and
+     SHARDED_PAD_RANKS ranks (SHARDED_VOL_TOL), SHARDED_STEPS +
+     SHARDED_SITE_STEPS BA steps (each iteration's launches and
+     SHARDED_COLLECTIVES_PER_ITER, the field bit-identical across ranks
+     after them), then phase 6's run cut to SHARDED_ACTIVE_STEPS steps
+     with equal poses on every rank.
 
 Every timed case also states its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the card's f32
@@ -187,13 +93,13 @@ computes the same function, that call's time.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the line before that the kernels' JSON
-(each kernel's launches on every path that drives it: the slice of phase
-4, the graph phase 15, the microbenchmarks of phase 5, the passive run of
-phase 6, the active run of phase 7, the parity run of phase 8, the
-settings run of phase 9, the raycast run of phase 10, the two resumed runs
-of phase 11, the first replayed and the first passive raycast run of
-phase 12, the --enable_vis run of phase 13, rank 0 of the data-parallel
-phase 14).
+(the kernel table's cases, and each kernel's launches on every path that
+drives it: the slice of phase 3, the graph of phase 4, the microbenchmarks
+of phase 2, the passive run of phase 5, the active run of phase 6, the
+parity run of phase 7, the settings run of phase 8, the raycast run of
+phase 9, the two resumed runs of phase 10, the first replayed and the
+first passive raycast run of phase 11, the --enable_vis run of phase 12,
+rank 0 of the data-parallel phase 13).
 """
 from __future__ import annotations
 
@@ -211,30 +117,24 @@ import tempfile
 import time
 
 KERNEL_TOL = 1e-6          # max |kernel - plain| / max |plain|
-SEGMENT_TOL = 2e-6         # max |card - host| / max |cumsum of slot sums|
 # the mapping step's hash backward at office0: 493,436 updates padded to
 # 493,568 rows, 8 x 8, 204,089 table rows
 SLICE_N, SLICE_M, SLICE_SLOTS, SLICE_K = 493_436, 493_568, 204_089, 8
-SMALL_SHAPES = ((512, 8, 4), (4608, 8, 4), (512, 2, 2), (4608, 2, 2))
+HASH_ROWS = (204_089, 64)  # office0's hybrid table, gathered by the forward
 INT32_MAX = 2 ** 31 - 1
-WINDOW_STEPS = 20          # timed BA steps in the warm window
-# phase 15: the buckets of the BA calls made in each form, in turns (phase
-# 4 captured 8192 and 512; 2048's first call captures), the device
-# times' repetitions, and bench's measure (steps a window, windows)
+# phase 4: the buckets of the BA calls made in each form, in turns (phase
+# 3 captured 8192 and 512; 2048's first call captures)
 GRAPH_CALLS = (512,) * 5 + (2048,) * 4 + (512,) * 3
 # each form's device memory: a mapper from the same state in a fresh
 # process, its calls in a run's order of buckets (few keyframes first),
 # each bucket's first call and one more
 GRAPH_MEMORY_CALLS = (8192, 8192, 2048, 2048, 512, 512)
-GRAPH_QUEUED_REPS = 5
-GRAPH_BENCH_STEPS, GRAPH_BENCH_WINDOWS = 10, 3
 GRAPH_MAX_PEAK = 1.25      # the graph form's peak memory over the eager's
-PRIM_M, PRIM_T, PRIM_TS, PRIM_F = 3_000_000, 201_000, 65_536, 8
-RAGGED_M = (1, 2049, 5000)  # no multiple of any TPU block
-RAGGED_SLOTS = 4000
+# the microbenchmark scripts' sizes: 3M updates into their 201,000 slots
+# rounded up to 128, a 65,536-row level table of 8 columns
+PRIM_M, PRIM_SLOTS, PRIM_TS, PRIM_F = 3_000_000, 201_088, 65_536, 8
 PRIM_REPS = 50
 LIBRARY_REPS = 3           # torch.cumsum(x, 0) at [3M, 8] takes ~0.75 s
-HOST_CALLS = 200           # calls enqueued back to back per host-cost line
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, f32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -250,31 +150,11 @@ BA_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
 BACKWARD_KERNELS = ("outer_scan_slots",)   # only in the backward
 SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
 PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
-# the BA path's gathers at office0, with int64 indices: (site, table rows,
-# width, dtype, M, whether the indices come sorted, as ranks do)
-BA_GATHERS = (
-    ("hash forward", 204_089, 64, "bfloat16", 493_436, False),
-    ("sort payload", 493_568, 1, "int32", 493_568, False),
-    ("sort payload", 493_568, 8, "bfloat16", 493_568, False),
-    ("uncert cells", 89_760, 8, "float32", 93_568, False),
-)
 # the uncertainty grid at office0: the trilinear VJP sums BA_POINTS rows of
 # 8 corner weights into the cells of a (49, 56, 35) grid
 UNCERT_SHAPE, BA_RAYS, BA_SAMPLES = (49, 56, 35), 2176, 43
 BA_POINTS, BA_CELLS = BA_RAYS * BA_SAMPLES, 48 * 55 * 34
-# sorted_segment_sum on keys that stress its tiling: (layout, rows, slots).
-# At 8 columns a tile has 512 rows below ~1M rows and 2,048 at 3M.
-SEGMENT_LAYOUTS = (
-    ("one key on 60% of the rows", 3_000_000, 201_088),
-    ("one key on 60% of the rows", 300_000, 5000),
-    ("first key late", 20_000, 9000),
-    ("last key early", 20_000, 9000),
-    ("long gaps", 5000, 200_000),
-    ("uniform, a tile multiple - 1", 512 * 9 - 1, 3000),
-    ("uniform, a tile multiple + 1", 512 * 9 + 1, 3000),
-    ("uniform, a tile multiple + 1", 2048 * 1465 + 1, 201_088),
-)
-# phase 6: the passive run and the JAX package's row for it
+# phase 5: the passive run and the JAX package's row for it
 # (results/ab_r4_parity_traj/Replica/office0/eval_result.txt)
 PASSIVE_CFG = "configs/ab/passive_traj_ab.yaml"
 REFERENCE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307488,
@@ -283,13 +163,13 @@ REFERENCE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307488,
 TRAJ_TOL = 1e-4            # the poses are the file's: exact up to printing
 MIN_RATIO_PCT = 99.0
 MAD_MARGIN_CM = 0.1        # Gate S4: the reference's MAD plus 0.1 cm
-# phase 7: the active run, and the JAX package's rows of the same protocol
+# phase 6: the active run, and the JAX package's rows of the same protocol
 # (2,000 steps, seeds 0/500/1000/1500/1999; PERFORMANCE.md "5-seed
 # protocol"). Seeds 0 and 500 of the port fall into the reference's
 # collision livelock (PERFORMANCE.md, raycast seed_1999: the agent wedged
 # at the learned surface, every plan's first move collides); seed 1 is the
 # lowest seed whose run does not (PERF.md, section 6).
-# phase 8: the passive run on configs/parity.yaml's grid (the vertex
+# phase 7: the passive run on configs/parity.yaml's grid (the vertex
 # layout), and the JAX package's row for it, from a mapper of three rounds
 # before (results/ab_passive_vertex/Replica/office0/eval_result.txt; it has
 # no F-score column)
@@ -304,7 +184,7 @@ PARITY_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.357286,
 PARITY_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
                             "gather_rows": 2, "row_cumsum": 0,
                             "sorted_segment_sum": 2}
-# phase 9: the passive protocol with the remaining settings, cut to
+# phase 8: the passive protocol with the remaining settings, cut to
 # SETTINGS_STEPS steps (schema defaults: 10 tracking iterations of 1,024
 # rays), on the default hybrid grid
 SETTINGS_STEPS = 200
@@ -338,26 +218,26 @@ FSM_STATES = ("staying", "planning", "rotationPlanningAtStart",
               "rotatingAtGoal")
 MIN_PLANS, MIN_TRAJ_M, MIN_ACTIVE_RATIO_PCT = 10, 15.0, 90.0
 MAX_ACTIVE_MAD_CM, MAX_ACTIVE_ACC_CM, MAX_ACTIVE_COMP_CM = 1.0, 2.5, 2.5
-# phase 10: the active run on office0's mesh through the raycast simulator,
-# with phase 7's gates; the JAX package's rows of the same protocol
+# phase 9: the active run on office0's mesh through the raycast simulator,
+# with phase 6's gates; the JAX package's rows of the same protocol
 # (PERFORMANCE.md, raycast backend, five seeds)
 RAYCAST_SEED = ACTIVE_SEED
 JAX_RAYCAST_ROWS = "results/seeds_r3_raycast/Replica/office0/seed_{}/" \
     "Replica/office0/eval_result.txt"
 RENDER_CHECK_POSES = 5     # rendered poses held against the analytic scene
-# phase 11: the snapshots the runs write (general.ckpt_freq) and resume from
+# phase 10: the snapshots the runs write (general.ckpt_freq) and resume from
 PASSIVE_SNAPSHOT_STEP = 500
 RAYCAST_SNAPSHOT_STEP = 1000
 RESUME_STEPS_AFTER_RRT = 5  # the resumed active run stops this many after
-# phase 6's row without snapshots (PERF.md section 2: the same digits in
+# phase 5's row without snapshots (PERF.md section 2: the same digits in
 # every run on the card): a run that writes snapshots must not move it
 PORT_PASSIVE_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.307809,
                     "completion_cm": 1.279369,
                     "completion_ratio_pct": 99.6265,
                     "fscore_pct": 99.495077, "mad_cm": 0.463325}
-# phase 12: the codec, the capture and the replayed passive run
+# phase 11: the codec, the capture and the replayed passive run
 REPLAY_STEPS = 200
-# the replayed run and a passive raycast run on phase 10's mesh, each with
+# the replayed run and a passive raycast run on phase 9's mesh, each with
 # its frames prefetched (sim/prefetch.py) and inline, in this order in one
 # process; the first run's launches are the path's
 FORMS = ("prefetched", "inline", "inline", "prefetched")
@@ -365,7 +245,7 @@ FORMS = ("prefetched", "inline", "inline", "prefetched")
 # steps, with tracking on (schema defaults) so that every frame is consumed
 RAYCAST_PASSIVE_STEPS = 100
 RAYCAST_PASSIVE_OVER = {"mapper": {"tracking_enable": True}}
-# its BA iteration (poses optimised): phase 4's launches and the position
+# its BA iteration (poses optimised): phase 3's launches and the position
 # gradient's feature gather
 TRACKED_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
                              "gather_rows": 5, "row_cumsum": 0,
@@ -390,11 +270,11 @@ JET_PINNED = {
     192: (1.0, 0.5816993464052289, 0.0),
     224: (1.0, 0.11692084241103862, 0.0),
     255: (0.5, 0.0, 0.0)}
-# phase 13: the --enable_vis run and the offline tools
+# phase 12: the --enable_vis run and the offline tools
 VIS_STEPS = 60
 VIS_REPLAY_STRIDE = 5
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of the host
-# phase 14: the data-parallel mapper on ranks that share the card
+# phase 13: the data-parallel mapper on ranks that share the card
 SHARDED_RANKS = 2
 SHARDED_PAD_RANKS = 3      # 96,040 voxels are no multiple of 3
 SHARDED_KEYFRAMES = 8
@@ -541,124 +421,7 @@ def bound(nbytes: float, flops: float) -> tuple:
                                                            "operations")
 
 
-# ------------------------------------------------------------------ phase 2
-def scan_inputs(torch, gen, dev, n: int, m: int, size: int, ka: int,
-                kb: int) -> tuple:
-    """Sorted keys of n updates in [0, size), padded to m rows with
-    INT32_MAX keys and zero factors, as the hash backward pads them."""
-    keys = torch.randint(0, size, (n,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    si = torch.cat([torch.sort(keys).values,
-                    torch.full((m - n,), INT32_MAX, dtype=torch.int32,
-                               device=dev)])
-    sa = torch.randn((m, ka), generator=gen, device=dev).bfloat16()
-    sb = torch.randn((m, kb), generator=gen, device=dev).bfloat16()
-    sa[n:] = 0
-    sb[n:] = 0
-    return si, sa, sb
-
-
-def check_kernels(torch, kernels, dev) -> dict:
-    """Both epilogues of the fused scan against their plain versions;
-    returns, per epilogue, every case (the first is the mapping step's
-    shape)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    res = {"rows": [], "slots": []}
-    shapes = ((SLICE_N, SLICE_M, SLICE_SLOTS, SLICE_K, SLICE_K),) + tuple(
-        (m - 37, m, m // 3, ka, kb) for m, ka, kb in SMALL_SHAPES)
-    for n, m, size, ka, kb in shapes:
-        si, sa, sb = scan_inputs(torch, gen, dev, n, m, size, ka, kb)
-        factors = m * (ka + kb) * 2
-        flops = 2 * m * ka * kb         # a multiply and an add per output
-        big = m == SLICE_M
-        res["rows"].append(kernel_case(
-            torch, "outer_scan rows", f"M={m} {ka}x{kb}",
-            lambda: kernels.outer_cumsum_scan(sa, sb),
-            lambda: kernels.outer_cumsum_scan_plain(sa, sb), KERNEL_TOL,
-            nbytes=factors + m * ka * kb * 4, flops=flops, profiled=big,
-            deterministic=True))
-        res["slots"].append(kernel_case(
-            torch, "outer_scan slots", f"M={m} {ka}x{kb} -> {size} slots",
-            lambda: kernels.outer_cumsum_slots(si, sa, sb, size),
-            lambda: kernels.outer_cumsum_slots_plain(si, sa, sb, size),
-            KERNEL_TOL, nbytes=m * 4 + factors + size * ka * kb * 4,
-            flops=flops, profiled=big, deterministic=True))
-    return res
-
-
 # ------------------------------------------------------------------ phase 3
-def check_segment_sum(torch, segment, spec, dev) -> None:
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    n, L, F = 123_359, spec.n_levels, spec.n_features
-    x = torch.rand((n, 3), generator=gen)
-    from naruto_tpu_torch.ops.encoding import _cell_indices, _cell_pos
-
-    idx, _ = _cell_indices(x, spec)
-    _, frac = _cell_pos(x, spec)
-    g = torch.randn((n, L * F), generator=gen) * 1e-3
-    size = spec.total_entries
-    t0 = time.perf_counter()
-    host = segment.dense_segment_sum_outer_level_major_frac(idx, frac, g,
-                                                            size)
-    host_s = time.perf_counter() - t0
-    idx_d, frac_d, g_d = idx.to(dev), frac.to(dev), g.to(dev)
-    card = segment.dense_segment_sum_outer_level_major_frac(idx_d, frac_d,
-                                                            g_d, size)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()      # inputs already on the card: not timed
-    card = segment.dense_segment_sum_outer_level_major_frac(idx_d, frac_d,
-                                                            g_d, size)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    diff = float((card.cpu() - host).abs().max())
-    scale = float(torch.cumsum(host, 0).abs().max())
-    rel_ref = diff / float(host.abs().max())
-    log(f"[segment] N={n} L={L} size={size}: max|card-host| {diff:.3e} = "
-        f"{diff / scale:.3e} of max|cumsum| (tol {SEGMENT_TOL}), "
-        f"{rel_ref:.3e} of max|ref|; card {card_s * 1e3:.2f} ms, host "
-        f"{host_s * 1e3:.1f} ms")
-    if not diff / scale <= SEGMENT_TOL:
-        fail(f"segment sum differs: {diff / scale:.3e} of max|cumsum|")
-
-
-def ba_points(torch, gen):
-    """[BA_POINTS, 3] in [0, 1]^3: BA_SAMPLES points along each of BA_RAYS
-    rays through the unit cube, crowded on few cells as the BA's are."""
-    o = 0.3 + 0.4 * torch.rand((BA_RAYS, 1, 3), generator=gen)
-    d = torch.nn.functional.normalize(
-        torch.randn((BA_RAYS, 1, 3), generator=gen), dim=-1)
-    t = torch.linspace(0.0, 0.4, BA_SAMPLES)[None, :, None]
-    return (o + d * t).clamp(0.0, 1.0).reshape(-1, 3)
-
-
-def check_trilinear_vjp(torch, dev) -> None:
-    """The uncertainty grid's volume gradient through sorted_segment_sum
-    fed the sort permutation on the card against the plain versions on the
-    host."""
-    from naruto_tpu_torch.ops.grid_sample import trilinear_sample
-
-    gen = torch.Generator()
-    gen.manual_seed(4)
-    vol = torch.randn(UNCERT_SHAPE, generator=gen)
-    pts = ba_points(torch, gen)
-    g = torch.randn((BA_POINTS,), generator=gen)
-    grads = []
-    for where in ("cpu", dev):
-        v = vol.to(where).requires_grad_(True)
-        out = trilinear_sample(v, pts.to(where))
-        grads.append(torch.autograd.grad(out, v, g.to(where))[0].cpu())
-    host, card = grads
-    rel = float((card - host).abs().max()) / float(host.abs().max())
-    log(f"[segment] trilinear VJP, {BA_POINTS} points into "
-        f"{tuple(UNCERT_SHAPE)}: max|card-host| = {rel:.3e} of max|host| "
-        f"(tol {KERNEL_TOL})")
-    if not rel <= KERNEL_TOL:
-        fail(f"trilinear VJP differs: {rel:.3e} of max|host|")
-
-
-# ------------------------------------------------------------------ phase 4
 def path_pose(i: int):
     """Scripted camera path: a slow yaw sweep drifting along +x."""
     import numpy as np
@@ -865,19 +628,12 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     color, depth = sim.simulate(path_pose(fid))
     frame_rays = mapper.frame_to_rays(color, depth)
     c2w_t = torch.as_tensor(path_pose(fid), device="cuda")
-    for w in range(2):                      # settle, untimed
+    # two calls at the steady state's bucket: the first captures its graph
+    for _ in range(2):
         losses += [a["total"] for a in
                    mapper._ba_impl(bucket, frame_rays, c2w_t, fid)]
+    torch.cuda.synchronize()
     iters_run += 2 * m.iters
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for w in range(WINDOW_STEPS):
-        losses += [a["total"] for a in
-                   mapper._ba_impl(bucket, frame_rays, c2w_t, fid)]
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    iters_run += WINDOW_STEPS * m.iters
     counts = kernels.launch_counts()
     if any(counts[k] != iters_run + len(warm_ups) for k in BACKWARD_KERNELS):
         fail(f"kernel launches {counts} != iterations {iters_run} + "
@@ -885,22 +641,18 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     check_ba_launches(per_iter)
     check_ba_launches(warm_ups, what="warm-up")
     calls, replays = graph_totals()
+    rays = m.sample + bucket // 4
     log(f"[slice] every one of {len(per_iter)} BA iterations and of the "
         f"{len(warm_ups)} warm-up iterations launched "
         f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
         f"{replays} graph launches in {calls} BA calls; volume queries "
         f"{field.volume_counts()}, query_inputs launches "
-        f"{counts['query_inputs']}")
+        f"{counts['query_inputs']}; {mapper.kf.count} keyframes, bucket "
+        f"{bucket}: {rays} rays an iteration ({rays * mapper.rc.n_samples} "
+        f"render points + {(cfg.training.smooth_pts - 1) ** 3} smoothness "
+        f"points)")
     if counts["query_inputs"]:
         fail("the hybrid grid's volume queries launched query_inputs")
-    its = WINDOW_STEPS * m.iters / elapsed
-    rays = m.sample + bucket // 4
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[slice] BA window: {WINDOW_STEPS} steps x {m.iters} iterations in "
-        f"{elapsed:.3f} s = {its:.2f} iters/s, {rays} rays/iter "
-        f"(bucket {bucket}, {rays * mapper.rc.n_samples} render points + "
-        f"{(cfg.training.smooth_pts - 1) ** 3} smoothness points), "
-        f"keyframes {mapper.kf.count}, peak memory {peak:.2f} GiB")
 
     loss_t = torch.stack(losses)
     if not bool(torch.isfinite(loss_t).all()):
@@ -929,7 +681,7 @@ def run_slice(torch, kernels, profile_dir) -> dict:
     if profile_dir:
         profile_step(torch, mapper, bucket, frame_rays, c2w_t, fid,
                      profile_dir)
-    return {"launches": counts, "iters_per_sec": its, "mapper": mapper,
+    return {"launches": counts, "mapper": mapper,
             "call": (bucket, frame_rays, c2w_t, fid), "per_iter": per_iter}
 
 
@@ -972,7 +724,7 @@ def profile_step(torch, mapper, bucket, frame_rays, c2w, fid,
                         "--iters", str(mapper.cfg.mapper.iters)])
 
 
-# ----------------------------------------------------------------- phase 15
+# ------------------------------------------------------------------ phase 4
 def _same_state(torch, a, b) -> list:
     """The names of the state leaves, generators and pose rows in which
     mappers a and b differ (empty: bit for bit the same)."""
@@ -1025,62 +777,43 @@ def memory_child(tmp: str, form: str) -> None:
 
 
 def run_graph(torch, kernels, slice_res: dict) -> dict:
-    """Phase 15: the BA call as one captured CUDA graph per bucket against
-    the eager call, at office0's full width. Phase 4's mapper (22
+    """Phase 4: the BA call as one captured CUDA graph per bucket against
+    the eager call, at office0's full width. Phase 3's mapper (22
     keyframes, bucket 512 captured) is copied into an eager mapper through
     its full state (save_full_state / load_full_state); then the calls of
     GRAPH_CALLS run in each form in turns, the two mappers equal bit for
     bit after every call (every leaf of the full state: field, optimizer
     moments and counts, the uncertainty gradient sum, keyframes, poses,
-    volume; the generators; every loss). Printed for both forms: the host
-    ms of a call (ba_dispatch's), the device ms of a call behind a spin
-    kernel (queued_ms; the call's one wait for the device included), the
-    graph replay's own device ms, BA iters/s by naruto_tpu_torch.bench's
-    measure in turns, peak device memory, and graph launches a call.
-    Every BA iteration launches BA_LAUNCHES_PER_ITER."""
-    import statistics
-
-    from naruto_tpu_torch import bench
+    volume; the generators; every loss). Every BA iteration launches
+    BA_LAUNCHES_PER_ITER. Then each form's peak device memory, a mapper
+    alone in a fresh process: the graph form's at most GRAPH_MAX_PEAK times
+    the eager form's."""
     from naruto_tpu_torch.mapping.mapper import Mapper
 
     t_phase = time.perf_counter()
-    graph = slice_res["mapper"]
+    graph = slice_res.pop("mapper")
     _, frame_rays, c2w, fid = slice_res["call"]
     graphs = graph._ba_graphs
     if graphs is None or 512 not in graphs.programs:
-        fail("phase 15: the slice's mapper has no captured BA graph")
+        fail("phase 4: the slice's mapper has no captured BA graph")
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_graph_")
     snapshot = os.path.join(tmp.name, "state.pkl")
     graph.save_full_state(snapshot)
     eager = Mapper(graph.cfg, device="cuda")
     eager.load_full_state(snapshot)
     if _same_state(torch, graph, eager):
-        fail("phase 15: the eager copy differs from the graph's mapper")
+        fail("phase 4: the eager copy differs from the graph's mapper")
     per_iter = slice_res["per_iter"]
     n_iter0 = len(per_iter)
     count_ba_launches(kernels, eager, per_iter)
-    forms = {"graph": (graph, graph._ba_impl),
-             "eager": (eager, eager._ba_impl_eager)}
-    host = {f: [] for f in forms}
+    forms = {"graph": graph._ba_impl, "eager": eager._ba_impl_eager}
     calls0, replays0 = graph_totals()
     kernels.reset_launch_counts()
     for k, bucket in enumerate(GRAPH_CALLS):
         order = list(forms) if k % 2 == 0 else list(forms)[::-1]
-        auxes = {}
-        for form in order:
-            m, call = forms[form]
-            prog = graphs.programs.get(bucket)
-            first = form == "graph" and (prog is None or prog.graph is None)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            auxes[form] = call(bucket, frame_rays, c2w, fid)
-            dt = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            if first:
-                log(f"[graph] bucket {bucket}'s first call (capture, then "
-                    f"replay): {1e3 * dt:.1f} ms on the host")
-            else:
-                host[form].append(dt)
+        auxes = {form: forms[form](bucket, frame_rays, c2w, fid)
+                 for form in order}
+        torch.cuda.synchronize()
         bad = _same_state(torch, graph, eager)
         got, want = auxes["graph"], auxes["eager"]
         if [list(a) for a in got] != [list(a) for a in want] or not all(
@@ -1088,7 +821,7 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
                 for key in a):
             bad.append("losses")
         if bad:
-            fail(f"phase 15: call {k} (bucket {bucket}): the graph and the "
+            fail(f"phase 4: call {k} (bucket {bucket}): the graph and the "
                  f"eager call differ in {bad[:8]}")
     n_calls = len(GRAPH_CALLS)
     calls, replays = graph_totals()
@@ -1099,41 +832,12 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
     check_ba_launches(per_iter[n_iter0:])
     want_iters = 2 * n_calls * graph.cfg.mapper.iters
     if len(per_iter) - n_iter0 != want_iters:
-        fail(f"phase 15: {len(per_iter) - n_iter0} BA iterations counted, "
+        fail(f"phase 4: {len(per_iter) - n_iter0} BA iterations counted, "
              f"not {want_iters}")
     counts = kernels.launch_counts()
     log(f"[graph] every one of {want_iters} BA iterations (both forms) "
         f"launched {BA_LAUNCHES_PER_ITER}; launches {counts}")
-    for form in forms:
-        log(f"[graph] {form}: a BA call's host ms (ba_dispatch's) median "
-            f"{1e3 * statistics.median(host[form]):.2f}, range "
-            f"{1e3 * min(host[form]):.2f}-{1e3 * max(host[form]):.2f} over "
-            f"{len(host[form])} calls")
-
-    # the device: each form's call behind a spin kernel, in turns; then the
-    # replay alone (after the comparisons: it steps the graph's mapper)
-    bucket = GRAPH_CALLS[-1]
-    queued = {f: [] for f in forms}
-    for form in ("graph", "eager", "eager", "graph"):
-        m, call = forms[form]
-        queued[form].append(queued_ms(
-            torch, lambda: call(bucket, frame_rays, c2w, fid),
-            GRAPH_QUEUED_REPS))
-    bad = _same_state(torch, graph, eager)
-    if bad:
-        fail(f"phase 15: the timed calls differ in {bad[:8]}")
-    prog = graphs.programs[bucket]
-    replay_ms = [queued_ms(torch, prog.graph.replay, GRAPH_QUEUED_REPS)
-                 for _ in range(2)]
-    for form in forms:
-        log(f"[graph] {form}: device ms a BA call (queued_ms, the setup's "
-            f"one wait for the device included), in turns: "
-            + ", ".join(f"{x:.3f}" for x in queued[form]))
-    log(f"[graph] the graph replay alone (queued_ms, {graph.cfg.mapper.iters}"
-        f" iterations): " + ", ".join(f"{x:.3f}" for x in replay_ms) + " ms")
-    cfg = graph.cfg
-    del eager, forms, graph, graphs, prog
-    slice_res.pop("mapper")
+    del eager, forms, graph, graphs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1151,10 +855,11 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
             cwd=root, capture_output=True, text=True, timeout=600)
         sys.stderr.write(run.stderr)
         if run.returncode:
-            fail(f"phase 15: the {form} memory child exited with "
+            fail(f"phase 4: the {form} memory child exited with "
                  f"{run.returncode}")
         with open(os.path.join(tmp.name, f"memory_{form}.json")) as f:
             peak[form] = json.load(f)
+    tmp.cleanup()
     for form, p in peak.items():
         log(f"[graph] {form}: a mapper alone in a fresh process over buckets"
             f" {GRAPH_MEMORY_CALLS}: peak device memory reserved "
@@ -1163,43 +868,38 @@ def run_graph(torch, kernels, slice_res: dict) -> dict:
                        f"GiB)" if form == "graph" else ""))
     ratio = peak["graph"]["reserved_gib"] / peak["eager"]["reserved_gib"]
     if ratio > GRAPH_MAX_PEAK:
-        fail(f"phase 15: the graph form's peak memory is {ratio:.3f} x the "
+        fail(f"phase 4: the graph form's peak memory is {ratio:.3f} x the "
              f"eager form's (at most {GRAPH_MAX_PEAK})")
     log(f"[graph] the graph form's peak reserved memory is {ratio:.3f} x "
-        f"the eager form's")
-
-    # BA iters/s as naruto_tpu_torch.bench measures it, both forms in turns
-    res = bench.measure(cfg, GRAPH_BENCH_STEPS, GRAPH_BENCH_WINDOWS,
-                        settle=2, device="cuda", turbo=False, eager=True)
-    for name, form in (("parity", "graph"), ("eager", "eager")):
-        row = res[name]
-        log(f"[graph] bench's measure, {form}: {row['iters_per_sec']:.2f} "
-            f"iters/s (windows {row['iters_per_sec_windows']}), first call "
-            f"{row['compile_s']} s")
-    tmp.cleanup()
-    log(f"[graph] phase 15 in {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": counts,
-            "host_ms": {f: 1e3 * statistics.median(v)
-                        for f, v in host.items()},
-            "queued_ms": queued, "replay_ms": replay_ms, "memory": peak,
-            "iters_per_sec": {"graph": res["parity"]["iters_per_sec"],
-                              "eager": res["eager"]["iters_per_sec"]}}
+        f"the eager form's; phase 4 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": counts, "memory": peak}
 
 
-# ------------------------------------------------------------------ phase 5
-def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
-    """The host's microseconds per fn() over `calls` calls enqueued back to
-    back, with no synchronisation inside the loop (the device drains the
-    queue afterwards, untimed)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    took = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return took / calls * 1e6
+# ------------------------------------------------------------------ phase 2
+def scan_inputs(torch, gen, dev, n: int, m: int, size: int, ka: int,
+                kb: int) -> tuple:
+    """Sorted keys of n updates in [0, size), padded to m rows with
+    INT32_MAX keys and zero factors, as the hash backward pads them."""
+    keys = torch.randint(0, size, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    si = torch.cat([torch.sort(keys).values,
+                    torch.full((m - n,), INT32_MAX, dtype=torch.int32,
+                               device=dev)])
+    sa = torch.randn((m, ka), generator=gen, device=dev).bfloat16()
+    sb = torch.randn((m, kb), generator=gen, device=dev).bfloat16()
+    sa[n:] = 0
+    sb[n:] = 0
+    return si, sa, sb
+
+
+def ba_points(torch, gen):
+    """[BA_POINTS, 3] in [0, 1]^3: BA_SAMPLES points along each of BA_RAYS
+    rays through the unit cube, crowded on few cells as the BA's are."""
+    o = 0.3 + 0.4 * torch.rand((BA_RAYS, 1, 3), generator=gen)
+    d = torch.nn.functional.normalize(
+        torch.randn((BA_RAYS, 1, 3), generator=gen), dim=-1)
+    t = torch.linspace(0.0, 0.4, BA_SAMPLES)[None, :, None]
+    return (o + d * t).clamp(0.0, 1.0).reshape(-1, 3)
 
 
 def relative_error(torch, got, ref, magnitude=None) -> float:
@@ -1277,336 +977,115 @@ def kernel_case(torch, name: str, shape: str, kernel, plain, tol: float,
     return res
 
 
-def segment_forms(torch, gather, segsum, label: str, si, vals, size: int,
-                  perm, rb: bool) -> dict:
-    """SegmentForms: the two forms of a dense segment sum after its sort,
-    on the same card tensors: the pair of gather_rows by the permutation
-    and sorted_segment_sum of the gathered rows, and the one
-    sorted_segment_sum call fed the permutation. Fails unless they agree
-    bit for bit; then times both by the profiler's device time in turns
-    (pair, one call, one call, pair), beside the one call's bound, the
-    pair's gather and sum alone, index_add_ on the permuted rows (one
-    PyTorch call for the same sums), index_add_ on the unsorted rows (the
-    scatter with atomics that the sort avoids) and torch.sort of the
-    unsorted keys (the rest of the backward). A time the tracer lost is
-    None."""
-    from naruto_tpu_torch.scripts.trace_summary import device_ms
-
-    nf = vals.shape[1]
-
-    def one():
-        return segsum(si, vals, size, round_bf16=rb, perm=perm)
-
-    def pair():
-        return segsum(si, gather(vals, perm), size, round_bf16=rb)
-
-    got, ref = one(), pair()
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        fail(f"sorted_segment_sum {label}: fed the permutation, it differs "
-             f"from gather_rows + sorted_segment_sum by "
-             f"{float((got - ref).abs().max()):.3e}")
-
-    def traced(fn):
-        t = device_ms(fn)
-        return None if math.isnan(t) else t
-
-    keys = torch.empty_like(si)
-    keys[perm] = si                     # the keys before the sort
-    v = vals.bfloat16().float() if rb else vals
-    vp = v.index_select(0, perm)
-    rows = gather(vals, perm)
-    turns = {"pair": [], "one": []}
-    for form in ("pair", "one", "one", "pair"):
-        turns[form].append(traced(pair if form == "pair" else one))
-    nbytes, flops = _segment_work(si, vals, size, perm=perm)
-    bound_ms, bound_by = bound(nbytes, flops)
-    res = {"shape": label, "round_bf16": rb,
-           "pair_device_ms": turns["pair"], "device_ms": turns["one"],
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "gather_device_ms": traced(lambda: gather(vals, perm)),
-           "sum_device_ms": traced(lambda: segsum(si, rows, size,
-                                                  round_bf16=rb)),
-           "index_add_device_ms": traced(
-               lambda: v.new_zeros((size, nf)).index_add_(0, si, vp)),
-           "index_add_unsorted_device_ms": traced(
-               lambda: v.new_zeros((size, nf)).index_add_(0, keys, v)),
-           "sort_device_ms": traced(lambda: torch.sort(keys, stable=True))}
-
-    def ms(t):
-        return "not measured" if t is None else f"{t:.4f}"
-
-    log(f"[forms] sorted_segment_sum {label} "
-        f"({'bf16' if rb else 'f32'}): fed the permutation equal to "
-        f"gather_rows + sorted_segment_sum bit for bit; device ms in turns "
-        f"(profiler): pair {ms(turns['pair'][0])}, one call "
-        f"{ms(turns['one'][0])}, one call {ms(turns['one'][1])}, pair "
-        f"{ms(turns['pair'][1])}; bound {bound_ms:.4f} ({bound_by}); the "
-        f"pair's gather {ms(res['gather_device_ms'])} and sum "
-        f"{ms(res['sum_device_ms'])}; index_add_ on the permuted rows "
-        f"{ms(res['index_add_device_ms'])}, on the unsorted rows "
-        f"{ms(res['index_add_unsorted_device_ms'])}; torch.sort of the "
-        f"keys {ms(res['sort_device_ms'])}")
-    return res
+def _desc(a) -> str:
+    """A tensor as its shape and dtype, for a case's label."""
+    return f"{list(a.shape)} {str(a.dtype).replace('torch.', '')}"
 
 
-def forms_apart(torch, recorded: list) -> list:
-    """segment_forms for each of `recorded` ((label, si, vals, size, perm,
-    round_bf16), card tensors), in one fresh process: in a process that has
-    run the mapper for long, the tracer keeps a few of a trace's records or
-    none. The inputs reach the child through a temporary directory; the
-    kernels' libraries are already built."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_forms_") as tmp:
-        for i, (label, *inputs) in enumerate(recorded):
-            torch.save({"label": label, "inputs": inputs},
-                       os.path.join(tmp, f"{i}.pt"))
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.forms_child({tmp!r}, "
-             f"{len(recorded)})"], cwd=root, capture_output=True, text=True,
-            timeout=900)
-        sys.stdout.write(run.stdout)
-        sys.stderr.write(run.stderr)
-        if run.returncode:
-            fail(f"the forms' child process exited with {run.returncode}")
-        log(f"[forms] {len(recorded)} keys timed in a fresh process in "
-            f"{time.perf_counter() - t0:.1f} s")
-        with open(os.path.join(tmp, "forms.json")) as f:
-            return json.load(f)
+def check_table(torch, kernels, prims, dev) -> dict:
+    """The kernel table (PERF.md section 6): the fused scan's two
+    epilogues (K1, K2), the row gather (P2, P6), the segment sum (P1
+    bf16-rounded, P7 exact f32) and the row scan (P4), each at the main
+    path's shapes that its row quotes, against its plain version on the
+    same card tensors and timed (kernel_case, the profiler's device time
+    too). Returns the cases by launch-count name; each name's first case
+    is its main path's."""
+    from naruto_tpu_torch.ops.grid_sample import _corner_data
+    from naruto_tpu_torch.scripts.probe_segment_sum import vertex_keys
 
-
-def forms_child(tmp: str, n: int) -> None:
-    """forms_apart's child: segment_forms on the card for each input file
-    of `tmp`, the results to tmp/forms.json."""
-    sys.meta_path.insert(0, BlockImports(("jax", "naruto_tpu")))
-    import torch
-
-    from naruto_tpu_torch.ops import primitives as prims
-
-    out = []
-    for i in range(n):
-        rec = torch.load(os.path.join(tmp, f"{i}.pt"), map_location="cuda")
-        out.append(segment_forms(torch, prims.gather_rows,
-                                 prims.sorted_segment_sum, rec["label"],
-                                 *rec["inputs"]))
-    with open(os.path.join(tmp, "forms.json"), "w") as f:
-        json.dump(out, f)
-
-
-def check_primitives(torch, prims, dev) -> dict:
-    """gather_rows, sorted_segment_sum and row_cumsum against their plain
-    versions at the scripts' sizes, at ragged M and at the BA path's
-    shapes, sorted_segment_sum also on key layouts that stress its tiling;
-    returns, per kernel, every case, each marked with the path whose shape
-    it has ("microbenchmarks", "slice", "ragged" or "layouts"), and under
-    "forms" the two forms of the segment sum fed a permutation, in turns
-    (segment_forms), at the BA's and the vertex layout's shapes."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    res = {k: [] for k in PRIM_KERNELS}
-    res["forms"] = []
+    res = {k: [] for k in ("outer_scan_rows", "outer_scan_slots",
+                           *PRIM_KERNELS)}
 
-    def case(name, path, *args, **kw):
-        res[name].append({"path": path, **kernel_case(torch, name, *args,
-                                                      **kw)})
+    def case(name, row, shape, kernel, plain, tol, work, library=None,
+             deterministic=False):
+        res[name].append({"row": row, **kernel_case(
+            torch, name, f"({row}) {shape}", kernel, plain, tol, *work,
+            library=library, profiled=True, deterministic=deterministic)})
 
-    def nb(*tensors):
-        return sum(t.numel() * t.element_size() for t in tensors)
+    # K1, K2: the hash backward's scan at office0's mapping step
+    si, sa, sb = scan_inputs(torch, gen, dev, SLICE_N, SLICE_M, SLICE_SLOTS,
+                             SLICE_K, SLICE_K)
+    case("outer_scan_rows", "K1", f"M={SLICE_M} 8x8",
+         lambda: kernels.outer_cumsum_scan(sa, sb),
+         lambda: kernels.outer_cumsum_scan_plain(sa, sb), KERNEL_TOL,
+         _scan_rows_work(sa, sb), deterministic=True)
+    case("outer_scan_slots", "K2", f"M={SLICE_M} 8x8 -> {SLICE_SLOTS} slots",
+         lambda: kernels.outer_cumsum_slots(si, sa, sb, SLICE_SLOTS),
+         lambda: kernels.outer_cumsum_slots_plain(si, sa, sb, SLICE_SLOTS),
+         KERNEL_TOL, _scan_slots_work(si, sa, sb, SLICE_SLOTS),
+         deterministic=True)
 
+    # P2, P6: the BA's hash forward (int64 indices), the microbenchmark
+    # scripts' 3M rows of a level table, the vertex grid's forward (its
+    # corner rows of points along rays, int32)
+    keys, vertex_rows = vertex_keys(dev)
     table = torch.randn((PRIM_TS, PRIM_F), generator=gen, device=dev)
-    tables = (("[65536,8] bf16", table.bfloat16()),
-              ("[65536,1] bf16", table[:, :1].bfloat16().contiguous()),
-              ("[65536,8] f32", table))
-    for m in (PRIM_M,) + RAGGED_M:
-        idx = torch.randint(0, PRIM_TS, (m,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        for label, tbl in tables:
-            big = m == PRIM_M
-            case("gather_rows", "microbenchmarks" if big else "ragged",
-                 f"{label} x {m}", lambda: prims.gather_rows(tbl, idx),
-                 lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
-                 nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
-                 library=(lambda: tbl.index_select(0, idx)) if big else None,
-                 profiled=big)
-    for label, rows, width, dtype, m, ranks in BA_GATHERS:
-        tbl = torch.randn((rows, width), generator=gen, device=dev)
-        tbl = (tbl * 2 ** 20).to(torch.int32) if dtype == "int32" else \
-            tbl.to(getattr(torch, dtype))
-        idx = torch.randint(0, rows, (m,), generator=gen, device=dev)
-        if ranks:
-            idx = torch.sort(idx).values
-        case("gather_rows", "slice",
-             f"BA {label} [{rows},{width}] {dtype} x {m} int64",
-             lambda: prims.gather_rows(tbl, idx),
-             lambda: prims.gather_rows_plain(tbl, idx), prims.GATHER_TOL,
-             nbytes=nb(tbl, idx) + m * nb(tbl[:1]),
-             library=lambda: tbl.index_select(0, idx), profiled=True)
-    def segment_cases(path, label, si, vals, size, profiled, library,
-                      perm=None, forms=(True, False)):
-        nf = vals.shape[1]
-        fed = "" if perm is None else \
-            f" fed the {str(perm.dtype).replace('torch.', '')} permutation"
-        for rb in forms:
-            v = vals.bfloat16().float() if rb else vals
-            if perm is not None:
-                v = v.index_select(0, perm)     # the rows the sums take
-            case("sorted_segment_sum", path,
-                 f"{'bf16' if rb else 'f32'} {label}{si.shape[0]} -> "
-                 f"[{size},{nf}]{fed}",
-                 lambda: prims.sorted_segment_sum(si, vals, size,
-                                                  round_bf16=rb, perm=perm),
-                 lambda: prims.sorted_segment_sum_plain(
-                     si, vals, size, round_bf16=rb, perm=perm),
-                 prims.SEGMENT_TOL,
-                 nbytes=_segment_work(si, vals, size, perm=perm)[0],
-                 flops=si.shape[0] * nf,
-                 library=(lambda: v.new_zeros((size, nf)).index_add_(
-                     0, si, v)) if library else None,
-                 profiled=profiled, deterministic=True)
+    idx = torch.randint(0, PRIM_TS, (PRIM_M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for row, label, tbl, ix in (
+            ("P2", "BA hash forward",
+             torch.randn(HASH_ROWS, generator=gen, device=dev).bfloat16(),
+             torch.randint(0, HASH_ROWS[0], (SLICE_N,), generator=gen,
+                           device=dev)),
+            ("P2", "microbenchmarks", table.bfloat16(), idx),
+            ("P6", "microbenchmarks", table[:, :1].bfloat16().contiguous(),
+             idx),
+            ("P2", "vertex forward",
+             torch.randn((vertex_rows, 2), generator=gen, device=dev), keys)):
+        case("gather_rows", row, f"{label} {_desc(tbl)} x {_desc(ix)}",
+             lambda: prims.gather_rows(tbl, ix),
+             lambda: prims.gather_rows_plain(tbl, ix), prims.GATHER_TOL,
+             _gather_work(tbl, ix), library=lambda: tbl.index_select(0, ix))
 
-    # the BA's trilinear VJP: the cells of points along rays, sorted
-    from naruto_tpu_torch.ops.grid_sample import _corner_data
-
+    # P7, P1: the BA's trilinear VJP and the vertex backward, each fed the
+    # permutation of its keys' sort (as dense_segment_sum makes it); the
+    # microbenchmark scripts' [3M, 8], in both roundings
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(5)
     shape = torch.tensor(UNCERT_SHAPE, dtype=torch.float32)
     cells = _corner_data(UNCERT_SHAPE,
-                         (ba_points(torch, cpu_gen) * shape - 0.5))[0]
-    # the sort as dense_segment_sum makes it: the permutation feeds the sum
-    si, perm = torch.sort(cells.to(torch.int32).to(dev), stable=True)
-    log(f"[kernels] BA cells: {BA_POINTS} points in "
-        f"{int(torch.unique(si).numel())} of {BA_CELLS} cells, longest run "
-        f"{int(torch.unique_consecutive(si, return_counts=True)[1].max())}")
-    vals = torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev)
-    segment_cases("slice", "BA cells ", si, vals, BA_CELLS, True, True,
-                  perm=perm, forms=(False, True))
-    for dtype in (torch.int64, torch.int32):
-        res["forms"].append(segment_forms(
-            torch, prims.gather_rows, prims.sorted_segment_sum,
-            f"BA cells {BA_POINTS} -> [{BA_CELLS},{PRIM_F}] "
-            f"{str(dtype).replace('torch.', '')}", si, vals, BA_CELLS,
-            perm.to(dtype), False))
-    segment_cases("slice", "BA cells, gathered rows ", si,
-                  prims.gather_rows(vals, perm), BA_CELLS, True, True)
-    # the vertex layout's backward at the parity grid's office0 size
-    from naruto_tpu_torch.scripts.probe_segment_sum import vertex_keys
-
-    keys, size = vertex_keys(dev)
-    si, perm = torch.sort(keys, stable=True)
-    vals = torch.randn((keys.shape[0], 2), generator=gen, device=dev)
-    log(f"[kernels] vertex rows: {keys.shape[0]} in "
-        f"{int(torch.unique(si).numel())} of {size} table rows")
-    segment_cases("slice", "vertex ", si, vals, size, True, True, perm=perm,
-                  forms=(True,))
-    res["forms"].append(segment_forms(
-        torch, prims.gather_rows, prims.sorted_segment_sum,
-        f"vertex {keys.shape[0]} -> [{size},2] int64", si, vals, size, perm,
-        True))
-    segment_cases("slice", "vertex, gathered rows ", si,
-                  prims.gather_rows(vals, perm), size, True, True,
-                  forms=(True,))
-    case("gather_rows", "slice",
-         f"vertex payload [{keys.shape[0]},2] f32 x {keys.shape[0]} int64 "
-         f"(the pair's gather, off the path)",
-         lambda: prims.gather_rows(vals, perm),
-         lambda: prims.gather_rows_plain(vals, perm), prims.GATHER_TOL,
-         nbytes=nb(vals, perm) + nb(vals),
-         library=lambda: vals.index_select(0, perm), profiled=True)
-    tbl = torch.randn((size, 2), generator=gen, device=dev)
-    case("gather_rows", "slice",
-         f"vertex forward [{size},2] f32 x {keys.shape[0]} "
-         f"{str(keys.dtype).replace('torch.', '')}",
-         lambda: prims.gather_rows(tbl, keys),
-         lambda: prims.gather_rows_plain(tbl, keys), prims.GATHER_TOL,
-         nbytes=nb(tbl, keys) + keys.shape[0] * nb(tbl[:1]),
-         library=lambda: tbl.index_select(0, keys), profiled=True)
-    del keys, si, perm, vals, tbl
-    for m in (PRIM_M,) + RAGGED_M:
-        big = m == PRIM_M
-        size = ((PRIM_T + 127) // 128) * 128 if big else RAGGED_SLOTS
-        keys = torch.randint(0, size, (m,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        keys[-1] = size - 1                 # the last slot is never missed
-        si = torch.sort(keys).values
-        vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
-        segment_cases("microbenchmarks" if big else "ragged", "", si, vals,
-                      size, big, big)
-        case("row_cumsum", "microbenchmarks" if big else "ragged",
-             f"[{m},{PRIM_F}] f32", lambda: prims.row_cumsum(vals),
-             lambda: prims.row_cumsum_plain(vals), prims.CUMSUM_TOL,
-             nbytes=2 * nb(vals), flops=m * PRIM_F,
-             library=(lambda: torch.cumsum(vals, 0)) if big else None,
-             profiled=big, deterministic=True)
-    for layout, m, size in SEGMENT_LAYOUTS:
-        keys = torch.randint(0, size, (m,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        if layout.startswith("one key"):
-            keys[:(m * 3) // 5] = size // 3
-        elif layout == "first key late":
-            keys = size // 2 + keys // 2
-        elif layout == "last key early":
-            keys //= 3
-        elif layout == "long gaps":
-            keys = (keys % 3) * (size // 2 - 3) + keys % 5
-        si = torch.sort(keys).values
-        # long runs: small integers, whose sums are exact in any order,
-        # where the plain version's atomics over many terms would drift
-        vals = torch.randint(-4, 5, (m, PRIM_F), generator=gen,
-                             device=dev).float() \
-            if layout.startswith("one key") or layout == "long gaps" else \
-            torch.randn((m, PRIM_F), generator=gen, device=dev)
-        segment_cases("layouts", f"{layout}: ", si, vals, size,
-                      m >= 300_000, m == PRIM_M)
-    return res
-
-
-def check_host_costs(torch, kernels, prims, dev) -> dict:
-    """Per kernel: the host's microseconds per call of its wrapper and of
-    its plain version at a small shape (HOST_CALLS calls enqueued back to
-    back), where the host, not the device, sets the pace."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    m = 5000
-    tbl = torch.randn((PRIM_TS, PRIM_F), generator=gen, device=dev).bfloat16()
-    idx = torch.randint(0, PRIM_TS, (m,), generator=gen, device=dev,
+                         ba_points(torch, cpu_gen) * shape - 0.5)[0]
+    cell_si, cell_perm = torch.sort(cells.to(torch.int32).to(dev), stable=True)
+    vertex_si, vertex_perm = torch.sort(keys, stable=True)
+    big = torch.randint(0, PRIM_SLOTS, (PRIM_M,), generator=gen, device=dev,
                         dtype=torch.int32)
-    si = torch.sort(torch.randint(0, RAGGED_SLOTS, (m,), generator=gen,
-                                  device=dev, dtype=torch.int32)).values
-    vals = torch.randn((m, PRIM_F), generator=gen, device=dev)
-    ssi, sa, sb = scan_inputs(torch, gen, dev, 4571, 4608, 1536, 8, 4)
-    calls = {
-        "gather_rows": (f"[{PRIM_TS},{PRIM_F}] bf16 x {m}",
-                        lambda: prims.gather_rows(tbl, idx),
-                        lambda: prims.gather_rows_plain(tbl, idx)),
-        "sorted_segment_sum": (
-            f"bf16 {m} -> [{RAGGED_SLOTS},{PRIM_F}]",
-            lambda: prims.sorted_segment_sum(si, vals, RAGGED_SLOTS,
-                                             round_bf16=True),
-            lambda: prims.sorted_segment_sum_plain(si, vals, RAGGED_SLOTS,
-                                                   round_bf16=True)),
-        "row_cumsum": (f"[{m},{PRIM_F}] f32",
-                       lambda: prims.row_cumsum(vals),
-                       lambda: prims.row_cumsum_plain(vals)),
-        "outer_scan_rows": ("M=4608 8x4",
-                            lambda: kernels.outer_cumsum_scan(sa, sb),
-                            lambda: kernels.outer_cumsum_scan_plain(sa, sb)),
-        "outer_scan_slots": (
-            "M=4608 8x4 -> 1536 slots",
-            lambda: kernels.outer_cumsum_slots(ssi, sa, sb, 1536),
-            lambda: kernels.outer_cumsum_slots_plain(ssi, sa, sb, 1536)),
-    }
-    res = {}
-    for name, (shape, kernel, plain) in calls.items():
-        # in turns (wrapper, plain, plain, wrapper): the mean of each pair
-        k1, p1, p2, k2 = (host_us(torch, fn)
-                          for fn in (kernel, plain, plain, kernel))
-        k_us, p_us = (k1 + k2) / 2, (p1 + p2) / 2
-        res[name] = {"host_us": k_us, "plain_host_us": p_us}
-        log(f"[host] {name} {shape}: wrapper {k_us:.2f} us/call ({k1:.2f}, "
-            f"{k2:.2f}), plain {p_us:.2f} us/call ({p1:.2f}, {p2:.2f}); "
-            f"{HOST_CALLS} calls enqueued back to back, in turns")
+    big[-1] = PRIM_SLOTS - 1                # the last slot is never missed
+    big_si = torch.sort(big).values
+    big_vals = torch.randn((PRIM_M, PRIM_F), generator=gen, device=dev)
+    for row, label, si, vals, size, perm, rb in (
+            ("P7", "BA cells", cell_si,
+             torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev),
+             BA_CELLS, cell_perm, False),
+            ("P1", "vertex", vertex_si,
+             torch.randn((keys.shape[0], 2), generator=gen, device=dev),
+             vertex_rows, vertex_perm, True),
+            ("P1", "microbenchmarks", big_si, big_vals, PRIM_SLOTS, None,
+             True),
+            ("P7", "microbenchmarks", big_si, big_vals, PRIM_SLOTS, None,
+             False)):
+        v = vals.bfloat16().float() if rb else vals
+        if perm is not None:
+            v = v.index_select(0, perm)     # the rows the sums take
+        fed = "" if perm is None else " fed the permutation"
+        case("sorted_segment_sum", row,
+             f"{'bf16' if rb else 'f32'} {label} {si.shape[0]} -> "
+             f"[{size},{vals.shape[1]}]{fed}",
+             lambda: prims.sorted_segment_sum(si, vals, size, round_bf16=rb,
+                                              perm=perm),
+             lambda: prims.sorted_segment_sum_plain(si, vals, size,
+                                                    round_bf16=rb, perm=perm),
+             prims.SEGMENT_TOL, _segment_work(si, vals, size, perm=perm),
+             library=lambda: v.new_zeros((size, v.shape[1])).index_add_(
+                 0, si, v), deterministic=True)
+
+    # P4: the microbenchmark script's [3M, 8]
+    case("row_cumsum", "P4", f"[{PRIM_M},{PRIM_F}] f32",
+         lambda: prims.row_cumsum(big_vals),
+         lambda: prims.row_cumsum_plain(big_vals), prims.CUMSUM_TOL,
+         _cumsum_work(big_vals), library=lambda: torch.cumsum(big_vals, 0),
+         deterministic=True)
     return res
 
 
@@ -1783,7 +1262,7 @@ def run_microbenchmarks(torch, kernels) -> dict:
     return counts
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 5
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1921,11 +1400,9 @@ class ShapeRecorder:
         calls at its key) for every key seen; fails on any disagreement."""
         torch = self.torch
         res = {name: [] for name in self.sites}
-        pending = []
 
         def text(a):
-            return f"{list(a.shape)} {str(a.dtype).replace('torch.', '')}" \
-                if isinstance(a, torch.Tensor) else str(a)
+            return _desc(a) if isinstance(a, torch.Tensor) else str(a)
 
         for name, args, kw, calls in self.seen.values():
             _, _, plain, tol, work, scale = self.sites[name]
@@ -1956,16 +1433,6 @@ class ShapeRecorder:
                 case["f64_err"] = f64_err
             res[name].append({"path": path, "calls": calls,
                               "err_of": self.scale_names[scale], **case})
-            if name == "sorted_segment_sum" and kw.get("perm") is not None \
-                    and args[1].shape[1] == 2:
-                # the vertex backward's: both forms timed in turns on its
-                # inputs, after the replay
-                pending.append((res[name][-1], (
-                    f"{path} {label}", *args, kw["perm"], kw["round_bf16"])))
-        if pending:
-            for case, forms in zip(pending, forms_apart(
-                    torch, [inputs for _, inputs in pending])):
-                case[0]["forms"] = forms
         return res
 
 
@@ -1991,7 +1458,7 @@ def run_passive(torch, kernels, prims, root: str, tag: str = "passive",
     `inline`: the simulator's frames made inline (InlineFrames), not
     prefetched; `recorder`: a ShapeRecorder the caller replays (then the
     second value returned is None). With tracking on, every tracking
-    iteration must launch `track_want` (TRACK_LAUNCHES_PER_ITER, phase 9's
+    iteration must launch `track_want` (TRACK_LAUNCHES_PER_ITER, phase 8's
     settings, by default)."""
     import numpy as np
 
@@ -2168,7 +1635,7 @@ def tracking_reach(m) -> tuple:
 
 
 def check_tracking():
-    """Phase 9's gates on the engine run's tracked trajectory: every pose
+    """Phase 8's gates on the engine run's tracked trajectory: every pose
     finite. The tracked poses against data/traj_ab/traj.txt's (the poses
     the engine rendered from) are printed with the trajectory's largest
     step beside what a tracking call can move: that trajectory, the NARUTO
@@ -2205,7 +1672,7 @@ def check_tracking():
 
 def track_path_pose(i: int, step_cm: float, step_deg: float):
     """A path of constant speed: a yaw of step_deg and step_cm along +x a
-    step (phase 4's path, slowed to a tracking call's reach)."""
+    step (phase 3's path, slowed to a tracking call's reach)."""
     import numpy as np
 
     a = math.radians(step_deg) * i
@@ -2218,7 +1685,7 @@ def track_path_pose(i: int, step_cm: float, step_deg: float):
 
 
 def track_path(torch, kernels) -> None:
-    """Phase 9's tracking gates: the mapper with phase 9's settings, frames
+    """Phase 8's tracking gates: the mapper with phase 8's settings, frames
     of the analytic office0 room rendered along track_path_pose at half a
     tracking call's reach a step, TRACK_PATH_STEPS steps through
     online_recon_step (tracking every frame from the constant-speed start,
@@ -2274,7 +1741,7 @@ def track_path(torch, kernels) -> None:
              f"path")
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 6
 def run_active(torch, kernels, prims, root: str, tag: str = "active",
                over=None, seed: int = ACTIVE_SEED,
                jax_rows: str = JAX_ACTIVE_ROWS, hook=None,
@@ -2481,7 +1948,7 @@ def run_active(torch, kernels, prims, root: str, tag: str = "active",
     return counts, recorder.replay(tag)
 
 
-# -------------------------------------------------------------- phase 10
+# -------------------------------------------------------------- phase 9
 def check_renderer(torch, cfg, sim, poses) -> None:
     """The raycast renderer on the mesh against the analytic scene the mesh
     was made from, at `poses`: the median |depth difference| over pixels
@@ -2529,11 +1996,11 @@ def check_renderer(torch, cfg, sim, poses) -> None:
 
 
 def run_raycast(torch, kernels, prims, root: str, keep_dir: str) -> tuple:
-    """Phase 10: office0's analytic room synthesised as a mesh at
+    """Phase 9: office0's analytic room synthesised as a mesh at
     mesh.voxel_eval (the port's scripts/make_scene_assets.py), then phase
-    7's run on it through the raycast simulator, writing its snapshot at
-    RAYCAST_SNAPSHOT_STEP (kept in keep_dir for phase 11). Returns the
-    launches, the replayed cases and what phase 11 needs."""
+    6's run on it through the raycast simulator, writing its snapshot at
+    RAYCAST_SNAPSHOT_STEP (kept in keep_dir for phase 10). Returns the
+    launches, the replayed cases and what phase 10 needs."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config
@@ -2596,16 +2063,16 @@ def run_raycast(torch, kernels, prims, root: str, keep_dir: str) -> tuple:
     return counts, cases, info
 
 
-# -------------------------------------------------------------- phase 11
+# -------------------------------------------------------------- phase 10
 class StopRun(Exception):
     """Ends a resumed run early (raised from a wrapped planner step)."""
 
 
 def run_resumed_active(torch, kernels, prims, info: dict) -> tuple:
-    """Phase 11, active: a fresh Engine on phase 10's configuration resumes
+    """Phase 10, active: a fresh Engine on phase 9's configuration resumes
     from its mid-run snapshot and runs until RESUME_STEPS_AFTER_RRT steps
     after the RRT first draws from its host rng (which no snapshot
-    restores). Its poses must be phase 10's, bit for bit, up to that draw;
+    restores). Its poses must be phase 9's, bit for bit, up to that draw;
     the step where the two part is printed. Returns the launches and the
     replayed cases."""
     from naruto_tpu_torch.config.schema import deep_update
@@ -2659,18 +2126,18 @@ def run_resumed_active(torch, kernels, prims, info: dict) -> tuple:
         f"{start}-{last} in {run_s:.2f} s, {len(per_iter)} BA iterations "
         f"each launching {BA_LAUNCHES_PER_ITER}; the RRT first drew at step "
         + (f"{first_rrt[0]}" if first_rrt else "- (never)")
-        + "; poses equal to phase 10's bit for bit "
+        + "; poses equal to phase 9's bit for bit "
         + (f"up to step {parted[0] - 1}, parting at step {parted[0]}"
            if parted else f"through step {last}"))
     if parted and parted[0] <= upto:
-        fail(f"the resumed active run parted from phase 10's at step "
+        fail(f"the resumed active run parted from phase 9's at step "
              f"{parted[0]}, before the RRT's first draw (step {upto})")
     if not per_iter:
         fail("the resumed active run made no BA iteration")
     return counts, recorder.replay("resumed")
 
 
-# -------------------------------------------------------------- phase 12
+# -------------------------------------------------------------- phase 11
 class InlineFrames:
     """A simulator with host_frame hidden (the seam of
     tests/test_torch_prefetch.py): the engine then makes every frame
@@ -2848,7 +2315,7 @@ def check_codec(torch, frame, depth_trunc: float) -> dict:
 
 
 def run_replay(torch, kernels, prims, root: str) -> tuple:
-    """Phase 12: the codec's contracts, the capture of REPLAY_STEPS poses,
+    """Phase 11: the codec's contracts, the capture of REPLAY_STEPS poses,
     and the passive run on the analytic simulator and over their replay in
     each of FORMS. Returns the replayed run's launches and cases."""
     import numpy as np
@@ -2950,8 +2417,8 @@ def run_replay(torch, kernels, prims, root: str) -> tuple:
 
 def run_raycast_passive(torch, kernels, prims, root: str,
                         mesh: str) -> tuple:
-    """Phase 12, raycast: the passive run cut to RAYCAST_PASSIVE_STEPS
-    steps with tracking on (every frame consumed), over phase 10's mesh of
+    """Phase 11, raycast: the passive run cut to RAYCAST_PASSIVE_STEPS
+    steps with tracking on (every frame consumed), over phase 9's mesh of
     office0 in a scene directory beside the trajectory, in each of FORMS.
     Returns the first run's launches and cases."""
     from naruto_tpu_torch.config import load_config
@@ -2973,9 +2440,9 @@ def run_raycast_passive(torch, kernels, prims, root: str,
     return counts, cases
 
 
-# -------------------------------------------------------------- phase 13
-def run_vis(torch, kernels, prims, root: str, phase7: dict) -> tuple:
-    """Phase 13: phase 7's run for VIS_STEPS steps with the artifact saver,
+# -------------------------------------------------------------- phase 12
+def run_vis(torch, kernels, prims, root: str, active_run: dict) -> tuple:
+    """Phase 12: phase 6's run for VIS_STEPS steps with the artifact saver,
     the offline tools on its artifacts and export_pose on its checkpoint.
     Returns the launches and the replayed cases."""
     import glob
@@ -3009,18 +2476,19 @@ def run_vis(torch, kernels, prims, root: str, phase7: dict) -> tuple:
         counts = kernels.launch_counts()
         tm = eng.timer.timings
         log(f"[vis] {ACTIVE_CFG} seed {ACTIVE_SEED}, {VIS_STEPS} steps with "
-            f"the saver: {run_s:.2f} s (phase 7's pace for {VIS_STEPS} "
-            f"steps: {phase7['run_s'] * VIS_STEPS / phase7['steps']:.2f} s); "
+            f"the saver: {run_s:.2f} s (phase 6's pace for {VIS_STEPS} "
+            f"steps: "
+            f"{active_run['run_s'] * VIS_STEPS / active_run['steps']:.2f} s); "
             f"saver {sum(tm['Visualization']):.2f} s, simulation "
             f"{sum(tm['Simulation']):.2f} s over {len(tm['Simulation'])} "
             f"renders")
         poses = eng.mapper.poses[:VIS_STEPS].cpu()
-        if not torch.equal(poses, phase7["poses"][:VIS_STEPS]):
+        if not torch.equal(poses, active_run["poses"][:VIS_STEPS]):
             bad = [i for i in range(VIS_STEPS)
-                   if not torch.equal(poses[i], phase7["poses"][i])]
-            fail(f"the --enable_vis run's poses differ from phase 7's from "
+                   if not torch.equal(poses[i], active_run["poses"][i])]
+            fail(f"the --enable_vis run's poses differ from phase 6's from "
                  f"step {bad[0]} ({len(bad)} of {VIS_STEPS})")
-        log(f"[vis] the {VIS_STEPS} poses equal phase 7's bit for bit")
+        log(f"[vis] the {VIS_STEPS} poses equal phase 6's bit for bit")
         ckpt = os.path.join(tmp, "ckpt_vis.pkl")
         eng.mapper.save_ckpt(ckpt)
         vis = eng.visualizer.root
@@ -3097,7 +2565,7 @@ def run_vis(torch, kernels, prims, root: str, phase7: dict) -> tuple:
         f"each against its plain version on the inputs of its first call:")
     return counts, recorder.replay("vis")
 
-# -------------------------------------------------------------- phase 14
+# -------------------------------------------------------------- phase 13
 def sharded_state(mapper) -> dict:
     """What a BA iteration reads of a mapper, on the host: the field, the
     keyframes stored so far, the poses and the uncertainty volume."""
@@ -3124,7 +2592,7 @@ def load_sharded_state(torch, mapper, st: dict) -> None:
 
 
 def sharded_rank(mesh, payload) -> dict:
-    """Phase 14 on one rank (spawned by naruto_tpu_torch/parallel/dryrun.py
+    """Phase 13 on one rank (spawned by naruto_tpu_torch/parallel/dryrun.py
     on every rank): the sharded volume query, one BA iteration from the
     payload's draws, SHARDED_STEPS BA steps from the rank's own draws (the
     same on every rank) with each iteration's launches and collectives,
@@ -3147,7 +2615,7 @@ def sharded_rank(mesh, payload) -> dict:
     dev = mesh.device
     mapper = Mapper(payload["cfg"], device=dev)
     if mapper._ba_mesh is None or mapper._sharded_vol is None:
-        fail("phase 14: the mapper's sharded BA or volume query is off")
+        fail("phase 13: the mapper's sharded BA or volume query is off")
     load_sharded_state(torch, mapper, payload["state"])
     out = {"backend": mesh.backend, "device": str(dev)}
     recorder = ShapeRecorder(torch, kernels, primitives)
@@ -3189,7 +2657,7 @@ def sharded_rank(mesh, payload) -> dict:
         deadline = time.monotonic() + SHARDED_TIMEOUT_S
         while not os.path.exists(payload["quiet_card"]):
             if time.monotonic() > deadline:
-                fail("phase 14: the padded-rank check never ended")
+                fail("phase 13: the padded-rank check never ended")
             time.sleep(0.05)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -3226,7 +2694,7 @@ def sharded_rank(mesh, payload) -> dict:
         "result_dir": act["result_dirs"][mesh.rank]}})
     eng = Engine(cfg, device=dev, quiet=True)
     if eng.mapper._ba_mesh is None:
-        fail("phase 14: the active run's mapper is not sharded")
+        fail("phase 13: the active run's mapper is not sharded")
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     eng.run()
@@ -3284,7 +2752,7 @@ def check_sharded_volumes(torch, res: list, ref, what: str) -> None:
 
 
 def run_sharded(torch, kernels, prims, root: str) -> tuple:
-    """Phase 14. Returns rank 0's launches and replayed cases."""
+    """Phase 13. Returns rank 0's launches and replayed cases."""
     import numpy as np
 
     from naruto_tpu_torch.config import load_config, make_config
@@ -3379,7 +2847,7 @@ def run_sharded(torch, kernels, prims, root: str) -> tuple:
     r0 = res[0]
     log(f"[sharded] {SHARDED_RANKS} ranks on {r0['device']}, backend "
         f"{r0['backend']} (parallel/mesh.py's rule: the ranks share the "
-        f"card); office0 at phase 4's width, {rays} rays a BA iteration "
+        f"card); office0 at phase 3's width, {rays} rays a BA iteration "
         f"(bucket {bucket}), {rays // SHARDED_RANKS} a rank, "
         f"{SHARDED_KEYFRAMES} keyframes; the single-process setup and "
         f"reference {prep_s:.1f} s, the ranks {spawn_s:.1f} s (their "
@@ -3469,7 +2937,7 @@ def run_sharded(torch, kernels, prims, root: str) -> tuple:
             if BA_LAUNCHES_PER_ITER[k] and not r0["launches"][k]]
     if idle:
         fail(f"the sharded path never launched {idle}")
-    log(f"[sharded] phase 14 in {time.perf_counter() - t_phase:.1f} s; "
+    log(f"[sharded] phase 13 in {time.perf_counter() - t_phase:.1f} s; "
         f"rank 0's launches {r0['launches']}")
     return r0["launches"], r0["cases"]
 
@@ -3491,7 +2959,7 @@ def main() -> None:
         fail("no CUDA device: the port runs on the card only")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from naruto_tpu_torch.ops import kernels, primitives, segment
+    from naruto_tpu_torch.ops import kernels, primitives
 
     dev = torch.device("cuda")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3515,31 +2983,18 @@ def main() -> None:
         log(f"[smoke] phase {phase} done, "
             f"{time.perf_counter() - t_start:.1f} s in")
 
-    kres = check_kernels(torch, kernels, dev)
-    done("2")
-    from naruto_tpu_torch.config import make_config
-    from naruto_tpu_torch.mapping.mapper import field_spec_from_config
-
-    spec = field_spec_from_config(make_config("Replica", "office0")).hash_spec
-    check_segment_sum(torch, segment, spec, dev)
-    check_trilinear_vjp(torch, dev)
-    done("3")
-    # phase 5 before the BA's graphs: once a process has captured one, the
-    # profiler loses the records of most traced cases (94 of phase 5's,
-    # each retaken five times, when it ran after phase 15)
-    pres = check_primitives(torch, primitives, dev)
-    hres = check_host_costs(torch, kernels, primitives, dev)
+    table = check_table(torch, kernels, primitives, dev)
     bench_launches = run_microbenchmarks(torch, kernels)
     ores = check_optimizers(torch, root, dev)
     qres = check_query_inputs(torch, dev)
-    done("5")
+    done("2")
     sres = run_slice(torch, kernels, args.profile)
-    done("4")
+    done("3")
     gres = run_graph(torch, kernels, sres)
-    done("15")
+    done("4")
     del sres["call"]
     torch.cuda.empty_cache()
-    # the snapshots phases 6 and 10 write, for phase 11 (hundreds of MB:
+    # the snapshots phases 5 and 9 write, for phase 10 (hundreds of MB:
     # in a temporary directory outside the checkout)
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     passive_keep = {}
@@ -3548,7 +3003,7 @@ def main() -> None:
         moved = {k: (row[k], v) for k, v in PORT_PASSIVE_ROW.items()
                  if row[k] != v}
         if moved:
-            fail(f"phase 6's row with snapshots differs from its row "
+            fail(f"phase 5's row with snapshots differs from its row "
                  f"without them (PORT_PASSIVE_ROW): {moved}")
         snap = os.path.join(keep.name, "passive_full_state.pkl")
         shutil.copyfile(eng.snapshot_path(), snap)
@@ -3564,16 +3019,16 @@ def main() -> None:
         torch, kernels, primitives, root,
         over={"general": {"ckpt_freq": PASSIVE_SNAPSHOT_STEP}},
         check=keep_passive)
-    phase7 = {}
+    active_run = {}
 
     def keep_active(eng, row, summary):
-        phase7.update(poses=eng.mapper.poses.cpu().clone(),
+        active_run.update(poses=eng.mapper.poses.cpu().clone(),
                       run_s=eng.run_seconds, steps=eng.cfg.general.num_iter)
 
-    done("6")
+    done("5")
     active, active_cases = run_active(torch, kernels, primitives, root,
                                       check=keep_active)
-    done("7")
+    done("6")
     import yaml
 
     with open(os.path.join(root, PARITY_CFG)) as f:
@@ -3582,45 +3037,45 @@ def main() -> None:
         torch, kernels, primitives, root, "parity",
         over={"grid": parity_grid}, reference=PARITY_ROW,
         want=PARITY_LAUNCHES_PER_ITER)
-    done("8")
+    done("7")
     settings, settings_cases = run_passive(
         torch, kernels, primitives, root, "settings", over=SETTINGS_OVER,
         num_iter=SETTINGS_STEPS, reference=None,
         want=SETTINGS_LAUNCHES_PER_ITER, check=check_tracking())
     track_path(torch, kernels)
-    done("9")
+    done("8")
     raycast, raycast_cases, raycast_info = run_raycast(
         torch, kernels, primitives, root, keep.name)
-    done("10")
+    done("9")
 
-    def same_as_phase6(eng, row):
+    def same_as_passive(eng, row):
         if not torch.equal(eng.mapper.poses.cpu(), passive_keep["poses"]):
-            fail("the resumed passive run's poses differ from phase 6's")
+            fail("the resumed passive run's poses differ from phase 5's")
         if row != passive_keep["row"]:
             fail(f"the resumed passive run's row {row} differs from phase "
-                 f"6's {passive_keep['row']}")
-        log("[resumed] passive: every pose bit for bit phase 6's, the row "
-            "phase 6's digit for digit")
+                 f"5's {passive_keep['row']}")
+        log("[resumed] passive: every pose bit for bit phase 5's, the row "
+            "phase 5's digit for digit")
 
     resumed_p, resumed_p_cases = run_passive(
         torch, kernels, primitives, root, "resumed",
         over={"general": {"ckpt_freq": PASSIVE_SNAPSHOT_STEP}},
-        check=same_as_phase6, resume_from=passive_keep["snapshot"])
+        check=same_as_passive, resume_from=passive_keep["snapshot"])
     resumed_a, resumed_a_cases = run_resumed_active(torch, kernels,
                                                     primitives, raycast_info)
     resumed = {k: resumed_p[k] + resumed_a[k] for k in resumed_p}
     resumed_cases = {k: resumed_p_cases[k] + resumed_a_cases[k]
                      for k in resumed_p_cases}
-    done("11")
+    done("10")
     replay, replay_cases, _ = run_replay(torch, kernels, primitives, root)
     passive_rc, passive_rc_cases = run_raycast_passive(
         torch, kernels, primitives, root, raycast_info["mesh"])
     keep.cleanup()
+    done("11")
+    vis, vis_cases = run_vis(torch, kernels, primitives, root, active_run)
     done("12")
-    vis, vis_cases = run_vis(torch, kernels, primitives, root, phase7)
-    done("13")
     sharded, sharded_cases = run_sharded(torch, kernels, primitives, root)
-    done("14")
+    done("13")
     for path, counts in (("graph", gres["launches"]), ("raycast", raycast),
                          ("resumed", resumed),
                          ("replay", replay),
@@ -3670,37 +3125,28 @@ def main() -> None:
             path: counts["outer_scan_slots"] + counts["outer_scan_rows"]
             for path, counts, _ in (("slice", on_slice, None),
                                     ("graph", on_graph, None), *runs)},
-        **summary(kres["slots"][0]), **hres["outer_scan_slots"],
-        "epilogues": kres,
+        **summary(table["outer_scan_slots"][0]),
+        "epilogues": {"rows": table["outer_scan_rows"],
+                      "slots": table["outer_scan_slots"]},
         **{f"{path}_shapes": {
             "slots": in_brief(cases["outer_scan_slots"]),
             "rows": in_brief(cases["outer_scan_rows"])}
-           for path, _, cases in runs},
-        "host_by_epilogue": {"slots": hres["outer_scan_slots"],
-                             "rows": hres["outer_scan_rows"]}}]
+           for path, _, cases in runs}}]
     for name in PRIM_KERNELS:
-        # the main path a kernel is on: the BA slice, else the
-        # microbenchmarks; its numbers are those of that path's first shape
-        path = "slice" if BA_LAUNCHES_PER_ITER[name] else "microbenchmarks"
-        main_case = next(c for c in pres[name] if c["path"] == path)
+        # the launches of the main path a kernel is on: the BA slice, else
+        # the microbenchmarks
+        on_main = on_slice if BA_LAUNCHES_PER_ITER[name] else bench_launches
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name],
-            "launches": (on_slice if path == "slice"
-                         else bench_launches)[name],
+            "replaces": REPLACES[name], "launches": on_main[name],
             "launches_by_path": {"slice": on_slice[name],
                                  "graph": on_graph[name],
                                  "microbenchmarks": bench_launches[name],
                                  **{path: counts[name]
                                     for path, counts, _ in runs}},
-            **summary(main_case), **hres[name], "cases": pres[name],
+            **summary(table[name][0]), "cases": table[name],
             **{f"{path}_shapes": in_brief(cases[name])
                for path, _, cases in runs}})
-        if name == "sorted_segment_sum":
-            # both forms in turns: phase 5's and the vertex keys' replays
-            entries[-1]["forms"] = pres["forms"] + [
-                c["forms"] for _, _, cases in runs for c in cases[name]
-                if "forms" in c]
     for name in OPTIM_KERNELS:
         # every BA iteration steps the table and the decoders
         entries.append({
@@ -3711,7 +3157,7 @@ def main() -> None:
                                  **{path: counts[name]
                                     for path, counts, _ in runs}},
             "cases": ores[name]})
-    # the vertex grid's no-grad queries: phase 8's volumes and final mesh
+    # the vertex grid's no-grad queries: phase 7's volumes and final mesh
     entries.append({
         "name": "query_inputs", "route": "cuda",
         "source": SOURCE["query_inputs"], "replaces": [],

@@ -188,19 +188,40 @@ def test_wrapper_refuses_noncontiguous_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_segment_sum_on_card_matches_host(gen, cuda_device):
+@pytest.mark.parametrize("where", ["small", "office0"])
+def test_segment_sum_on_card_matches_host(gen, cuda_device, where):
     """The same segment sum through the kernels on the card and through
     the plain versions on the host: identical sort and bf16 terms, f32
-    sums in another order, so 2e-6 of max|cumsum|."""
-    n, L, per, kb = 2000, 4, 4000, 8
-    idx = (gen.integers(0, per, (n, L))
-           + np.arange(L)[None, :] * per).astype(np.int32)
-    frac = gen.uniform(0, 1, (n, L, 3)).astype(np.float32)
-    b = gen.normal(size=(n, L * kb)).astype(np.float32)
-    args = (torch.tensor(idx), torch.tensor(frac), torch.tensor(b))
-    ref = segment.dense_segment_sum_outer_level_major_frac(*args, L * per)
+    sums in another order, so 2e-6 of max|cumsum|. Small: 2,000 x 4
+    updates; office0: the mapping step's, 123,359 points in the cells of
+    office0's hybrid grid (493,436 updates into 204,089 table rows), on
+    the draws this check has always had there (a torch generator seeded
+    1). The bound is empirical: the slot rows are differences of prefix
+    sums over all M rows, whose rounding grows with M."""
+    if where == "small":
+        n, L, per, kb = 2000, 4, 4000, 8
+        idx = torch.tensor((gen.integers(0, per, (n, L))
+                            + np.arange(L)[None, :] * per).astype(np.int32))
+        frac = torch.tensor(gen.uniform(0, 1, (n, L, 3)), dtype=torch.float32)
+        b = torch.tensor(gen.normal(size=(n, L * kb)), dtype=torch.float32)
+        size = L * per
+    else:
+        from naruto_tpu_torch.config import make_config
+        from naruto_tpu_torch.mapping.mapper import field_spec_from_config
+        from naruto_tpu_torch.ops.encoding import _cell_indices, _cell_pos
+
+        spec = field_spec_from_config(
+            make_config("Replica", "office0")).hash_spec
+        n, L, kb = 123_359, spec.n_levels, spec.n_features
+        draws = torch.Generator().manual_seed(1)
+        x = torch.rand((n, 3), generator=draws)
+        idx, frac = _cell_indices(x, spec)[0], _cell_pos(x, spec)[1]
+        b = torch.randn((n, L * kb), generator=draws) * 1e-3
+        size = spec.total_entries
+    args = (idx, frac, b)
+    ref = segment.dense_segment_sum_outer_level_major_frac(*args, size)
     got = segment.dense_segment_sum_outer_level_major_frac(
-        *(a.to(cuda_device) for a in args), L * per).cpu()
+        *(a.to(cuda_device) for a in args), size).cpu()
     scale = float(torch.cumsum(ref, 0).abs().max())
     assert float((got - ref).abs().max()) < 2e-6 * scale
 
@@ -397,6 +418,12 @@ def _segment_inputs(gen, dev, name, m, size, nf):
         keys = np.concatenate([gen.integers(0, 5, m // 3),
                                gen.integers(90_000, 90_010, m // 3),
                                gen.integers(size - 3, size, m - 2 * (m // 3))])
+    elif name == "vertex":
+        # the parity grid's corner rows of points along rays: the vertex
+        # backward's keys at office0
+        from naruto_tpu_torch.scripts.probe_segment_sum import vertex_keys
+
+        keys = vertex_keys(dev)[0].cpu().numpy()
     else:                                   # out_of_range
         keys = np.concatenate([gen.integers(-500, 0, m // 4),
                                gen.integers(0, size, m // 2),
@@ -471,7 +498,8 @@ def test_sorted_segment_sum_is_one_launch_on_card(gen, cuda_device):
 # sorted_segment_sum fed a sort permutation: (layout, rows, slots, columns).
 # F = 2 is the vertex backward's (bf16-rounded), F = 8 the trilinear VJP's
 # (exact f32). 3 x 4,096 and 3 x 2,048 rows are multiples of every tile the
-# two widths take, so one less and one more straddle a tile's edge.
+# two widths take, so one less and one more straddle a tile's edge. Last,
+# the BA's cells and the vertex backward's own keys at office0.
 PERM_CASES = [(name, m, size, nf)
               for nf, tile, big_size in ((2, 4096, 814_897),
                                          (8, 2048, 201_088))
@@ -484,7 +512,7 @@ PERM_CASES = [(name, m, size, nf)
                   ("first_key_late", 20_000, 9000),
                   ("last_key_early", 20_000, 9000),
                   ("long_gaps", 5000, 200_000))] + [
-    ("ba_cells", 93_568, 89_760, 8)]
+    ("ba_cells", 93_568, 89_760, 8), ("vertex", 15_789_952, 814_897, 2)]
 
 
 def _permuted(gen, dev, name, m, size, nf, idx_dtype, offset=0):
@@ -585,15 +613,25 @@ def test_dense_segment_sum_launches_no_gather_on_card(gen, cuda_device, nf,
 
 
 @pytest.mark.cuda
-def test_trilinear_vjp_on_card_matches_host(gen, cuda_device):
+@pytest.mark.parametrize("points", ["uniform", "rays"])
+def test_trilinear_vjp_on_card_matches_host(gen, cuda_device, points):
     """The uncertainty grid's volume gradient through the kernels on the
     card and through the plain versions on the host: the same f32 terms,
-    per-cell sums in another order, so 1e-6 of max|d_vol|."""
+    per-cell sums in another order, so 1e-6 of max|d_vol|. The BA's
+    93,568 points: uniform in a box, or 43 along each of 2,176 rays, as
+    the BA samples them (crowded on few cells)."""
     from naruto_tpu_torch.ops.grid_sample import trilinear_sample
 
     vol = torch.tensor(gen.normal(size=(49, 56, 35)), dtype=torch.float32)
-    pts = torch.tensor(0.3 + 0.4 * gen.uniform(size=(93_568, 3)),
-                       dtype=torch.float32)
+    if points == "uniform":
+        p = 0.3 + 0.4 * gen.uniform(size=(93_568, 3))
+    else:
+        o = gen.uniform(0.3, 0.7, (2176, 1, 3))
+        d = gen.normal(size=(2176, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        p = np.clip(o + d * np.linspace(0.0, 0.4, 43)[None, :, None], 0.0,
+                    1.0).reshape(-1, 3)
+    pts = torch.tensor(p, dtype=torch.float32)
     g = torch.tensor(gen.normal(size=93_568), dtype=torch.float32)
     grads = []
     for dev in ("cpu", cuda_device):

@@ -1,11 +1,16 @@
 """The port's field, renderer, losses and mapper against naruto_tpu on the
 CPU, on identical inputs: numpy-seeded data, weights carried across, and
 every random draw replayed from the JAX key splits."""
+import contextlib
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from naruto_tpu.config import make_config
 from naruto_tpu.config.schema import deep_update
@@ -23,6 +28,7 @@ from naruto_tpu_torch.utils.ckpt_io import to_torch
 
 torch.set_num_threads(1)
 
+ROOT = Path(__file__).resolve().parents[1]
 BOUND = ((-2.0, 2.0), (-2.0, 2.0), (-2.0, 2.0))
 SPEC_KW = dict(bound=BOUND, n_levels=4, log2_hashmap_size=12,
                base_resolution=8, voxel_sdf=0.1, uncert_voxel_size=0.5,
@@ -156,13 +162,40 @@ class TestFieldRenderLosses:
 
 # ------------------------------------------------- one BA iteration vs JAX
 CUR_CAP = 512
+# the kernel wrapper behind each of chip_smoke.py's launch counts
+LAUNCH_WRAPPERS = {"gather_rows": (primitives, "gather_rows"),
+                   "sorted_segment_sum": (primitives, "sorted_segment_sum"),
+                   "row_cumsum": (primitives, "row_cumsum"),
+                   "outer_scan_slots": (kernels, "outer_cumsum_slots"),
+                   "outer_scan_rows": (kernels, "outer_cumsum_scan")}
 # calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
-# same launch counts on the card): wrapper -> (module, calls)
-WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": (primitives, 4),
-                             "sorted_segment_sum": (primitives, 1),
-                             "row_cumsum": (primitives, 0),
-                             "outer_cumsum_slots": (kernels, 1),
-                             "outer_cumsum_scan": (kernels, 0)}
+# same launch counts on the card)
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": 4, "sorted_segment_sum": 1,
+                             "row_cumsum": 0, "outer_scan_slots": 1,
+                             "outer_scan_rows": 0}
+
+
+@contextlib.contextmanager
+def _wrapper_calls():
+    """While on, counts the calls of each kernel wrapper by its launch
+    name (the wrappers take their plain versions on CPU tensors)."""
+    calls = dict.fromkeys(LAUNCH_WRAPPERS, 0)
+    wrapped = {name: getattr(mod, attr)
+               for name, (mod, attr) in LAUNCH_WRAPPERS.items()}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return wrapped[name](*args, **kwargs)
+        return call
+
+    try:
+        for name, (mod, attr) in LAUNCH_WRAPPERS.items():
+            setattr(mod, attr, counting(name))
+        yield calls
+    finally:
+        for name, (mod, attr) in LAUNCH_WRAPPERS.items():
+            setattr(mod, attr, wrapped[name])
 
 
 def _frame(rng, H=24, W=32):
@@ -254,25 +287,8 @@ def ba_pair():
     setup = mt._ba_setup(CUR_CAP, fr_t, _t(c2w), 15)
     draws = _replay_ba_draws(key, mj, 3, setup.n_valid, CUR_CAP)
     batch = mt._ba_batch(setup, draws)
-    # the iteration's calls of the kernel wrappers (which take their plain
-    # versions here, on CPU tensors)
-    calls = dict.fromkeys(WRAPPER_CALLS_PER_BA_ITER, 0)
-    wrapped = {name: getattr(mod, name)
-               for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items()}
-
-    def counting(name):
-        def call(*args, **kwargs):
-            calls[name] += 1
-            return wrapped[name](*args, **kwargs)
-        return call
-
-    try:
-        for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items():
-            setattr(mod, name, counting(name))
+    with _wrapper_calls() as calls:
         aux, grads = mt._ba_iteration(setup, draws, 0)
-    finally:
-        for name, (mod, _) in WRAPPER_CALLS_PER_BA_ITER.items():
-            setattr(mod, name, wrapped[name])
     return dict(seen=seen, state=state, batch=batch, aux=aux, grads=grads,
                 mt=mt, mj=mj, lr=cfg.mapper, calls=calls)
 
@@ -286,8 +302,7 @@ class TestBAIteration:
         uncertainty grid's cell gather and its VJP's segment sum, fed the
         sort permutation (no gather of its rows); never the full-row scan
         nor row_cumsum."""
-        assert ba_pair["calls"] == {
-            name: n for name, (_, n) in WRAPPER_CALLS_PER_BA_ITER.items()}
+        assert ba_pair["calls"] == WRAPPER_CALLS_PER_BA_ITER
 
     def test_batch_matches(self, ba_pair):
         """Keyframe sampling, current-ray picks and the active-ray
@@ -329,6 +344,65 @@ class TestBAIteration:
             diff = np.abs(got.detach().numpy() - np.asarray(want))
             assert diff.max() <= 2 * lr * (1 + 1e-5)
             assert (diff > 0.01 * lr).mean() < 0.02
+
+
+# ------------------------------- the other paths' kernel calls, port alone
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (the path's overrides, its iteration, chip_smoke.py's table of the
+# iteration's launches): the vertex grid's BA (the parity run), the
+# settings run's BA (poses optimised) and tracking iteration, and the
+# passive raycast run's (tracking on at the schema defaults)
+OTHER_PATHS = {
+    "vertex_ba": ("parity", "ba", "PARITY_LAUNCHES_PER_ITER"),
+    "settings_ba": ("SETTINGS_OVER", "ba", "SETTINGS_LAUNCHES_PER_ITER"),
+    "settings_tracking": ("SETTINGS_OVER", "track",
+                          "TRACK_LAUNCHES_PER_ITER"),
+    "tracked_ba": ("RAYCAST_PASSIVE_OVER", "ba",
+                   "TRACKED_LAUNCHES_PER_ITER"),
+    "tracked_tracking": ("RAYCAST_PASSIVE_OVER", "track",
+                         "TRACKED_TRACK_LAUNCHES_PER_ITER")}
+
+
+@pytest.mark.parametrize("path", list(OTHER_PATHS))
+def test_other_paths_call_the_kernel_wrappers(path):
+    """One iteration of each path that chip_smoke.py gates only on the
+    card, run by the port alone at the tiny config, calls each kernel
+    wrapper as often as the card's table says that path launches its
+    kernel (the wrappers take their plain versions here). The tracking
+    paths sample 64 rays 2 pixels from the edges of the 24x32 frames; the
+    counts do not depend on it."""
+    smoke = _chip_smoke()
+    over_name, kind, want_name = OTHER_PATHS[path]
+    if over_name == "parity":
+        with open(ROOT / smoke.PARITY_CFG) as f:
+            over = {"grid": yaml.safe_load(f)["grid"]}
+    else:
+        over = getattr(smoke, over_name)
+    cfg = deep_update(tiny_cfg(track_sample=64, track_ignore_edge_w=2,
+                               track_ignore_edge_h=2), over)
+    mt = Mapper(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    frame = mt.frame_to_rays(*_frame(rng))
+    for s in range(3):
+        mt.add_keyframe(frame, s * 5)
+        mt.poses[s * 5, :3, 3] = torch.tensor([0.1 * s, -0.05 * s, 0.0])
+    mt.uncert_vol = _t(rng.uniform(0, 1, mt.vol_shape).astype(np.float32))
+    c2w = torch.eye(4)
+    c2w[:3, 3] = torch.tensor([0.0, 0.1, 0.0])
+    with _wrapper_calls() as calls:
+        if kind == "ba":
+            setup = mt._ba_setup(CUR_CAP, frame, c2w, 15)
+            mt._ba_iteration(setup, mt._draw_ba(setup), 0)
+        else:
+            mt._tracking_impl(frame, c2w, [mt._draw_track()])
+    assert calls == getattr(smoke, want_name)
 
 
 def test_jax_checkpoint_carries_weights(ba_pair, tmp_path, rng):
