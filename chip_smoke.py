@@ -19,7 +19,10 @@ on the card); throughput is the benchmark's (`python3 benchmark/run.py`).
      and at the scripts' [3M, 8], row_cumsum (P4); both ported
      microbenchmark scripts in this process (every kernel must launch);
      the optimizer steps (O1, O2); the vertex grid's SDF decoder input
-     (Q1) bit for bit at office0's voxels and jiraiya's first chunk;
+     (Q1) bit for bit at office0's voxels and jiraiya's first chunk; the
+     uncertainty grid's sample and grid gradient (T1, T2) bit for bit at
+     a BA iteration's samples on office0's and jiraiya's grids, with the
+     dense-pack path they replaced timed beside them;
   3. the slice: the mapper's online entry point at the full Replica/office0
      defaults (680x1200 analytic frames, L4F8 hybrid grid, 43 samples per
      ray), steps 0..10, then the keyframe store filled to 22 keyframes and
@@ -140,20 +143,23 @@ LIBRARY_REPS = 3           # torch.cumsum(x, 0) at [3M, 8] takes ~0.75 s
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # launches of each kernel entry point in one BA iteration: the fused scan's
 # slot rows in the hash backward (never its full rows); gather_rows for the
-# hash forward, the backward's two payload gathers and the uncertainty
-# grid's cell gather; sorted_segment_sum, fed the sort permutation, for
-# the trilinear VJP's segment sum (no gather by the permutation);
-# row_cumsum nowhere
+# hash forward and the backward's two payload gathers; the uncertainty
+# grid's sample (trilerp_forward) and its vertex sums (trilerp_vjp);
+# sorted_segment_sum, fed the sort permutation, for the trilinear VJP's
+# per-cell sums (no gather by the permutation); row_cumsum nowhere
 BA_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                        "gather_rows": 4, "row_cumsum": 0,
-                        "sorted_segment_sum": 1}
+                        "gather_rows": 3, "row_cumsum": 0,
+                        "sorted_segment_sum": 1, "trilerp_forward": 1,
+                        "trilerp_vjp": 1}
 BACKWARD_KERNELS = ("outer_scan_slots",)   # only in the backward
 SLICE_KERNELS = tuple(BA_LAUNCHES_PER_ITER)
 PRIM_KERNELS = ("gather_rows", "sorted_segment_sum", "row_cumsum")
-# the uncertainty grid at office0: the trilinear VJP sums BA_POINTS rows of
-# 8 corner weights into the cells of a (49, 56, 35) grid
+# the uncertainty grid at office0 and at jiraiya: a BA iteration samples
+# BA_POINTS points, BA_SAMPLES along each of BA_RAYS rays, and its VJP sums
+# their rows of 8 corner weights into one row a touched cell
 UNCERT_SHAPE, BA_RAYS, BA_SAMPLES = (49, 56, 35), 2176, 43
-BA_POINTS, BA_CELLS = BA_RAYS * BA_SAMPLES, 48 * 55 * 34
+JIRAIYA_UNCERT_SHAPE = (306, 306, 306)
+BA_POINTS = BA_RAYS * BA_SAMPLES
 # phase 5: the passive run and the JAX package's row for it
 # (results/ab_r4_parity_traj/Replica/office0/eval_result.txt)
 PASSIVE_CFG = "configs/ab/passive_traj_ab.yaml"
@@ -178,12 +184,13 @@ PARITY_ROW = {"traj_length_m": 33.179382, "accuracy_cm": 1.357286,
               "completion_cm": 1.288284, "completion_ratio_pct": 99.609,
               "mad_cm": 0.459087}
 # its BA iteration: gather_rows for the hash forward (one row of F = 2 per
-# corner) and the uncertainty grid's cell gather; sorted_segment_sum, fed
-# each sort permutation, for the vertex rows (bf16-rounded) and the
+# corner); the uncertainty grid's sample and vertex sums; sorted_segment_sum,
+# fed each sort permutation, for the vertex rows (bf16-rounded) and the
 # trilinear VJP (exact); no fused scan
 PARITY_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
-                            "gather_rows": 2, "row_cumsum": 0,
-                            "sorted_segment_sum": 2}
+                            "gather_rows": 1, "row_cumsum": 0,
+                            "sorted_segment_sum": 2, "trilerp_forward": 1,
+                            "trilerp_vjp": 1}
 # phase 8: the passive protocol with the remaining settings, cut to
 # SETTINGS_STEPS steps (schema defaults: 10 tracking iterations of 1,024
 # rays), on the default hybrid grid
@@ -193,19 +200,21 @@ SETTINGS_OVER = {"mapper": {"tracking_enable": True},
                  "grid": {"sort_carry": "weights"}}
 # its BA iteration (poses optimised): the hash encode runs twice, the first
 # pass with the smoothness pairs riding it; gather_rows for both forwards,
-# both uncertainty-grid lookups, each backward's two payload gathers (the
-# weights carry) and its position gradient's feature gather; the slot-row
-# scan in both hash backwards; one sorted_segment_sum fed the permutation
-# (the trilinear VJP: no loss reads the first pass's uncertainty)
+# each backward's two payload gathers (the weights carry) and its position
+# gradient's feature gather; both uncertainty-grid samples; the slot-row
+# scan in both hash backwards; one trilinear VJP, its sorted_segment_sum
+# fed the permutation (no loss reads the first pass's uncertainty)
 SETTINGS_LAUNCHES_PER_ITER = {"outer_scan_slots": 2, "outer_scan_rows": 0,
-                              "gather_rows": 10, "row_cumsum": 0,
-                              "sorted_segment_sum": 1}
-# a tracking iteration (the field frozen): both forwards' hash and
-# uncertainty gathers, and the position gradient's feature gather; no
-# table gradient, so no segment sum and no scan
+                              "gather_rows": 8, "row_cumsum": 0,
+                              "sorted_segment_sum": 1, "trilerp_forward": 2,
+                              "trilerp_vjp": 1}
+# a tracking iteration (the field frozen): both forwards' hash gathers and
+# uncertainty samples, and the position gradient's feature gather; no
+# table or grid gradient, so no segment sum, no scan, no vertex sums
 TRACK_LAUNCHES_PER_ITER = {"outer_scan_slots": 0, "outer_scan_rows": 0,
-                           "gather_rows": 5, "row_cumsum": 0,
-                           "sorted_segment_sum": 0}
+                           "gather_rows": 3, "row_cumsum": 0,
+                           "sorted_segment_sum": 0, "trilerp_forward": 2,
+                           "trilerp_vjp": 0}
 MAX_TRACK_RMSE_CM, MAX_TRACK_ERR_CM = 5.0, 10.0
 TRACK_PATH_STEPS = 40
 ACTIVE_CFG = "configs/Replica/office0/naruto.yaml"
@@ -248,13 +257,15 @@ RAYCAST_PASSIVE_OVER = {"mapper": {"tracking_enable": True}}
 # its BA iteration (poses optimised): phase 3's launches and the position
 # gradient's feature gather
 TRACKED_LAUNCHES_PER_ITER = {"outer_scan_slots": 1, "outer_scan_rows": 0,
-                             "gather_rows": 5, "row_cumsum": 0,
-                             "sorted_segment_sum": 1}
-# and its tracking iteration: one forward's hash and uncertainty gathers
-# (no importance pass) and the position gradient's feature gather
+                             "gather_rows": 4, "row_cumsum": 0,
+                             "sorted_segment_sum": 1, "trilerp_forward": 1,
+                             "trilerp_vjp": 1}
+# and its tracking iteration: one forward's hash gather and uncertainty
+# sample (no importance pass) and the position gradient's feature gather
 TRACKED_TRACK_LAUNCHES_PER_ITER = {"outer_scan_slots": 0,
-                                   "outer_scan_rows": 0, "gather_rows": 3,
-                                   "row_cumsum": 0, "sorted_segment_sum": 0}
+                                   "outer_scan_rows": 0, "gather_rows": 2,
+                                   "row_cumsum": 0, "sorted_segment_sum": 0,
+                                   "trilerp_forward": 1, "trilerp_vjp": 0}
 REPLAY_RATIO_PTS = 0.5     # |replayed - analytic| completion ratio, points
 REPLAY_MAD_CM = 0.05       # |replayed - analytic| MAD
 CODEC_MIN_PSNR_DB = 40.0   # quality 95, 4:2:0, a 680x1200 frame (43-51 dB)
@@ -309,6 +320,8 @@ SOURCE = {
     "embed_adam": "naruto_tpu_torch/csrc/adam.cu",
     "adam": "naruto_tpu_torch/csrc/adam.cu",
     "query_inputs": "naruto_tpu_torch/csrc/query_inputs.cu",
+    "trilerp_forward": "naruto_tpu_torch/csrc/trilerp.cu",
+    "trilerp_vjp": "naruto_tpu_torch/csrc/trilerp.cu",
 }
 REPLACES = {
     "outer_scan": ["naruto_tpu/ops/pallas_kernels.py:57",
@@ -647,7 +660,9 @@ def run_slice(torch, kernels, profile_dir) -> dict:
         f"{BA_LAUNCHES_PER_ITER}; launches in the slice {counts}; "
         f"{replays} graph launches in {calls} BA calls; volume queries "
         f"{field.volume_counts()}, query_inputs launches "
-        f"{counts['query_inputs']}; {mapper.kf.count} keyframes, bucket "
+        f"{counts['query_inputs']}, trilerp_forward "
+        f"{counts['trilerp_forward']}, trilerp_vjp {counts['trilerp_vjp']}; "
+        f"{mapper.kf.count} keyframes, bucket "
         f"{bucket}: {rays} rays an iteration ({rays * mapper.rc.n_samples} "
         f"render points + {(cfg.training.smooth_pts - 1) ** 3} smoothness "
         f"points)")
@@ -990,7 +1005,7 @@ def check_table(torch, kernels, prims, dev) -> dict:
     same card tensors and timed (kernel_case, the profiler's device time
     too). Returns the cases by launch-count name; each name's first case
     is its main path's."""
-    from naruto_tpu_torch.ops.grid_sample import _corner_data
+    from naruto_tpu_torch.ops.grid_sample import _corner_data, run_ranks
     from naruto_tpu_torch.scripts.probe_segment_sum import vertex_keys
 
     gen = torch.Generator(device=dev)
@@ -1047,7 +1062,8 @@ def check_table(torch, kernels, prims, dev) -> dict:
     shape = torch.tensor(UNCERT_SHAPE, dtype=torch.float32)
     cells = _corner_data(UNCERT_SHAPE,
                          ba_points(torch, cpu_gen) * shape - 0.5)[0]
-    cell_si, cell_perm = torch.sort(cells.to(torch.int32).to(dev), stable=True)
+    cell_si, cell_perm = torch.sort(cells.to(dev), stable=True)
+    cell_rank = run_ranks(cell_si)
     vertex_si, vertex_perm = torch.sort(keys, stable=True)
     big = torch.randint(0, PRIM_SLOTS, (PRIM_M,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -1055,9 +1071,9 @@ def check_table(torch, kernels, prims, dev) -> dict:
     big_si = torch.sort(big).values
     big_vals = torch.randn((PRIM_M, PRIM_F), generator=gen, device=dev)
     for row, label, si, vals, size, perm, rb in (
-            ("P7", "BA cells", cell_si,
+            ("P7", "BA cells by run rank", cell_rank,
              torch.randn((BA_POINTS, PRIM_F), generator=gen, device=dev),
-             BA_CELLS, cell_perm, False),
+             BA_POINTS, cell_perm, False),
             ("P1", "vertex", vertex_si,
              torch.randn((keys.shape[0], 2), generator=gen, device=dev),
              vertex_rows, vertex_perm, True),
@@ -1237,6 +1253,83 @@ def check_query_inputs(torch, dev) -> list:
             torch, "query_inputs", f"{name} [{x.shape[0]}, {cols}]", kern,
             plain, 0.0, nbytes=x.shape[0] * (12 + 4 * cols)
             + table.numel() * 4, profiled=n is not None, deterministic=True))
+    return out
+
+
+def check_trilerp(torch, dev) -> dict:
+    """csrc/trilerp.cu's two kernels against their plain versions on the
+    same card tensors, bit for bit, at a BA iteration's BA_POINTS samples
+    along rays on office0's and jiraiya's uncertainty grids, timed (the
+    profiler too); beside them the dense-pack path they replaced
+    (tests/dense_trilerp.py: the cell pack and its gather; the dense cell
+    sum and the corner planes), whose sample and gradient the new path's
+    must equal bit for bit. Returns the cases by kernel."""
+    from naruto_tpu_torch.ops import grid_sample as gs
+    from naruto_tpu_torch.ops import primitives
+    from naruto_tpu_torch.scripts.trace_summary import device_ms
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from dense_trilerp import cell_data, cell_pack, dense_vol_grad
+
+    def times(fn) -> dict:
+        t = device_ms(fn)
+        return {"ms": cuda_ms(fn, PRIM_REPS),
+                "device_ms": None if math.isnan(t) else t}
+
+    out = {"trilerp_forward": [], "trilerp_vjp": []}
+    cpu_gen = torch.Generator().manual_seed(6)
+    for name, shape in (("office0", UNCERT_SHAPE),
+                        ("jiraiya", JIRAIYA_UNCERT_SHAPE)):
+        vol = torch.randn(shape, generator=cpu_gen).to(dev)
+        coords = (ba_points(torch, cpu_gen) * torch.tensor(
+            shape, dtype=torch.float32) - 0.5).to(dev)
+        g = torch.randn(BA_POINTS, generator=cpu_gen).to(dev)
+        key, w, frac, vals = gs.trilerp_forward(vol, coords)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (key, w, frac, vals), gs.trilerp_forward_plain(vol, coords))):
+            fail(f"trilerp_forward {name}: the kernel differs from the plain "
+                 f"version")
+        cell = cell_data(shape, coords)[0]
+        gw = g[:, None] * w
+        si, perm = torch.sort(key, stable=True)
+        rank = gs.run_ranks(si)
+        d_cell = primitives.sorted_segment_sum(rank, gw, BA_POINTS,
+                                               round_bf16=False, perm=perm)
+        touched = int(rank[-1]) + 1
+        if not torch.equal(gs._vol_grad(shape, key, gw),
+                           dense_vol_grad(shape, cell, gw)):
+            fail(f"trilerp_vjp {name}: the grid gradient differs from the "
+                 f"dense-pack path's")
+        label = f"{name} {list(shape)} x {BA_POINTS} samples"
+        fwd = kernel_case(
+            torch, "trilerp_forward", label,
+            lambda: gs.trilerp_forward(vol, coords)[3],
+            lambda: gs.trilerp_forward_plain(vol, coords)[3], 0.0,
+            nbytes=BA_POINTS * (12 + 32 + 80), profiled=True,
+            deterministic=True)
+        fwd["replaced"] = times(lambda: primitives.gather_rows(
+            cell_pack(vol), cell_data(shape, coords)[0]))
+        vjp = kernel_case(
+            torch, "trilerp_vjp", f"{label}, {touched} touched cells",
+            lambda: gs.trilerp_vjp(shape, si, rank, d_cell),
+            lambda: gs.trilerp_vjp_plain(shape, si, rank, d_cell), 0.0,
+            nbytes=4 * vol.numel() + BA_POINTS * 8 + touched * (32 + 32),
+            profiled=True, deterministic=True)
+        vjp["backward"] = times(lambda: gs._vol_grad(shape, key, gw))
+        vjp["replaced"] = times(lambda: dense_vol_grad(shape, cell, gw))
+        for case in (fwd, vjp):
+            case["replaced_ms"] = case["replaced"]["ms"]
+        log(f"[kernels] trilerp {name}: the dense-pack path it replaced, "
+            f"pack and gather {fwd['replaced']['device_ms']} ms on the "
+            f"device ({fwd['replaced']['ms']:.4f} events); the whole grid "
+            f"gradient {vjp['backward']['device_ms']} ms (sort, ranks, "
+            f"segment sum, zero fill, vertex sums; "
+            f"{vjp['backward']['ms']:.4f} events) against the dense cell "
+            f"sum and corner planes' {vjp['replaced']['device_ms']} ms "
+            f"({vjp['replaced']['ms']:.4f} events), equal bit for bit")
+        out["trilerp_forward"].append(fwd)
+        out["trilerp_vjp"].append(vjp)
     return out
 
 
@@ -2987,6 +3080,7 @@ def main() -> None:
     bench_launches = run_microbenchmarks(torch, kernels)
     ores = check_optimizers(torch, root, dev)
     qres = check_query_inputs(torch, dev)
+    tres = check_trilerp(torch, dev)
     done("2")
     sres = run_slice(torch, kernels, args.profile)
     done("3")
@@ -3167,6 +3261,17 @@ def main() -> None:
                              **{path: counts["query_inputs"]
                                 for path, counts, _ in runs}},
         **summary(qres[1]), "cases": qres})
+    # the uncertainty grid's sample (every BA forward and volume chunk) and
+    # its grid gradient (every BA backward); the row is jiraiya's case
+    for name in ("trilerp_forward", "trilerp_vjp"):
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": [], "launches": on_slice[name],
+            "launches_by_path": {"slice": on_slice[name],
+                                 "graph": on_graph[name],
+                                 **{path: counts[name]
+                                    for path, counts, _ in runs}},
+            **summary(tres[name][1]), "cases": tres[name]})
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

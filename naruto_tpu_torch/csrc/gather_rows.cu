@@ -12,10 +12,9 @@
 // compute the function above. Their 2048-row blocking is the TPU's tiling
 // and is not carried over. On the port's BA path the same kernel gathers
 // the hash grid's rows ([204,089, 64] bf16, 128-byte rows), the sort
-// permutation's payloads ([M, 1] int32, [M, 8] bf16), the scan's boundary
-// rows ([M, 64] f32, 256-byte rows) and the uncertainty grid's cells
-// ([89,760, 8] f32), with the int64 indices torch.sort and the index
-// arithmetic give.
+// permutation's payloads ([M, 1] int32, [M, 8] bf16) and the scan's
+// boundary rows ([M, 64] f32, 256-byte rows), with the int64 indices
+// torch.sort and the index arithmetic give.
 //
 // What bounded the first design (one thread per 1..16-byte piece of an
 // output row; NVIDIA H100 80GB HBM3, 700 W):

@@ -19,8 +19,9 @@
 // This kernel computes what those scripts check against, a segment sum,
 // over all M rows. It is the whole of a dense segment sum after the sort
 // of its keys, fed the sort permutation: on the port's BA path the
-// uncertainty grid's trilinear VJP ([93,568, 8] into [89,760, 8], f32) and
-// the vertex layout's hash-grid backward ([15,789,952, 2] into [814,897,
+// uncertainty grid's trilinear VJP ([93,568, 8] into one row a touched
+// cell, keyed by the runs' ranks, f32) and the vertex layout's hash-grid
+// backward ([15,789,952, 2] into [814,897,
 // 2], bf16-rounded; configs/parity.yaml).
 //
 // What bounds it on an H100: bytes. At the scripts' shape (3,000,000 keys

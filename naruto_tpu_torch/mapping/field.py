@@ -37,7 +37,7 @@ from naruto_tpu_torch.ops.encoding import (HashGridSpec, hash_encode,
                                            init_hash_table,
                                            query_inputs_refusal,
                                            vertex_query_inputs)
-from naruto_tpu_torch.ops.grid_sample import cell_pack, trilinear_sample
+from naruto_tpu_torch.ops.grid_sample import trilinear_sample
 from naruto_tpu_torch.ops.mlp import init_mlp_params, mlp_apply
 from naruto_tpu_torch.ops.one_blob import one_blob_encode
 
@@ -131,12 +131,9 @@ def _points(spec: FieldSpec, *x01: torch.Tensor):
     return x01 if spec.diff_positions else tuple(x.detach() for x in x01)
 
 
-def query_uncert(params: Params, x01: torch.Tensor,
-                 cells: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Raw (pre-softplus) uncertainty from the learnable grid; `cells`: its
-    cell_pack(), where the caller holds it."""
-    return trilinear_sample(params["uncert_grid"], x01, align_corners=False,
-                            cells=cells)
+def query_uncert(params: Params, x01: torch.Tensor) -> torch.Tensor:
+    """Raw (pre-softplus) uncertainty from the learnable grid."""
+    return trilinear_sample(params["uncert_grid"], x01, align_corners=False)
 
 
 def _decoder_input(params: Params, x01: torch.Tensor, spec: FieldSpec):
@@ -157,13 +154,13 @@ def _decoder_input(params: Params, x01: torch.Tensor, spec: FieldSpec):
 
 
 def _heads(params: Params, x01: torch.Tensor, inp: torch.Tensor,
-           spec: FieldSpec, cells: Optional[torch.Tensor] = None):
+           spec: FieldSpec):
     """(sdf, geo, raw uncert) from the SDF decoder's input inp = [h, p]."""
     out = mlp_apply(params["sdf_mlp"], inp)
     sdf = out[:, 0]
     if spec.pred_uncert:
         return sdf, out[:, 1:-1], out[:, -1]
-    uncert = (query_uncert(params, x01, cells) if spec.uncert_grid
+    uncert = (query_uncert(params, x01) if spec.uncert_grid
               else torch.zeros_like(sdf))
     return sdf, out[:, 1:], uncert
 
@@ -195,12 +192,11 @@ def field_query_plus_embed(params: Params, x01: torch.Tensor,
 
 
 def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
-              with_uncert: bool = False,
-              cells: Optional[torch.Tensor] = None):
+              with_uncert: bool = False):
     """SDF (and optionally raw uncertainty) at x01 [N, 3]."""
     x01, = _points(spec, x01)
     sdf, _, uncert = _heads(params, x01, _decoder_input(params, x01, spec)[0],
-                            spec, cells)
+                            spec)
     return (sdf, uncert) if with_uncert else sdf
 
 
@@ -208,13 +204,11 @@ def query_sdf(params: Params, x01: torch.Tensor, spec: FieldSpec,
 SURFACE_BAND = (0.0, 0.5)
 
 
-def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
-                cells: Optional[torch.Tensor] = None):
+def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec):
     """(sdf, uncert_map) at x01 [N, 3]: the uncertainty softplus(u) + 0.01
     on the surface band SURFACE_BAND of the SDF, zero off it (the mapper's
-    volumes, which the planner reads); `cells`: the uncertainty grid's
-    cell_pack(), where the caller holds it."""
-    sdf, uncert = query_sdf(params, x01, spec, with_uncert=True, cells=cells)
+    volumes, which the planner reads)."""
+    sdf, uncert = query_sdf(params, x01, spec, with_uncert=True)
     uncert_map = torch.nn.functional.softplus(uncert) + 0.01
     on_surface = (sdf >= SURFACE_BAND[0]) & (sdf < SURFACE_BAND[1])
     return sdf, torch.where(on_surface, uncert_map, 0.0)
@@ -223,9 +217,10 @@ def volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
 # points a chunk of the map-volume query. On an H100, jiraiya's 306^3
 # voxels on the vertex grid take 103 / 63 / 62 / 61 / 60 ms at 2^18-2^22
 # points a chunk (the decoder input from one kernel, the uncertainty grid
-# packed once), while the peak grows ~0.7 KB a point of a chunk: 2^20
-# adds 0.68 GiB (the encode's chain held ~8.5 KB a point, 9.7 GiB at 2^20;
-# it still runs on the hybrid and cell grids; PERF.md §6)
+# then packed into cells once a query), while the peak grows ~0.7 KB a
+# point of a chunk: 2^20 adds 0.68 GiB (the encode's chain held ~8.5 KB a
+# point, 9.7 GiB at 2^20; it still runs on the hybrid and cell grids;
+# PERF.md §6)
 VOLUME_CHUNK = 1 << 20
 # map-volume queries, their chunks and their voxels since the last reset
 VOLUME_COUNTS = {"queries": 0, "chunks": 0, "voxels": 0}
@@ -244,18 +239,16 @@ def chunked_volume_maps(params: Params, x01: torch.Tensor, spec: FieldSpec,
                         sdf: Optional[torch.Tensor] = None,
                         uncert: Optional[torch.Tensor] = None):
     """volume_maps at x01 [N, 3] in chunks of VOLUME_CHUNK points, each
-    written into sdf and uncert ([N] each, allocated where not given), the
-    uncertainty grid cell-packed once for all of them. Each point's values
+    written into sdf and uncert ([N] each, allocated where not given), each
+    chunk sampling the uncertainty grid itself. Each point's values
     are the one-batch query's, bit for bit where one chunk holds every
     point, else to the rounding of reductions laid out by the chunk's
     size."""
     n = x01.shape[0]
     sdf = x01.new_empty(n) if sdf is None else sdf
     uncert = x01.new_empty(n) if uncert is None else uncert
-    cells = (cell_pack(params["uncert_grid"])
-             if spec.uncert_grid and not spec.pred_uncert else None)
     for lo in range(0, n, VOLUME_CHUNK):
-        s, u = volume_maps(params, x01[lo:lo + VOLUME_CHUNK], spec, cells)
+        s, u = volume_maps(params, x01[lo:lo + VOLUME_CHUNK], spec)
         sdf[lo:lo + s.shape[0]].copy_(s)
         uncert[lo:lo + s.shape[0]].copy_(u)
         VOLUME_COUNTS["chunks"] += 1

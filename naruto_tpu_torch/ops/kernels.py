@@ -17,7 +17,9 @@ design answers it), with two store epilogues:
 The kernels of the hash-grid microbenchmarks are wrapped in
 ``ops/primitives.py``, the optimizer steps (``csrc/adam.cu``) in
 ``mapping/optim.py``, the vertex grid's SDF decoder input
-(``csrc/query_inputs.cu``) in ``ops/encoding.py``.
+(``csrc/query_inputs.cu``) in ``ops/encoding.py``, the uncertainty grid's
+trilinear sample and its gradient (``csrc/trilerp.cu``) in
+``ops/grid_sample.py``.
 
 Every wrapper takes its plain version for a tensor on the CPU (the tests
 run there) and launches its kernel for a CUDA tensor; it never falls back.
@@ -85,15 +87,23 @@ ENTRY_POINTS = {
         "naruto_vertex_query_inputs": (
             [_P, _P, _P, _P, _I64, _P, _I32, _I64, _I32, _F32, _P],
             _I32)},
+    "trilerp": {
+        "naruto_trilerp_forward": (
+            [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P], _I32),
+        "naruto_trilerp_vjp": (
+            [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P], _I32)},
 }
 
 # launches of each entry point since the last reset (plain versions do not
 # count); the fused scan counts each epilogue apart; embed_adam and adam are
 # the optimizer steps of mapping/optim.py, query_inputs the vertex grid's
-# no-grad SDF decoder input (ops/encoding.py)
+# no-grad SDF decoder input (ops/encoding.py), trilerp_forward and
+# trilerp_vjp the uncertainty grid's sample and its gradient
+# (ops/grid_sample.py)
 LAUNCHES = {"outer_scan_rows": 0, "outer_scan_slots": 0, "gather_rows": 0,
             "sorted_segment_sum": 0, "row_cumsum": 0, "embed_adam": 0,
-            "adam": 0, "query_inputs": 0}
+            "adam": 0, "query_inputs": 0, "trilerp_forward": 0,
+            "trilerp_vjp": 0}
 # per source: nvcc's wall seconds (None: the library was already built) and
 # its -Xptxas=-v report
 BUILD_LOG = {src: {"seconds": None, "ptxas": ""} for src in ENTRY_POINTS}

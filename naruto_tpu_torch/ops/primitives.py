@@ -13,9 +13,9 @@ and scripts/microbench_round2.py, which compute three functions:
 
 ``gather_rows`` and ``sorted_segment_sum`` also carry the mapper's BA path:
 the hash grid's forward gather, the cell-row backward's payload gathers,
-the uncertainty grid's cell gather, and the segment sums of the vertex
-layout's backward and of the trilinear VJP (``sorted_segment_sum`` fed the
-sort permutation, which reads each row from its place: no gather).
+and the segment sums of the vertex layout's backward and of the
+uncertainty grid's trilinear VJP (``sorted_segment_sum`` fed the sort
+permutation, which reads each row from its place: no gather).
 
 Each source's header says what bounds the kernel on the card and how its
 design answers it. As in ``ops/kernels.py``, every wrapper checks the

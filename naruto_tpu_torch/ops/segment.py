@@ -10,15 +10,14 @@ weights themselves ("weights"); the fused scan of ``ops/kernels.py``
 writes, for every slot, the prefix sum through the slot's last update, and
 an adjacent difference turns those into per-slot sums.
 
-``dense_segment_sum`` (the vertex layout's hash-grid backward, and the
-uncertainty grid's trilinear VJP) is one ``torch.sort`` of the keys and one
-``primitives.sorted_segment_sum`` fed the sort permutation: the kernel reads
-each value row from its place in the unsorted values and sums each run of
-equal keys directly. No gather, no sorted copy of the values, no prefix
+``dense_segment_sum`` (the vertex layout's hash-grid backward) is one
+``torch.sort`` of the keys and one ``primitives.sorted_segment_sum`` fed
+the sort permutation: the kernel reads each value row from its place in
+the unsorted values and sums each run of equal keys directly. No gather, no sorted copy of the values, no prefix
 sum, no rank search, no difference of running totals. It has the JAX
 function's signature and default: the values are rounded to bf16 before the
 f32 sums (by the segment sum, as it reads them) unless ``pack_bf16=False``
-(the exact form the trilinear VJP uses).
+(exact f32 sums).
 
 Every row gather here (the cell-row carries' payloads) is
 ``primitives.gather_rows``: like the segment sum, a kernel on the card and

@@ -641,6 +641,112 @@ def test_trilinear_vjp_on_card_matches_host(gen, cuda_device, points):
     assert _rel(grads[1], grads[0]) <= 1e-6
 
 
+# ------------------------------- the uncertainty grid's trilinear sample
+TRILERP_GRIDS = {"office0": (49, 56, 35), "jiraiya": (306, 306, 306)}
+
+
+def _trilerp_inputs(shape, kind: str, seed: int):
+    """(vol, coords in voxel units, cotangent) on the card: a BA
+    iteration's 93,568 samples, 43 along each of 2,176 rays (crowded on
+    few cells), or spread over and past the grid (the clamp's fringe)."""
+    rng = np.random.default_rng(seed)
+    if kind == "rays":
+        o = rng.uniform(0.3, 0.7, (2176, 1, 3))
+        d = rng.normal(size=(2176, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        p = np.clip(o + d * np.linspace(0.0, 0.4, 43)[None, :, None], 0.0,
+                    1.0).reshape(-1, 3)
+    else:
+        p = rng.uniform(-0.1, 1.1, (93_568, 3))
+    coords = p * np.asarray(shape) - 0.5
+    return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in
+            (rng.normal(size=shape), coords, rng.normal(size=p.shape[0]))]
+
+
+def _trilerp_plain(vol, coords, g):
+    """(sample, grid gradient) through the plain versions (the per-cell
+    sums are the segment-sum kernel's either way)."""
+    from naruto_tpu_torch.ops import grid_sample as gs
+
+    key, w, _, vals = gs.trilerp_forward_plain(vol, coords)
+    si, perm = torch.sort(key, stable=True)
+    rank = gs.run_ranks(si)
+    d_cell = primitives.sorted_segment_sum(rank, g[:, None] * w, g.shape[0],
+                                           round_bf16=False, perm=perm)
+    return (torch.sum(vals * w, dim=-1),
+            gs.trilerp_vjp_plain(tuple(vol.shape), si, rank, d_cell))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rays", "fringe"])
+@pytest.mark.parametrize("grid", list(TRILERP_GRIDS))
+def test_trilerp_kernels_equal_plain_on_card(cuda_device, grid, kind):
+    """csrc/trilerp.cu's forward and vertex sums equal their plain
+    versions on the same card tensors bit for bit, one launch each, and
+    two calls agree; the sample and the grid gradient equal the dense-pack
+    path's (tests/dense_trilerp.py) bit for bit, at jiraiya's 306^3 grid
+    and office0's (49, 56, 35)."""
+    from dense_trilerp import DenseTrilerp, cell_data, dense_vol_grad
+
+    from naruto_tpu_torch.ops import grid_sample as gs
+
+    shape = TRILERP_GRIDS[grid]
+    vol, coords, g = _trilerp_inputs(shape, kind, 11)
+    before = kernels.launch_counts()
+    got = gs.trilerp_forward(vol, coords)
+    for a, b in zip(got, gs.trilerp_forward_plain(vol, coords)):
+        assert torch.equal(a, b)
+    key, w = got[0], got[1]
+    gw = g[:, None] * w
+    si, perm = torch.sort(key, stable=True)
+    rank = gs.run_ranks(si)
+    d_cell = primitives.sorted_segment_sum(rank, gw, g.shape[0],
+                                           round_bf16=False, perm=perm)
+    d_vol = gs.trilerp_vjp(shape, si, rank, d_cell)
+    assert torch.equal(d_vol, gs.trilerp_vjp_plain(shape, si, rank, d_cell))
+    assert torch.equal(d_vol, gs.trilerp_vjp(shape, si, rank, d_cell))
+    after = kernels.launch_counts()
+    assert after["trilerp_forward"] - before["trilerp_forward"] == 1
+    assert after["trilerp_vjp"] - before["trilerp_vjp"] == 2
+    assert after["gather_rows"] == before["gather_rows"]
+    assert torch.equal(torch.sum(got[3] * w, dim=-1),
+                       DenseTrilerp.apply(vol, coords))
+    assert torch.equal(d_vol, dense_vol_grad(
+        shape, cell_data(shape, coords)[0], gw))
+    assert 0 < int((d_vol != 0).sum()) <= 8 * (int(rank[-1]) + 1)
+
+
+@pytest.mark.cuda
+def test_trilerp_wrappers_refuse_on_card(cuda_device):
+    """The wrappers raise, before any launch, on a grid or samples of
+    another dtype, non-contiguous operands and operands on two devices."""
+    from naruto_tpu_torch.ops import grid_sample as gs
+
+    vol = torch.zeros((8, 8, 8), device=cuda_device)
+    coords = torch.zeros((16, 3), device=cuda_device)
+    si = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    d_cell = torch.zeros((16, 8), device=cuda_device)
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError):
+        gs.trilerp_forward(vol.double(), coords)
+    with pytest.raises(TypeError):
+        gs.trilerp_forward(vol, coords.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.trilerp_forward(vol.transpose(0, 2), coords)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.trilerp_forward(vol, coords.t().contiguous().t())
+    with pytest.raises(ValueError):
+        gs.trilerp_forward(vol, coords.cpu())
+    with pytest.raises(TypeError):
+        gs.trilerp_vjp((8, 8, 8), si.long(), si, d_cell)
+    with pytest.raises(TypeError):
+        gs.trilerp_vjp((8, 8, 8), si, si, d_cell.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.trilerp_vjp((8, 8, 8), si, si,
+                       torch.zeros((8, 16), device=cuda_device).t())
+    assert kernels.launch_counts() == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,nf", [(1, 8), (2049, 8), (5000, 8), (5000, 1),
                                   (5000, 3), (70_000, 64), (3000, 256),
@@ -1381,9 +1487,10 @@ def test_ba_graph_launch_accounting(cuda_device):
     uncert, pose = graph._ba_steps()
     assert uncert and not pose
     assert prog.launches_per_iter == [
-        {"outer_scan_slots": 1, "outer_scan_rows": 0, "gather_rows": 4,
+        {"outer_scan_slots": 1, "outer_scan_rows": 0, "gather_rows": 3,
          "row_cumsum": 0, "sorted_segment_sum": 1, "embed_adam": 1,
-         "adam": 1 + (it in uncert), "query_inputs": 0}
+         "adam": 1 + (it in uncert), "query_inputs": 0,
+         "trilerp_forward": 1, "trilerp_vjp": 1}
         for it in range(iters)]
     assert eager_counts == {
         k: sum(c[k] for c in prog.launches_per_iter) for k in eager_counts}
@@ -1815,3 +1922,95 @@ def test_query_inputs_refuse_on_card(cuda_device, fault):
     with pytest.raises(ValueError):
         encoding.vertex_query_inputs(table, x, spec, 16)
     assert kernels.launch_counts()["query_inputs"] == n0
+
+
+# ------------ the trilinear sample in a graph and in a jiraiya BA call
+# (after the profiler tests: once a process has captured a graph, the
+# tracer loses most records)
+@pytest.mark.cuda
+def test_trilerp_in_a_captured_graph_on_card(cuda_device):
+    """The sample and the grid gradient captured in one CUDA graph at
+    jiraiya's grid: each of two replays, on new grid values and samples
+    written into the captured inputs, equals the plain versions bit for
+    bit; the capture counts one launch of each kernel in its own tally."""
+    from naruto_tpu_torch.ops import grid_sample as gs
+
+    shape = TRILERP_GRIDS["jiraiya"]
+    vol, coords, g = _trilerp_inputs(shape, "rays", 12)
+
+    def step():
+        key, w, _, vals = gs.trilerp_forward(vol, coords)
+        return (torch.sum(vals * w, dim=-1),
+                gs._vol_grad(shape, key, g[:, None] * w))
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):      # the segment sum's state, made
+        step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts()
+    with kernels.capturing() as tally, torch.cuda.graph(graph, stream=stream):
+        out = step()
+    assert kernels.launch_counts() == before
+    assert tally["trilerp_forward"] == tally["trilerp_vjp"] == 1
+    assert tally["sorted_segment_sum"] == 1 and tally["gather_rows"] == 0
+    for seed in (13, 14):
+        for dst, src in zip((vol, coords, g),
+                            _trilerp_inputs(shape, "rays", seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, _trilerp_plain(vol, coords, g)):
+            assert torch.equal(a, b), seed
+
+
+def _jiraiya_ba_cfg():
+    """_jiraiya_tiny_cfg with jiraiya's own BA batch: 2,048 keyframe rays
+    and its samples a ray (93,568 samples an iteration at the 512
+    bucket)."""
+    from naruto_tpu_torch.config import make_config
+
+    mapper = {k: v for k, v in GRAPH_TINY["mapper"].items()
+              if k not in ("bound", "marching_cubes_bound", "voxel_size",
+                           "sample")}
+    return make_config("NARUTO", "jiraiya", num_iter=40, overrides={
+        "cam": GRAPH_TINY["cam"], "grid": GRAPH_SETTINGS["vertex"]["grid"],
+        "mapper": mapper})
+
+
+@pytest.mark.cuda
+def test_jiraiya_ba_call_equals_the_dense_pack_path_on_card(
+        cuda_device, tmp_path, monkeypatch):
+    """At jiraiya's 306^3 uncertainty grid, a map query of all its voxels
+    (28 chunks) and an eager BA call from the same state equal, bit for
+    bit, those run on the dense-pack path (tests/dense_trilerp.py swapped
+    in for the sample): both volumes, every loss and every state leaf."""
+    from dense_trilerp import dense_trilerp
+
+    from naruto_tpu_torch.mapping import field
+    from naruto_tpu_torch.mapping.mapper import Mapper
+    from naruto_tpu_torch.ops import grid_sample
+
+    cfg = _jiraiya_ba_cfg()
+    src = _graph_mapper(cfg, cuda_device)
+    path = str(tmp_path / "state.pkl")
+    src.save_full_state(path)
+    del src
+    runs = []
+    for trilerp in (grid_sample._trilerp, dense_trilerp):
+        monkeypatch.setattr(grid_sample, "_trilerp", trilerp)
+        m = Mapper(cfg, device=cuda_device)
+        m.load_full_state(path)
+        with torch.no_grad():
+            vols = field.chunked_volume_maps(m.params, m.grid01, m.spec)
+        kernels.reset_launch_counts()
+        aux = _graph_call(m, True, 512, 3)
+        torch.cuda.synchronize()
+        runs.append((m, vols, aux, kernels.launch_counts()))
+    (new, new_vols, new_aux, counts), (old, old_vols, old_aux, _) = runs
+    for a, b in zip(new_vols, old_vols):
+        assert torch.equal(a, b)
+    _assert_graph_equal(new_aux, old_aux, new, old, "jiraiya BA call")
+    iters = cfg.mapper.iters
+    assert counts["trilerp_forward"] == counts["trilerp_vjp"] == iters
+    assert counts["gather_rows"] == iters

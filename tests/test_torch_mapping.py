@@ -23,7 +23,7 @@ from naruto_tpu_torch.mapping import field as tfield
 from naruto_tpu_torch.mapping import losses as tlosses
 from naruto_tpu_torch.mapping import render as trender
 from naruto_tpu_torch.mapping.mapper import BADraws, Mapper
-from naruto_tpu_torch.ops import kernels, primitives
+from naruto_tpu_torch.ops import grid_sample, kernels, primitives
 from naruto_tpu_torch.utils.ckpt_io import to_torch
 
 torch.set_num_threads(1)
@@ -167,12 +167,15 @@ LAUNCH_WRAPPERS = {"gather_rows": (primitives, "gather_rows"),
                    "sorted_segment_sum": (primitives, "sorted_segment_sum"),
                    "row_cumsum": (primitives, "row_cumsum"),
                    "outer_scan_slots": (kernels, "outer_cumsum_slots"),
-                   "outer_scan_rows": (kernels, "outer_cumsum_scan")}
+                   "outer_scan_rows": (kernels, "outer_cumsum_scan"),
+                   "trilerp_forward": (grid_sample, "trilerp_forward"),
+                   "trilerp_vjp": (grid_sample, "trilerp_vjp")}
 # calls of each kernel wrapper in one BA iteration (chip_smoke.py checks the
 # same launch counts on the card)
-WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": 4, "sorted_segment_sum": 1,
+WRAPPER_CALLS_PER_BA_ITER = {"gather_rows": 3, "sorted_segment_sum": 1,
                              "row_cumsum": 0, "outer_scan_slots": 1,
-                             "outer_scan_rows": 0}
+                             "outer_scan_rows": 0, "trilerp_forward": 1,
+                             "trilerp_vjp": 1}
 
 
 @contextlib.contextmanager
@@ -296,12 +299,13 @@ def ba_pair():
 class TestBAIteration:
     def test_runs_through_the_kernel_wrappers(self, ba_pair):
         """The iteration compared below gathers and sums rows through
-        primitives.gather_rows / sorted_segment_sum and the hash backward's
-        fused scan (the kernels on the card): the hash forward, the hash
-        backward's two payload gathers and its slot-row scan, the
-        uncertainty grid's cell gather and its VJP's segment sum, fed the
-        sort permutation (no gather of its rows); never the full-row scan
-        nor row_cumsum."""
+        primitives.gather_rows / sorted_segment_sum, the hash backward's
+        fused scan and the uncertainty grid's trilinear pair (the kernels
+        on the card): the hash forward, the hash backward's two payload
+        gathers and its slot-row scan, the uncertainty grid's sample, its
+        VJP's segment sum, fed the sort permutation (no gather of its
+        rows), and its vertex sums; never the full-row scan nor
+        row_cumsum."""
         assert ba_pair["calls"] == WRAPPER_CALLS_PER_BA_ITER
 
     def test_batch_matches(self, ba_pair):

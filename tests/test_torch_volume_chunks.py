@@ -2,8 +2,8 @@
 ``chunked_volume_maps``, ``Mapper.map_volumes``) on the CPU: the chunks'
 volumes against the one-batch query on the hybrid and vertex grids, the
 uncertainty volume at its address, the chunk counter, the spans of the
-query and of the host copy, the sharded query's rank blocks in chunks,
-and the uncertainty grid's cell pack held for many samples."""
+query and of the host copy, and the sharded query's rank blocks in
+chunks."""
 import numpy as np
 import pytest
 import torch
@@ -12,7 +12,6 @@ from naruto_tpu_torch.config import make_config
 from naruto_tpu_torch.mapping import field
 from naruto_tpu_torch.mapping.field import volume_maps
 from naruto_tpu_torch.mapping.mapper import Mapper
-from naruto_tpu_torch.ops import grid_sample
 from naruto_tpu_torch.parallel import sharded
 from naruto_tpu_torch.parallel.mesh import Mesh
 from naruto_tpu_torch.utils.timer import SPANS, SpanStore
@@ -160,18 +159,3 @@ def test_sharded_rank_blocks_in_chunks(mapper, small_chunks, monkeypatch):
     _close(full[:, 1], want_u.reshape(-1))
     assert torch.equal(blocks[1][-1], torch.zeros(2))
 
-
-def test_a_held_cell_pack_samples_as_a_fresh_one():
-    """The chunked query packs the uncertainty grid once for all its
-    chunks: a sample from the held pack equals one that packs the grid
-    itself, bit for bit, and so does the grid's gradient."""
-    g = torch.Generator().manual_seed(5)
-    vol = torch.rand(7, 6, 5, generator=g).requires_grad_(True)
-    x = torch.rand(300, 3, generator=g)
-    held = grid_sample.cell_pack(vol.detach())
-    a = grid_sample.trilinear_sample(vol, x)
-    b = grid_sample.trilinear_sample(vol, x, cells=held)
-    assert torch.equal(a, b)
-    ga, = torch.autograd.grad(a.square().sum(), vol)
-    gb, = torch.autograd.grad(b.square().sum(), vol)
-    assert torch.equal(ga, gb)
